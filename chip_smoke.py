@@ -4,13 +4,16 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card (bit-equal, no tolerance:
-both kernels are exact), runs the streaming session on grqc against the
-port's faithful per-event engine, and drives the full-width session —
-the paper's largest dataset, twitter at scale 1.0 — through
-``Partitioner.feed`` with both kernels on the path. One JSON line per
-phase; the last line is ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero without that line. Needs one CUDA card; imports
-nothing of JAX.
+every kernel is exact), runs the streaming session on grqc against the
+port's faithful per-event engine, drives the full-width session — the
+paper's largest dataset, twitter at scale 1.0 — through
+``Partitioner.feed`` with both session kernels on the path, and serves
+the two-tower recsys model at its full vocabulary and widths (bf16
+tables, 51.54 GB on the card) through ``serve_score`` and
+``score_candidates`` with the ``embedding_bag`` kernel on the path. One
+JSON line per phase; the last line is ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero without that line. Needs one CUDA
+card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.api.partitioner import Partitioner  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import engine, transition as tx, windowed as wnd  # noqa: E402
 from repro_torch.core.config import EngineConfig, POLICIES  # noqa: E402
 from repro_torch.core.metrics import recompute_counters  # noqa: E402
@@ -39,12 +44,16 @@ from repro_torch.graph.stream import (  # noqa: E402
     EVENT_ADD, VertexStream, interleaved_churn, normalize_rows,
 )
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref  # noqa: E402
 from repro_torch.kernels.partition_affinity import ops as pops  # noqa: E402
 from repro_torch.kernels.partition_affinity import partition_affinity as pa  # noqa: E402
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import recsys as RS  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
@@ -53,6 +62,19 @@ EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
 # stream's max_deg exactly), 16 partition slots
 WINDOW, TWITTER_CAP, K_MAX = 256, 192, 16
 SESSION_SHAPE = (WINDOW, TWITTER_CAP, K_MAX)
+# embedding_bag cases (V, D, B, L, lowest id): tests/test_kernels.py's
+# shapes, the serve shape (4096 bags of 8 slots at D = 256), and rows past
+# 2^23 at D = 256, where idx * D passes 2^31
+BAG_CASES = ((10, 8, 4, 1, -1), (50, 24, 12, 5, -1), (100, 130, 7, 9, -1),
+             (30, 256, 3, 4, -1), (1 << 20, 256, 4096, 8, -1),
+             ((1 << 23) + 4096, 256, 1024, 8, 1 << 23))
+# the recsys phase: requests served (after warm-up ones), the corpus chunk,
+# the serve_bulk slice checked against the plain bag, and the check's
+# tolerance on scores (|score| <= 1/temperature = 20; the kernel path and
+# the plain path run the same towers on bit-equal bags, so 0 is expected)
+P99_REQUESTS, BULK_REQUESTS, QUERIES, WARMUP = 300, 4, 200, 10
+CORPUS_CHUNK, BULK_CHECK = 131_072, 32_768
+SCORE_ATOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -110,6 +132,20 @@ def max_abs_diff(a, b) -> int:
     return worst
 
 
+def bag_case(dev, v, d, b, l, dtype, seed, low=-1):
+    """A (V, D) table in ``dtype`` and (B, L) int32 bags: ids in [low, V),
+    about a quarter of the slots -1, bag 0 all padding — built by hand,
+    since full-vocab ``make_batch`` ids are almost never -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((v, d), generator=g, device=dev).to(dtype)
+    idx = torch.randint(low, v, (b, l), generator=g, device=dev,
+                        dtype=torch.int32)
+    pad = torch.rand((b, l), generator=g, device=dev) < 0.25
+    idx = torch.where(pad, torch.full_like(idx, -1), idx)
+    idx[0] = -1
+    return table, idx
+
+
 def clone_state(state):
     return type(state)(*(t.clone() for t in state))
 
@@ -154,7 +190,8 @@ def phase_device() -> dict:
 
 def phase_build() -> dict:
     t = time.perf_counter()
-    libs = common.build_kernels(["partition_affinity", "fused_chooser"])
+    libs = common.build_kernels(["partition_affinity", "fused_chooser",
+                                 "embedding_bag"])
     secs = time.perf_counter() - t
     ptxas = {}
     for name, lib in libs.items():
@@ -193,8 +230,7 @@ def _warm_state(dev, name, scale, cap, width, k_max, max_cap, window, warm):
     return state, cfg, (et[sl], vx[sl], nb[sl]), warm
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card, bit for bit."""
+def check_partition_affinity(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     pa_out = {"name": "partition_affinity", "cases": []}
     for (w, d, k) in (SESSION_SHAPE, (256, 256, 16), (100, 37, 5), (1, 1, 1)):
@@ -229,7 +265,10 @@ def phase_kernels(dev) -> dict:
         if err:
             raise AssertionError(f"partition_affinity {w}x{d}x{k}: kernel "
                                  f"differs from the plain version by {err}")
+    return pa_out
 
+
+def check_fused_chooser(dev) -> dict:
     fc_out = {"name": "fused_chooser", "cases": []}
     # (label, dataset, scale, degree cap, row width, k_max, window, warm
     # events, max_cap): the session's shapes (SESSION_SHAPE), a window and
@@ -293,8 +332,42 @@ def phase_kernels(dev) -> dict:
                             f"fused_chooser {label} {policy}/{guard}/"
                             f"autoscale={auto}: kernel differs from the plain "
                             f"version by {err}")
-    out = {"phase": "kernels", "partition_affinity": pa_out,
-           "fused_chooser": fc_out}
+    return fc_out
+
+
+def check_embedding_bag(dev) -> dict:
+    """f32 and bf16 tables, sum and mean, every case with -1 slots and an
+    all-padding bag (BAG_CASES)."""
+    eb_out = {"name": "embedding_bag", "cases": []}
+    for v, d, b, l, low in BAG_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            table, idx = bag_case(dev, v, d, b, l, dtype, seed=v + b, low=low)
+            for mode in ("sum", "mean"):
+                got = eb.embedding_bag(table, idx, mode=mode)
+                want = embedding_bag_ref(table, idx, mode=mode)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                same = torch.equal(got, want)
+                eb_out["cases"].append(
+                    {"shape": [v, d, b, l], "dtype": str(dtype)[6:],
+                     "mode": mode, "max_abs_err": err,
+                     "max_row_offset": int(idx.max()) * d,
+                     "padding_slots": int((idx < 0).sum())})
+                if not same or err or got[0].any():
+                    raise AssertionError(
+                        f"embedding_bag {v}x{d} bags {b}x{l} {dtype} {mode}: "
+                        f"kernel differs from the plain version by {err}")
+            del table, idx
+    torch.cuda.empty_cache()
+    return eb_out
+
+
+def phase_kernels(dev) -> dict:
+    """Each kernel against its plain version on the card, bit for bit."""
+    out = {"phase": "kernels",
+           "partition_affinity": check_partition_affinity(dev),
+           "fused_chooser": check_fused_chooser(dev),
+           "embedding_bag": check_embedding_bag(dev)}
     emit(out)
     return out
 
@@ -318,14 +391,19 @@ def _scaling(state, k_init) -> dict:
             "scale_ins": scale_in, "num_partitions": npart}
 
 
+_WRAPPERS = {"partition_affinity": pa.partition_affinity,
+             "fused_chooser": fk.fused_window_choose,
+             "embedding_bag": eb.embedding_bag}
+SESSION_KERNELS = ("partition_affinity", "fused_chooser")
+
+
 def _reset_launches():
-    pa.partition_affinity.launches = 0
-    fk.fused_window_choose.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
 
 
-def _read_launches() -> dict:
-    return {"partition_affinity": pa.partition_affinity.launches,
-            "fused_chooser": fk.fused_window_choose.launches}
+def _read_launches(names=SESSION_KERNELS) -> dict:
+    return {name: _WRAPPERS[name].launches for name in names}
 
 
 def phase_grqc(dev) -> dict:
@@ -481,13 +559,255 @@ def phase_twitter(dev) -> dict:
     return out
 
 
-def kernel_line(kernels: dict, twitter: dict) -> dict:
+def _ms_pct(seconds, q) -> float:
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def _bag_ids(batch: dict, cfg) -> torch.Tensor:
+    """A request's user and item bags as one (B·F_user + B·F_item, S) list
+    (every id is below both vocabularies, which are equal)."""
+    s = cfg.field_slots
+    return torch.cat([batch["user_ids"].reshape(-1, s),
+                      batch["item_ids"].reshape(-1, s)])
+
+
+def _bag_bound_ms(table, idx) -> float:
+    """HBM time of the bytes one bag launch must move: each valid slot's
+    row read once, every id read once, every output float written once."""
+    b, l = idx.shape
+    d = table.shape[1]
+    nbytes = (int((idx >= 0).sum()) * d * table.element_size()
+              + b * l * 4 + b * d * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def time_bag(table, idx, reps: int, plain_in_graph: bool) -> dict:
+    """The kernel (mean bags, as the towers call it), its plain version and
+    ``torch.nn.functional.embedding_bag`` — the yardstick, over the same
+    ids compacted into the offsets form outside the timing; with a bf16
+    table it returns bf16 — on the same table and ids."""
+    torch.cuda.empty_cache()       # earlier graphs' pools, before big temporaries
+    valid = idx >= 0
+    flat = idx[valid].to(torch.int64)
+    offsets = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
+    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+
+    def kernel():
+        return eb.embedding_bag(table, idx, mode="mean")
+
+    def plain():
+        return embedding_bag_ref(table, idx, mode="mean")
+
+    def library():
+        return torch.nn.functional.embedding_bag(flat, table, offsets,
+                                                 mode="mean")
+
+    lib_out = library()
+    out = {"bags": idx.shape[0], "slots": idx.shape[1],
+           "dim": table.shape[1], "table_dtype": str(table.dtype)[6:],
+           "ms": graph_ms(kernel, reps), "eager_ms": eager_ms(kernel, reps),
+           "library_ms": graph_ms(library, reps),
+           "library_eager_ms": eager_ms(library, reps),
+           "library_out_dtype": str(lib_out.dtype)[6:],
+           "library_max_abs_diff_vs_kernel": float(
+               (lib_out.float() - kernel()).abs().max()),
+           "bound_ms": _bag_bound_ms(table, idx), "bound_by": "bytes"}
+    del lib_out
+    if plain_in_graph:
+        out["plain_ms"] = graph_ms(plain, max(reps // 5, 1))
+        out["plain_eager_ms"] = eager_ms(plain, max(reps // 5, 1))
+    else:    # a graph would keep the plain version's temporaries pooled
+        out["plain_ms"] = out["plain_eager_ms"] = eager_ms(plain, 1)
+    return out
+
+
+def _check_scores(params, cfg, ids: dict, dev):
+    """The request's bags bit-equal between the kernel and the plain bag,
+    and its scores through both paths within SCORE_ATOL (expected 0).
+    Returns the record and the plain path's scores."""
+    batch = serve.request_tensors(ids, dev)
+    for table, key in (("user_table", "user_ids"), ("item_table", "item_ids")):
+        flat = batch[key].reshape(-1, cfg.field_slots)
+        if not torch.equal(eb.embedding_bag(params[table], flat, mode="mean"),
+                           embedding_bag_ref(params[table], flat, mode="mean")):
+            raise AssertionError(f"recsys: {key} bags differ between the "
+                                 "kernel and the plain version")
+    got = RS.serve_score(params, batch, cfg)
+    want = RS.serve_score(params, batch, cfg, use_kernel=False)
+    n = ids["user_ids"].shape[0]
+    if got.shape != (n,) or not torch.isfinite(got).all() \
+            or float(got.abs().max()) > 1.0001 / cfg.temperature:
+        raise AssertionError(f"recsys: scores of shape {tuple(got.shape)} "
+                             "are not finite cosines / temperature")
+    err = float((got - want).abs().max())
+    if err > SCORE_ATOL:
+        raise AssertionError(f"recsys: {n} scores differ from the plain "
+                             f"bag's by {err} > {SCORE_ATOL}")
+    return {"pairs": n, "bags_bit_equal": True, "max_abs_err": err,
+            "atol": SCORE_ATOL}, want
+
+
+def phase_recsys(dev) -> dict:
+    """Two-tower serving at the full vocabulary and widths (CONFIG with
+    bf16 tables): serve_p99 and serve_bulk through ``serve_score``,
+    retrieval_cand through ``score_candidates`` over a corpus the item
+    tower computes, every bag through the kernel."""
+    cfg = serve.serving_config(get_arch("two-tower-retrieval"), full=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = RS.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    table_bytes = sum(params[k].numel() * params[k].element_size()
+                      for k in ("user_table", "item_table"))
+
+    def request(b, seed):
+        t0 = time.perf_counter()
+        ids = RS.make_batch(cfg, b, seed=seed)
+        t1 = time.perf_counter()
+        scores = RS.serve_score(params, serve.request_tensors(ids, dev), cfg)
+        torch.cuda.synchronize()
+        return scores, t1 - t0, time.perf_counter() - t1
+
+    def served(b, gen_s, srv_s) -> dict:
+        req_s = [g + s for g, s in zip(gen_s, srv_s)]
+        return {"batch": b, "requests": len(req_s),
+                "latency_ms_p50": _ms_pct(req_s, 50),
+                "latency_ms_p99": _ms_pct(req_s, 99),
+                "serve_ms_p50": _ms_pct(srv_s, 50),
+                "serve_ms_p99": _ms_pct(srv_s, 99),
+                "make_batch_ms_p50": _ms_pct(gen_s, 50),
+                "pairs_per_s": b * len(req_s) / sum(req_s),
+                "serve_pairs_per_s": b * len(req_s) / sum(srv_s)}
+
+    _reset_launches()
+    # serve_p99: requests of 512 pairs, ids made on the host and copied over
+    b_p99 = RECSYS_SHAPES["serve_p99"].batch
+    gen_s, srv_s = [], []
+    for i in range(WARMUP + P99_REQUESTS):
+        _, g, s = request(b_p99, seed=i)
+        if i >= WARMUP:
+            gen_s.append(g)
+            srv_s.append(s)
+    p99 = served(b_p99, gen_s, srv_s)
+    p99["warmup"] = WARMUP
+
+    # serve_bulk: requests of 262,144 pairs, the first one a warm-up
+    b_bulk = RECSYS_SHAPES["serve_bulk"].batch
+    gen_s, srv_s = [], []
+    for i in range(1 + BULK_REQUESTS):
+        scores, g, s = request(b_bulk, seed=10_000 + i)
+        if i == 0:
+            bulk_head = scores[:BULK_CHECK].clone()
+        else:
+            gen_s.append(g)
+            srv_s.append(s)
+    del scores
+    bulk = served(b_bulk, gen_s, srv_s)
+    bulk["warmup"] = 1
+
+    # retrieval_cand: the corpus through the item tower in chunks, then
+    # single queries against all of it
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    nc = shape.n_candidates
+    t = time.perf_counter()
+    corpus = torch.empty((nc, cfg.tower_mlp[-1]), dtype=torch.float32,
+                         device=dev)
+    for c0 in range(0, nc, CORPUS_CHUNK):
+        n = min(CORPUS_CHUNK, nc - c0)
+        ids = RS.make_batch(cfg, n, seed=20_000 + c0 // CORPUS_CHUNK)
+        corpus[c0:c0 + n] = RS.item_embed(
+            params, serve.request_tensors(ids, dev), cfg)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t
+    lat = []
+    for q in range(WARMUP + QUERIES):
+        t0 = time.perf_counter()
+        batch = serve.request_tensors(
+            RS.make_batch(cfg, shape.batch, seed=30_000 + q), dev)
+        batch["cand_item_emb"] = corpus
+        cand_scores = RS.score_candidates(params, batch, cfg)
+        torch.cuda.synchronize()
+        if q >= WARMUP:
+            lat.append(time.perf_counter() - t0)
+    launches = _read_launches(("embedding_bag",))
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches["embedding_bag"] < 1:
+        raise AssertionError(f"recsys serving missed the kernel: {launches}")
+    retrieval = {"batch": shape.batch, "candidates": nc,
+                 "corpus_s": corpus_s, "queries": len(lat), "warmup": WARMUP,
+                 "latency_ms_p50": _ms_pct(lat, 50),
+                 "latency_ms_p99": _ms_pct(lat, 99)}
+
+    # checks: the kernel path against the plain bag on the card
+    want = RS.score_candidates(params, batch, cfg, use_kernel=False)
+    if cand_scores.shape != (shape.batch, nc) \
+            or not torch.isfinite(cand_scores).all():
+        raise AssertionError("recsys: retrieval scores are not finite "
+                             f"({tuple(cand_scores.shape)})")
+    err = float((cand_scores - want).abs().max())
+    if err > SCORE_ATOL:
+        raise AssertionError(f"recsys: retrieval scores differ from the "
+                             f"plain bag's by {err} > {SCORE_ATOL}")
+    checks = {"retrieval_cand": {"candidates": nc, "max_abs_err": err,
+                                 "atol": SCORE_ATOL}}
+    del corpus, batch, cand_scores, want
+    checks["serve_p99"], _ = _check_scores(
+        params, cfg, RS.make_batch(cfg, b_p99, seed=WARMUP), dev)
+    bulk_ids = RS.make_batch(cfg, b_bulk, seed=10_000)
+    checks["serve_bulk"], want = _check_scores(
+        params, cfg, {k: v[:BULK_CHECK] for k, v in bulk_ids.items()}, dev)
+    # the same pairs as scored inside the full 262,144-pair request
+    err = float((bulk_head - want).abs().max())
+    if err > SCORE_ATOL:
+        raise AssertionError(f"recsys: serve_bulk scores differ from the "
+                             f"plain bag's by {err} > {SCORE_ATOL}")
+    checks["serve_bulk"]["max_abs_err_in_full_request"] = err
+
+    # the kernel timed at both serve shapes on the full bf16 table
+    table = params["user_table"]
+    p99_batch = serve.request_tensors(
+        RS.make_batch(cfg, b_p99, seed=WARMUP), dev)
+    timing = {"serve_p99": time_bag(table, _bag_ids(p99_batch, cfg), 100,
+                                    plain_in_graph=True)}
+    # a request launches two bags (user, item); their device time per request
+    per_request_ms = 0.0
+    for tbl, key in (("user_table", "user_ids"), ("item_table", "item_ids")):
+        ids = p99_batch[key].reshape(-1, cfg.field_slots)
+        per_request_ms += graph_ms(functools.partial(
+            eb.embedding_bag, params[tbl], ids, mode="mean"), 100)
+    timing["serve_p99"]["per_request_ms"] = per_request_ms
+    timing["serve_bulk"] = time_bag(
+        table, _bag_ids(serve.request_tensors(bulk_ids, dev), cfg), 3,
+        plain_in_graph=False)
+    share = {"serve_p99_of_serve_p50": per_request_ms / p99["serve_ms_p50"],
+             "serve_p99_of_latency_p50": per_request_ms / p99["latency_ms_p50"],
+             "serve_bulk_of_serve_p50": (timing["serve_bulk"]["ms"]
+                                         / bulk["serve_ms_p50"])}
+    out = {"phase": "recsys", "arch": cfg.name,
+           "config": vars(cfg),
+           "table_bytes": table_bytes, "init_s": init_s,
+           "serve_p99": p99, "serve_bulk": bulk, "retrieval_cand": retrieval,
+           "launches": launches, "max_memory_allocated": peak,
+           "checks": checks, "kernel": timing, "kernel_share": share}
+    del params, table, p99_batch
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def kernel_line(kernels: dict, twitter: dict, recsys: dict) -> dict:
     pa_case = next(c for c in kernels["partition_affinity"]["cases"] if "ms" in c)
     fc_case = next(c for c in kernels["fused_chooser"]["cases"] if "ms" in c)
     pa_cases = kernels["partition_affinity"]["cases"]
     fc_cases = kernels["fused_chooser"]["cases"]
+    eb_cases = kernels["embedding_bag"]["cases"]
     worst_pa = max(c["max_abs_err"] for c in pa_cases)
     worst_fc = max(c["max_abs_err"] for c in fc_cases)
+    eb_p99, eb_bulk = (recsys["kernel"]["serve_p99"],
+                       recsys["kernel"]["serve_bulk"])
+    timed = ("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms")
     rows = [
         {"name": "partition_affinity", "route": "cuda",
          "source": "src/repro_torch/csrc/partition_affinity.cu",
@@ -509,6 +829,21 @@ def kernel_line(kernels: dict, twitter: dict) -> dict:
          "ms": fc_case["ms"], "plain_ms": fc_case["plain_ms"],
          "bound_ms": fc_case["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "embedding_bag", "route": "cuda",
+         "source": "src/repro_torch/csrc/embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:49",
+         "launches": recsys["launches"]["embedding_bag"],
+         "max_abs_err": max(c["max_abs_err"] for c in eb_cases),
+         "shape": [eb_p99["bags"], eb_p99["slots"], eb_p99["dim"]],
+         "cases": len(eb_cases),
+         "mismatches": sum(c["max_abs_err"] != 0 for c in eb_cases),
+         "ms": eb_p99["ms"], "plain_ms": eb_p99["plain_ms"],
+         "bound_ms": eb_p99["bound_ms"], "bound_by": "bytes",
+         "library_ms": eb_p99["library_ms"],
+         "library": "torch.nn.functional.embedding_bag (bf16 output)",
+         "serve_bulk": {"shape": [eb_bulk["bags"], eb_bulk["slots"],
+                                  eb_bulk["dim"]],
+                        **{k: eb_bulk[k] for k in timed}}},
     ]
     return {"kernels": rows}
 
@@ -522,7 +857,8 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_grqc(dev)
     twitter = phase_twitter(dev)
-    emit(kernel_line(kernels, twitter))
+    recsys = phase_recsys(dev)
+    emit(kernel_line(kernels, twitter, recsys))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

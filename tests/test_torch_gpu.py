@@ -1,5 +1,5 @@
 """Card-only checks of the port's CUDA kernels against their plain PyTorch
-versions, bit for bit (both kernels are exact). Marked ``gpu``: they skip
+versions, bit for bit (every kernel is exact). Marked ``gpu``: they skip
 where there is no CUDA card, and run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -16,6 +16,8 @@ from repro_torch.core.state import init_state
 from repro_torch.core import windowed as wnd
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.graph.stream import EVENT_ADD, interleaved_churn
+from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
 from repro_torch.kernels.fused_chooser.ops import _prepare_window
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref
@@ -75,6 +77,46 @@ def _window(cuda, k_max, window=64, warm=128):
     return n, (prep.ev, prep.src_lbl, prep.touch,
                tx.rand_index_table(st.key, warm, window, k_max), st.active,
                st.edge_load, st.vertex_count, st.cut_matrix, scalars, knobs)
+
+
+def bag_case(dev, v, d, b, l, dtype, seed, low=-1):
+    """A (V, D) table in ``dtype`` and (B, L) int32 bags on ``dev``: ids in
+    [low, V), about a quarter of the slots -1, bag 0 all padding — the
+    cases the kernel must get right, built by hand because full-vocab
+    ``make_batch`` ids are almost never -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((v, d), generator=g, device=dev).to(dtype)
+    idx = torch.randint(low, v, (b, l), generator=g, device=dev,
+                        dtype=torch.int32)
+    pad = torch.rand((b, l), generator=g, device=dev) < 0.25
+    idx = torch.where(pad, torch.full_like(idx, -1), idx)
+    idx[0] = -1
+    return table, idx
+
+
+# tests/test_kernels.py's embedding_bag shapes (V, D, B, L), the serve
+# shape (4096 bags of 8 slots at D = 256), and rows past 2^23 at D = 256,
+# where idx * D passes 2^31
+BAG_CASES = [(10, 8, 4, 1, -1), (50, 24, 12, 5, -1), (100, 130, 7, 9, -1),
+             (30, 256, 3, 4, -1), (1 << 20, 256, 4096, 8, -1),
+             ((1 << 23) + 4096, 256, 1024, 8, 1 << 23)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,l,low", BAG_CASES)
+def test_embedding_bag_kernel_matches_plain(cuda, v, d, b, l, low, dtype):
+    table, idx = bag_case(cuda, v, d, b, l, dtype, seed=v + b, low=low)
+    if low > 0:
+        assert int(idx.max()) * d >= 2 ** 31
+    for mode in ("sum", "mean"):
+        before = embedding_bag.launches
+        got = embedding_bag(table, idx, mode=mode)
+        assert embedding_bag.launches == before + 1
+        want = embedding_bag_ref(table, idx, mode=mode)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (b, d)
+        assert torch.equal(got, want), mode
+        assert not got[0].any()                 # the all-padding bag
 
 
 @pytest.mark.parametrize("k_max", [6, 1])
