@@ -3,15 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version on the card (bit-equal, no tolerance:
-every kernel is exact), runs the streaming session on grqc against the
+against its plain PyTorch version on the card (bit-equal, no tolerance,
+for the exact kernels; flash_attention's f32 sums run in another order
+than the plain version's, so it is held at tests/test_kernels.py's 2e-5 in
+f32 and at one bf16 ulp in bf16), runs the streaming session on grqc against the
 port's faithful per-event engine, drives the full-width session — the
 paper's largest dataset, twitter at scale 1.0 — through
 ``Partitioner.feed`` with both session kernels on the path, and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
-``score_candidates`` with the ``embedding_bag`` kernel on the path. One
-JSON line per phase; the last line is ``{"ok": true, "device": {...}}``.
+``score_candidates`` with the ``embedding_bag`` kernel on the path,
+aggregates twitter's ELL adjacency through ``ell_aggregate`` with the
+``segment_spmm`` kernel on the path, and serves gemma2-9b at its full
+width and depth (bf16, 18.48 GB of params, an 11.32 GB KV cache) through
+``LMServer`` — 8 requests of 8,192-token prompts, 32 tokens each — with
+every attention call of prefill and decode on the ``flash_attention``
+kernel. One JSON line per phase; the last line is ``{"ok": true,
+"device": {...}}``.
 Any failure raises and exits non-zero without that line. Needs one CUDA
 card; imports nothing of JAX.
 """
@@ -46,16 +54,24 @@ from repro_torch.graph.stream import (  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref  # noqa: E402
 from repro_torch.kernels.partition_affinity import ops as pops  # noqa: E402
 from repro_torch.kernels.partition_affinity import partition_affinity as pa  # noqa: E402
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref  # noqa: E402
+from repro_torch.kernels.segment_spmm import ops as sops  # noqa: E402
+from repro_torch.kernels.segment_spmm import segment_spmm as ss  # noqa: E402
+from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores (data sheet)
 EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
 # the full-width session's kernel shapes: a window of 256 events, twitter
 # degree-capped to 192 (``Partitioner.from_stream`` sizes the rows to the
@@ -75,6 +91,29 @@ BAG_CASES = ((10, 8, 4, 1, -1), (50, 24, 12, 5, -1), (100, 130, 7, 9, -1),
 P99_REQUESTS, BULK_REQUESTS, QUERIES, WARMUP = 300, 4, 200, 10
 CORPUS_CHUNK, BULK_CHECK = 131_072, 32_768
 SCORE_ATOL = 1e-3
+# flash_attention cases (B, H, Hkv, Sq, Sk, D): tests/test_kernels.py's
+# ATTN_CASES, then phi3's (32/32 x 96) and deepseek's (56/8 x 128) heads
+ATTN_CASES = ((1, 1, 1, 16, 16, 8), (2, 4, 2, 64, 64, 16),
+              (2, 4, 1, 33, 65, 32), (1, 8, 8, 128, 128, 64),
+              (1, 32, 32, 256, 256, 96), (1, 56, 8, 256, 256, 128))
+ATTN_KW = (dict(causal=True), dict(causal=True, window=16),
+           dict(causal=True, softcap=30.0), dict(causal=False))
+ATTN_TOL = 2e-5          # tests/test_kernels.py's tolerance, f32
+# bf16 out: kernel and plain version round one f32 result computed in
+# another order, so they may land one bf16 ulp (<= 2^-7 relative) apart
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# the LM phase: gemma2-9b's CONFIG served as serve_lm serves it
+LM_ARCH, LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "gemma2-9b", 4, 8, 8192, 32
+LM_MAX_LEN = LM_PROMPT + LM_GEN + 1
+# logits of two bf16 paths through 42 layers (kernel vs plain attention;
+# prefill + decode vs one forward over S + 1 tokens, whose products run at
+# other shapes): each rounds the residual stream to bf16 (2^-8) at other
+# places, so they drift apart by a few bf16 ulps; a wrong mask, position
+# or cache slot moves the logits by O(1). Limit on the relative L2 error:
+LOGIT_REL = 2.0 ** -4
+# segment_spmm: the twitter session's ELL (degree cap 192) at MeshGraphNet's
+# hidden width and at full_graph_sm's d_feat, and grqc's uncapped rows
+SPMM_WIDTHS = (128, 1433)
 
 
 def emit(obj) -> None:
@@ -191,7 +230,8 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     t = time.perf_counter()
     libs = common.build_kernels(["partition_affinity", "fused_chooser",
-                                 "embedding_bag"])
+                                 "embedding_bag", "flash_attention",
+                                 "segment_spmm"])
     secs = time.perf_counter() - t
     ptxas = {}
     for name, lib in libs.items():
@@ -362,12 +402,143 @@ def check_embedding_bag(dev) -> dict:
     return eb_out
 
 
-def phase_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card, bit for bit."""
+def _bf16_err(got, want) -> float:
+    """Worst excess of |got - want| over the bf16 tolerance (<= 0 passes),
+    and the max abs err."""
+    diff = (got.float() - want.float()).abs()
+    excess = diff - (BF16_ATOL + BF16_RTOL * want.float().abs())
+    return float(excess.max()), float(diff.max())
+
+
+def _attn_inputs(dev, b, h, hkv, sq, sk, d, dtype, seed, layout="bhsd"):
+    """q, k, v from a seeded generator; ``layout="bshd"`` makes them the
+    model's (B, S, H, D) tensors seen as (B, H, S, D) views."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for heads, s in ((h, sq), (hkv, sk), (hkv, sk)):
+        if layout == "bshd":
+            t = torch.randn((b, s, heads, d), generator=g, device=dev)
+            out.append(t.to(dtype).transpose(1, 2))
+        else:
+            t = torch.randn((b, heads, s, d), generator=g, device=dev)
+            out.append(t.to(dtype))
+    return out
+
+
+def check_flash_attention(dev) -> dict:
+    """ATTN_CASES x ATTN_KW and the decode case with a q_offset in f32 at
+    2e-5; gemma2's own prefill (S = 8,192, local and global) and decode
+    (4 slots against an 8,225-slot cache) shapes in bf16, through the
+    model's (B, S, H, D) views, at one bf16 ulp."""
+    fa_out = {"name": "flash_attention", "cases": []}
+    cases = [(c, kw) for c in ATTN_CASES for kw in ATTN_KW]
+    cases.append(((2, 4, 2, 1, 96, 16), dict(q_offset=95)))
+    for (b, h, hkv, sq, sk, d), kw in cases:
+        q, k, v = _attn_inputs(dev, b, h, hkv, sq, sk, d, torch.float32,
+                               seed=sq * 7 + d)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL))
+        fa_out["cases"].append({"shape": [b, h, hkv, sq, sk, d], **kw,
+                                "dtype": "float32", "max_abs_err": err,
+                                "tol": ATTN_TOL})
+        if not ok:
+            raise AssertionError(f"flash_attention {[b, h, hkv, sq, sk, d]} "
+                                 f"{kw}: kernel differs from the plain "
+                                 f"version by {err} > {ATTN_TOL}")
+    cfg = get_arch(LM_ARCH).config
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gemma = [((1, hq, hkv, LM_PROMPT, LM_PROMPT, hd), dict(window=w))
+             for w in (cfg.window_pattern)]
+    gemma += [((LM_SLOTS, hq, hkv, 1, LM_MAX_LEN, hd),
+               dict(window=w, q_offset=LM_PROMPT + 5))
+              for w in cfg.window_pattern]
+    for (b, h, hkv_, sq, sk, d), kw in gemma:
+        kw = dict(kw, softcap=cfg.attn_softcap)
+        q, k, v = _attn_inputs(dev, b, h, hkv_, sq, sk, d, torch.bfloat16,
+                               seed=sq + kw["window"], layout="bshd")
+        got = fa.flash_attention(q, k, v, **kw)
+        want = layers.attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2),
+                                q_offset=kw.get("q_offset", 0),
+                                window=kw["window"], softcap=kw["softcap"],
+                                use_kernel=False, chunk=cfg.attn_chunk)
+        torch.cuda.synchronize()
+        excess, err = _bf16_err(got, want.transpose(1, 2))
+        fa_out["cases"].append({"shape": [b, h, hkv_, sq, sk, d], **kw,
+                                "dtype": "bfloat16", "layout": "bshd views",
+                                "max_abs_err": err, "rtol": BF16_RTOL,
+                                "atol": BF16_ATOL})
+        if excess > 0:
+            raise AssertionError(f"flash_attention gemma2 {[b, h, sq, sk]} "
+                                 f"{kw}: kernel differs from the plain "
+                                 f"version by {err} (beyond one bf16 ulp)")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return fa_out
+
+
+def ell_of(g, width: int) -> np.ndarray:
+    """The graph's (n, width) int32 ELL adjacency, -1 padded."""
+    deg = np.diff(g.indptr)
+    ell = np.full((g.n, width), -1, np.int32)
+    rows = np.repeat(np.arange(g.n), deg)
+    cols = np.arange(g.indptr[-1]) - np.repeat(g.indptr[:-1], deg)
+    ell[rows, cols] = g.indices
+    return ell
+
+
+def spmm_graphs(dev) -> dict:
+    """{name: ELL on ``dev``}: twitter at scale 1.0 degree-capped to 192 as
+    the session holds it, and grqc uncapped (rows 2,843 wide)."""
+    tw = cap_degree(load_dataset("twitter", scale=1.0), TWITTER_CAP)
+    gq = load_dataset("grqc")
+    return {"twitter": torch.from_numpy(ell_of(tw, TWITTER_CAP)).to(dev),
+            "grqc": torch.from_numpy(ell_of(gq, int(np.diff(gq.indptr).max())))
+            .to(dev)}
+
+
+def check_segment_spmm(dev, graphs) -> dict:
+    """Sum and mean, f32 and bf16, on twitter's ELL at F = 128 and 1433 and
+    grqc's at F = 128: bit-equal to the plain version."""
+    sp_out = {"name": "segment_spmm", "cases": []}
+    for name, adj in graphs.items():
+        for f in (SPMM_WIDTHS if name == "twitter" else SPMM_WIDTHS[:1]):
+            g = torch.Generator(device=dev).manual_seed(f)
+            x32 = torch.randn((adj.shape[0], f), generator=g, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                for mode in ("sum", "mean"):
+                    got = ss.segment_spmm(x, adj, mode=mode)
+                    want = segment_spmm_ref(x, adj, mode=mode)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    sp_out["cases"].append(
+                        {"graph": name, "shape": [adj.shape[0], adj.shape[1], f],
+                         "dtype": str(dtype)[6:], "mode": mode,
+                         "max_abs_err": err,
+                         "valid_slots": int((adj >= 0).sum())})
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"segment_spmm {name} F={f} {dtype} {mode}: kernel "
+                            f"differs from the plain version by {err}")
+                    del got, want
+            del x32, x
+    torch.cuda.empty_cache()
+    return sp_out
+
+
+def phase_kernels(dev, graphs) -> dict:
+    """Each kernel against its plain version on the card: bit for bit, but
+    flash_attention at its stated tolerances."""
     out = {"phase": "kernels",
            "partition_affinity": check_partition_affinity(dev),
            "fused_chooser": check_fused_chooser(dev),
-           "embedding_bag": check_embedding_bag(dev)}
+           "embedding_bag": check_embedding_bag(dev),
+           "flash_attention": check_flash_attention(dev),
+           "segment_spmm": check_segment_spmm(dev, graphs)}
     emit(out)
     return out
 
@@ -393,7 +564,9 @@ def _scaling(state, k_init) -> dict:
 
 _WRAPPERS = {"partition_affinity": pa.partition_affinity,
              "fused_chooser": fk.fused_window_choose,
-             "embedding_bag": eb.embedding_bag}
+             "embedding_bag": eb.embedding_bag,
+             "flash_attention": fa.flash_attention,
+             "segment_spmm": ss.segment_spmm}
 SESSION_KERNELS = ("partition_affinity", "fused_chooser")
 
 
@@ -571,13 +744,15 @@ def _bag_ids(batch: dict, cfg) -> torch.Tensor:
                       batch["item_ids"].reshape(-1, s)])
 
 
-def _bag_bound_ms(table, idx) -> float:
-    """HBM time of the bytes one bag launch must move: each valid slot's
-    row read once, every id read once, every output float written once."""
-    b, l = idx.shape
+def _rows_bound_ms(table, idx, n_out: int) -> float:
+    """HBM time of the bytes one gather-reduce launch (embedding_bag,
+    segment_spmm) must move: each table row that a valid slot names read
+    once (a row named twice is still one read), every id read once, every
+    output float written once."""
     d = table.shape[1]
-    nbytes = (int((idx >= 0).sum()) * d * table.element_size()
-              + b * l * 4 + b * d * 4)
+    rows = torch.unique(idx[idx >= 0]).numel()
+    nbytes = (rows * d * table.element_size() + idx.numel() * 4
+              + n_out * d * 4)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -611,7 +786,8 @@ def time_bag(table, idx, reps: int, plain_in_graph: bool) -> dict:
            "library_out_dtype": str(lib_out.dtype)[6:],
            "library_max_abs_diff_vs_kernel": float(
                (lib_out.float() - kernel()).abs().max()),
-           "bound_ms": _bag_bound_ms(table, idx), "bound_by": "bytes"}
+           "bound_ms": _rows_bound_ms(table, idx, idx.shape[0]),
+           "bound_by": "bytes"}
     del lib_out
     if plain_in_graph:
         out["plain_ms"] = graph_ms(plain, max(reps // 5, 1))
@@ -797,7 +973,366 @@ def phase_recsys(dev) -> dict:
     return out
 
 
-def kernel_line(kernels: dict, twitter: dict, recsys: dict) -> dict:
+def phase_spmm(dev, graphs) -> dict:
+    """The segment_spmm kernel's path, ``ell_aggregate`` (the entry point
+    of the JAX package that reaches it): twitter's ELL as the session holds
+    it (81,306 x 192), f32 features at F = 128 and 1433, sum and mean,
+    forward through the kernel and backward through autograd. Checks:
+    bit-equal to the plain path, gradients equal to the plain path's, and
+    the sum of all-ones features equal to each row's degree."""
+    adj = graphs["twitter"]
+    n = adj.shape[0]
+    deg = (adj >= 0).sum(dim=1).to(torch.float32)
+    _reset_launches()
+    runs = []
+    for f in SPMM_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(f)
+        x = torch.randn((n, f), generator=g, device=dev, requires_grad=True)
+        w = torch.randn((n, f), generator=g, device=dev)
+        for mode in ("sum", "mean"):
+            out = sops.ell_aggregate(x, adj, mode)
+            (grad,) = torch.autograd.grad((out * w).sum(), x)
+            want = sops.ell_aggregate(x, adj, mode, False)
+            (want_grad,) = torch.autograd.grad((want * w).sum(), x,
+                                               retain_graph=True)
+            # the sums of the magnitudes each gradient element adds up
+            (mag,) = torch.autograd.grad((want * w.abs()).sum(), x)
+            torch.cuda.synchronize()
+            if out.shape != (n, f) or not torch.isfinite(out).all() \
+                    or not torch.equal(out, want):
+                raise AssertionError(f"ell_aggregate F={f} {mode}: the kernel "
+                                     "path differs from the plain path")
+            # the backward scatters with index_add_, atomics in no fixed
+            # order: equal up to f32 summation order, whose error is below
+            # (terms - 1) * 2^-24 of the summed magnitudes; at most 192 + 1
+            # terms here, so 2^-16 of them bounds it
+            gerr = float((grad - want_grad).abs().max())
+            if bool(((grad - want_grad).abs() > 2.0 ** -16 * mag).any()):
+                raise AssertionError(f"ell_aggregate F={f} {mode}: gradients "
+                                     f"differ by {gerr}")
+            runs.append({"features": f, "mode": mode, "grad_max_abs_err": gerr})
+    ones = sops.ell_aggregate(torch.ones((n, 8), device=dev), adj, "sum")
+    if not torch.equal(ones, deg[:, None].expand(n, 8)):
+        raise AssertionError("ell_aggregate: sums of ones are not the degrees")
+    launches = _read_launches(("segment_spmm",))
+    if launches["segment_spmm"] < 1:
+        raise AssertionError(f"ell_aggregate missed the kernel: {launches}")
+
+    # times at F = 128 and 1433, f32 sum, against the plain version and one
+    # library call, the CSR sparse product
+    valid = adj >= 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(valid.sum(dim=1), 0)
+    csr = torch.sparse_csr_tensor(crow, adj[valid].to(torch.int64),
+                                  torch.ones(int(crow[-1]), device=dev),
+                                  size=(n, n), check_invariants=False)
+    timing = {}
+    for f in SPMM_WIDTHS:
+        x = torch.randn((n, f), generator=torch.Generator(device=dev)
+                        .manual_seed(f + 1), device=dev)
+        lib_err = float((torch.sparse.mm(csr, x)
+                         - ss.segment_spmm(x, adj)).abs().max())
+        timing[f"F{f}"] = {
+            "shape": [n, adj.shape[1], f], "dtype": "float32", "mode": "sum",
+            "ms": graph_ms(lambda: ss.segment_spmm(x, adj), 20),
+            "eager_ms": eager_ms(lambda: ss.segment_spmm(x, adj), 20),
+            "plain_ms": eager_ms(lambda: segment_spmm_ref(x, adj), 2),
+            "library_ms": graph_ms(lambda: torch.sparse.mm(csr, x), 20),
+            "library": "torch.sparse.mm (CSR, f32)",
+            "library_max_abs_diff_vs_kernel": lib_err,
+            "bound_ms": _rows_bound_ms(x, adj, n), "bound_by": "bytes"}
+    out = {"phase": "spmm", "graph": "twitter", "n": n,
+           "dmax": adj.shape[1], "valid_slots": int(valid.sum()),
+           "runs": runs, "degree_check": True, "launches": launches,
+           "kernel": timing}
+    del csr, x
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def _attn_pairs(sq: int, q_offset: int, sk: int, window: int) -> int:
+    """Visible (query, key) pairs of causal attention: query i at position
+    q_offset + i sees keys max(0, p - window + 1) .. min(p, sk - 1)."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(p, sk - 1)
+    lo = np.maximum(0, p - window + 1) if window > 0 else np.zeros_like(p)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attn_bound(q, k, window: int, q_offset: int):
+    """(bound ms, bound_by, flops, bytes) of one attention call on (B, H,
+    Sq, D) q and (B, Hkv, Sk, D) k: 4·D flops per visible pair and head at
+    the bf16 tensor-core peak; q and the output once, and each kv head's
+    visible K and V rows once (contiguous from the lowest visible key to
+    the highest, all the kernel reads)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    flops = 4 * d * h * b * _attn_pairs(sq, q_offset, sk, window)
+    p_hi = min(q_offset + sq - 1, sk - 1)
+    p_lo = max(0, q_offset - window + 1) if window > 0 else 0
+    keys = p_hi - p_lo + 1
+    nbytes = q.element_size() * (2 * b * h * sq * d + 2 * b * hkv * keys * d)
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, nbytes)
+
+
+class _Recorder:
+    """Wraps ``models.layers.attention`` (what every LM layer calls) and
+    keeps the arguments of the calls of layers 0 and 1 — gemma2's first
+    local and first global layer — of the latest step."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers, self.calls, self.step = n_layers, 0, {}
+        self._orig = layers.attention
+
+    def __enter__(self):
+        def recording(q, k, v, **kw):
+            i = self.calls % self.n_layers
+            self.calls += 1
+            if i < 2:
+                self.step[i] = (q, k, v, kw)
+            return self._orig(q, k, v, **kw)
+        layers.attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        layers.attention = self._orig
+
+
+def _check_attention_at(rec: dict, what: str, chunk: int) -> dict:
+    """Check 1: the kernel against the plain attention at the model's own
+    q/k/v of layers 0 (local) and 1 (global), to one bf16 ulp."""
+    out = {}
+    for i, (q, k, v, kw) in sorted(rec.items()):
+        kw = dict(kw, use_kernel=True)
+        got = layers.attention(q, k, v, **kw)
+        want = layers.attention(q, k, v, **dict(kw, use_kernel=False,
+                                                chunk=chunk))
+        torch.cuda.synchronize()
+        excess, err = _bf16_err(got, want)
+        out[f"layer{i}"] = {"window": kw["window"], "q_offset": kw["q_offset"],
+                            "q": list(q.shape), "k": list(k.shape),
+                            "max_abs_err": err, "rtol": BF16_RTOL,
+                            "atol": BF16_ATOL}
+        if excess > 0 or not torch.isfinite(got).all():
+            raise AssertionError(f"lm {what} layer {i}: kernel attention "
+                                 f"differs from the plain one by {err}")
+    return out
+
+
+def _time_attention_at(rec: dict, reps: int, plain_reps: int,
+                       chunk: int, graph: bool) -> dict:
+    """The kernel, the plain version (query-chunked as the model's plain
+    path runs it) and ``scaled_dot_product_attention`` (no softcap: timed
+    with softcap 0 and no window, so only on the global layer) at the
+    model's own q/k/v of layers 0 and 1."""
+    out = {}
+    for i, (q, k, v, kw) in sorted(rec.items()):
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        off, win, cap = kw["q_offset"], kw["window"], kw["softcap"]
+
+        def kernel():
+            return fa.flash_attention(qh, kh, vh, window=win, softcap=cap,
+                                      q_offset=off)
+
+        def plain():
+            return layers.attention(q, k, v, q_offset=off, window=win,
+                                    softcap=cap, use_kernel=False, chunk=chunk)
+
+        bound, by, flops, nbytes = _attn_bound(qh, kh, win, off)
+        row = {"window": win, "softcap": cap, "q_offset": off,
+               "q": list(qh.shape), "kv": list(kh.shape),
+               "ms": graph_ms(kernel, reps) if graph else eager_ms(kernel, reps),
+               "eager_ms": eager_ms(kernel, reps),
+               "plain_ms": eager_ms(plain, plain_reps),
+               "bound_ms": bound, "bound_by": by, "flops": flops,
+               "bytes": nbytes, "library_ms": None,
+               "library": "none (softcap)"}
+        if win == 0:
+            if qh.shape[2] == kh.shape[2]:
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True, enable_gqa=True)
+            else:
+                mask = (torch.arange(kh.shape[2], device=q.device)
+                        <= off)[None, None, None, :]
+
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+            row["library_softcap0_ms"] = (graph_ms(library, reps) if graph
+                                          else eager_ms(library, reps))
+            row["library"] = ("none (softcap); "
+                              "F.scaled_dot_product_attention timed at the "
+                              "same shape with softcap 0")
+        out[f"layer{i}"] = row
+    return out
+
+
+def _logit_check(got, want, what: str) -> dict:
+    """Checks 2 and 3: finite logits of one shape whose relative L2 error is
+    at most LOGIT_REL, choosing the same token wherever the reference's
+    top-1 margin exceeds the largest error."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"lm {what}: logits {tuple(got.shape)} are not "
+                             f"finite or not {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    top = torch.topk(want, 2, dim=-1).values
+    margin = float((top[..., 0] - top[..., 1]).min())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if rel > LOGIT_REL or (margin > 2 * err and not same):
+        raise AssertionError(f"lm {what}: logits differ (rel L2 {rel}, max "
+                             f"abs {err}, same token {same})")
+    return {"shape": list(got.shape), "max_abs_err": err, "rel_l2": rel,
+            "limit_rel_l2": LOGIT_REL, "same_token": same,
+            "top1_margin": margin}
+
+
+def phase_lm(dev) -> dict:
+    """gemma2-9b's CONFIG (bf16, 42 layers, d 3584, vocab 256,000, tied
+    head) served by the port's LMServer as the JAX package's serve_lm
+    serves it: 4 slots, 8 requests of 8,192-token prompts from numpy's
+    seeded generator, 32 tokens each, max_len 8,225 — every attention call
+    of every prefill and decode round on the flash_attention kernel."""
+    cfg = get_arch(LM_ARCH).config
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    param_bytes = sum(x.numel() * x.element_size()
+                      for _, x in layers.leaves(params))
+    server = serve.LMServer(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    cache_bytes = 2 * server.cache_k.numel() * server.cache_k.element_size()
+
+    prefill_s, prefill_l, round_s, round_l = [], [], [], []
+    add, rnd = server.add_request, server.decode_round
+
+    def timed(fn, secs, counts):
+        def run(*a):
+            l0 = fa.flash_attention.launches
+            t0 = time.perf_counter()
+            r = fn(*a)               # ends in a host read of the argmax
+            if r is not False:
+                secs.append(time.perf_counter() - t0)
+                counts.append(fa.flash_attention.launches - l0)
+            return r
+        return run
+
+    server.add_request = timed(add, prefill_s, prefill_l)
+    server.decode_round = timed(rnd, round_s, round_l)
+    _reset_launches()
+    with torch.inference_mode(), _Recorder(cfg.n_layers) as rec:
+        t = time.perf_counter()
+        outputs = serve.serve_requests(
+            server, requests=LM_REQUESTS, prompt_len=LM_PROMPT, gen=LM_GEN,
+            rng=np.random.default_rng(0))
+        serve_s = time.perf_counter() - t
+    launches = _read_launches(("flash_attention",))
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_tokens = sum(len(v) for v in outputs.values())
+    expect = cfg.n_layers * (len(prefill_s) + len(round_s))
+    if sorted(outputs) != list(range(LM_REQUESTS)) \
+            or any(len(v) != LM_GEN or min(v) < 0 or max(v) >= cfg.vocab
+                   for v in outputs.values()):
+        raise AssertionError("lm: the requests' token streams are incomplete")
+    if len(prefill_s) != LM_REQUESTS or launches["flash_attention"] != expect \
+            or set(prefill_l + round_l) != {cfg.n_layers}:
+        raise AssertionError(f"lm: not every prefill and decode round ran the "
+                             f"kernel in each layer: {launches}, prefills "
+                             f"{prefill_l}, rounds {round_l}")
+
+    with torch.inference_mode():
+        # the kernel at a decode round's own q/k/v (4 slots, the last round)
+        decode_rec = dict(rec.step)
+        timing = {"decode": _time_attention_at(decode_rec, 20, 5,
+                                               cfg.attn_chunk, graph=True)}
+        del server, decode_rec, rec
+        torch.cuda.empty_cache()
+
+        # the first request again: its prompt is the generator's first draw
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab, LM_PROMPT) \
+            .astype(np.int32)
+        toks = torch.from_numpy(prompt[None]).to(dev)
+        with _Recorder(cfg.n_layers) as rec:
+            logits, ck, cv = T.prefill_step(params, toks, cfg)
+        checks = {"attention_prefill": _check_attention_at(
+            rec.step, "prefill", cfg.attn_chunk)}
+        timing["prefill"] = _time_attention_at(rec.step, 3, 1,
+                                               cfg.attn_chunk, graph=False)
+        del rec
+        plain, _, _ = T.prefill_step(params, toks, cfg, use_kernel=False)
+        checks["prefill_logits"] = _logit_check(logits, plain, "prefill")
+        del plain
+        shape = (cfg.n_layers, 1, LM_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+        cache_k = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+        cache_v = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+        cache_k[:, :, :LM_PROMPT] = ck
+        cache_v[:, :, :LM_PROMPT] = cv
+        del ck, cv
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        with _Recorder(cfg.n_layers) as rec:
+            dec, _, _ = T.decode_step_inplace(params, tok, cache_k.clone(),
+                                              cache_v.clone(), LM_PROMPT, cfg)
+        checks["attention_decode"] = _check_attention_at(
+            rec.step, "decode", cfg.attn_chunk)
+        del rec
+        dec_plain, _, _ = T.decode_step_inplace(params, tok, cache_k, cache_v,
+                                                LM_PROMPT, cfg,
+                                                use_kernel=False)
+        checks["decode_logits"] = _logit_check(dec, dec_plain, "decode")
+        del cache_k, cache_v, dec_plain
+        torch.cuda.empty_cache()
+        full, _ = T.forward(params, torch.cat([toks, tok], dim=1), cfg)
+        checks["prefill_decode_vs_forward"] = _logit_check(
+            dec, full[:, -1], "prefill + decode vs forward")
+        del full
+    checks_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+
+    per_kind = {kind: sum(timing[kind][f"layer{i}"]["ms"]
+                          * int((cfg.windows > 0).sum() if i == 0
+                                else (cfg.windows == 0).sum())
+                          for i in (0, 1))
+                for kind in ("prefill", "decode")}
+    prefill_p50, round_p50 = _ms_pct(prefill_s, 50), _ms_pct(round_s, 50)
+    out = {"phase": "lm", "arch": cfg.name, "config": {
+               k: v for k, v in vars(cfg).items() if k != "moe"},
+           "param_count": cfg.param_count(), "param_bytes": param_bytes,
+           "cache_bytes": cache_bytes,
+           "memory_allocated_before": free_before, "init_s": init_s,
+           "slots": LM_SLOTS, "requests": LM_REQUESTS,
+           "prompt_len": LM_PROMPT, "gen": LM_GEN, "max_len": LM_MAX_LEN,
+           "prefills": len(prefill_s), "decode_rounds": len(round_s),
+           "prefill_ms_p50": prefill_p50, "prefill_ms_p99": _ms_pct(prefill_s, 99),
+           "decode_round_ms_p50": round_p50,
+           "decode_round_ms_p99": _ms_pct(round_s, 99),
+           "serve_s": serve_s, "generated_tokens": n_tokens,
+           "tokens_per_s": n_tokens / serve_s,
+           "decode_tokens_per_s": LM_SLOTS * len(round_s) / sum(round_s),
+           "max_memory_allocated": peak,
+           "max_memory_allocated_checks": checks_peak, "launches": launches,
+           "kernel_ms_per_prefill": per_kind["prefill"],
+           "kernel_ms_per_decode_round": per_kind["decode"],
+           "kernel_share": {"prefill": per_kind["prefill"] / prefill_p50,
+                            "decode_round": per_kind["decode"] / round_p50},
+           "kernel": timing, "checks": checks}
+    del params
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
+                lm: dict) -> dict:
     pa_case = next(c for c in kernels["partition_affinity"]["cases"] if "ms" in c)
     fc_case = next(c for c in kernels["fused_chooser"]["cases"] if "ms" in c)
     pa_cases = kernels["partition_affinity"]["cases"]
@@ -845,6 +1380,42 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict) -> dict:
                                   eb_bulk["dim"]],
                         **{k: eb_bulk[k] for k in timed}}},
     ]
+    fa_cases = kernels["flash_attention"]["cases"]
+    fa_main = lm["kernel"]["prefill"]["layer1"]          # a global layer
+    rows.append(
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:90",
+         "launches": lm["launches"]["flash_attention"],
+         "max_abs_err": max(c["max_abs_err"] for c in fa_cases),
+         "cases": len(fa_cases),
+         "shape": [fa_main["q"][0], fa_main["q"][1], fa_main["kv"][1],
+                   fa_main["q"][2], fa_main["kv"][2], fa_main["q"][3]],
+         "ms": fa_main["ms"], "plain_ms": fa_main["plain_ms"],
+         "bound_ms": fa_main["bound_ms"], "bound_by": fa_main["bound_by"],
+         "library_ms": None, "library": fa_main["library"],
+         "library_softcap0_ms": fa_main["library_softcap0_ms"],
+         **{f"{kind}_{name}": {k: lm["kernel"][kind][layer][k]
+                               for k in timed + ("bound_by", "window")
+                               if k in lm["kernel"][kind][layer]}
+            for kind in ("prefill", "decode")
+            for name, layer in (("local", "layer0"), ("global", "layer1"))
+            if (kind, layer) != ("prefill", "layer1")}})
+    sp_cases = kernels["segment_spmm"]["cases"]
+    sp_main, sp_wide = (spmm["kernel"][f"F{f}"] for f in SPMM_WIDTHS)
+    rows.append(
+        {"name": "segment_spmm", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_spmm.cu",
+         "replaces": "src/repro/kernels/segment_spmm/segment_spmm.py:48",
+         "launches": spmm["launches"]["segment_spmm"],
+         "max_abs_err": max(c["max_abs_err"] for c in sp_cases),
+         "cases": len(sp_cases),
+         "mismatches": sum(c["max_abs_err"] != 0 for c in sp_cases),
+         "shape": sp_main["shape"], "ms": sp_main["ms"],
+         "plain_ms": sp_main["plain_ms"], "bound_ms": sp_main["bound_ms"],
+         "bound_by": "bytes", "library_ms": sp_main["library_ms"],
+         "library": sp_main["library"],
+         "wide": {k: sp_wide[k] for k in timed + ("shape",)}})
     return {"kernels": rows}
 
 
@@ -854,11 +1425,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
-    kernels = phase_kernels(dev)
+    graphs = spmm_graphs(dev)
+    kernels = phase_kernels(dev, graphs)
+    spmm = phase_spmm(dev, graphs)
+    del graphs
     phase_grqc(dev)
     twitter = phase_twitter(dev)
     recsys = phase_recsys(dev)
-    emit(kernel_line(kernels, twitter, recsys))
+    lm = phase_lm(dev)
+    emit(kernel_line(kernels, twitter, recsys, spmm, lm))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -71,21 +71,6 @@ def init_params(cfg: TwoTowerConfig, *, generator: torch.Generator,
     }
 
 
-def _from_numpy(a) -> torch.Tensor:
-    a = np.array(a, order="C")              # a writable copy torch may own
-    if a.dtype.name == "bfloat16":          # ml_dtypes' numpy bf16: same bits
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
-def _leaves(tree: dict, prefix: str = ""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}/")
-        else:
-            yield f"{prefix}{k}", v
-
-
 def param_specs(cfg: TwoTowerConfig) -> dict:
     """{leaf path: (shape, dtype)} of the params ``init_params`` makes."""
     d = cfg.embed_dim
@@ -103,18 +88,8 @@ def params_from_jax(np_params: dict, cfg: TwoTowerConfig, device) -> dict:
     """The port's params from a JAX ``init_params`` pytree with numpy
     leaves (bf16 tables included). Weights keep the JAX layout
     (d_in, d_out), so nothing is transposed."""
-    dev = resolve_device(device)
-
-    def convert(tree):
-        return {k: convert(v) if isinstance(v, dict)
-                else _from_numpy(v).to(dev) for k, v in tree.items()}
-
-    out = convert(np_params)
-    got = {k: (tuple(t.shape), t.dtype) for k, t in _leaves(out)}
-    if got != param_specs(cfg):
-        raise ValueError(f"params do not fit {cfg.name}: got {got}, "
-                         f"expected {param_specs(cfg)}")
-    return out
+    return L.params_from_numpy(np_params, param_specs(cfg), cfg.name,
+                               resolve_device(device))
 
 
 def _tower(table, tower_p, ids, n_fields: int, use_kernel: bool):

@@ -1,6 +1,7 @@
 """Card-only checks of the port's CUDA kernels against their plain PyTorch
-versions, bit for bit (every kernel is exact). Marked ``gpu``: they skip
-where there is no CUDA card, and run on one with
+versions: bit for bit for the exact kernels, at tests/test_kernels.py's
+tolerance for flash_attention (its f32 sums run in another order). Marked
+``gpu``: they skip where there is no CUDA card, and run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -25,6 +26,12 @@ from repro_torch.kernels.partition_affinity.partition_affinity import (
     partition_affinity,
 )
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+from repro_torch.kernels.segment_spmm.segment_spmm import segment_spmm
+from repro_torch.configs import get_arch
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.gpu
 
@@ -131,3 +138,98 @@ def test_fused_chooser_kernel_matches_plain(cuda, policy, k_max):
             want = fused_window_choose_ref(*args, **kw)
             for x, y in zip(got, want):
                 assert torch.equal(x, y), (policy, guard, auto)
+
+
+# flash_attention: tests/test_kernels.py's cases (B, H, Hkv, Sq, Sk, D) and
+# the LM archs' head shapes (phi3 32/32 x 96, deepseek 56/8 x 128, gemma2
+# 16/8 x 256)
+ATTN_CASES = [(1, 1, 1, 16, 16, 8), (2, 4, 2, 64, 64, 16),
+              (2, 4, 1, 33, 65, 32), (1, 8, 8, 128, 128, 64),
+              (1, 32, 32, 70, 70, 96), (1, 56, 8, 40, 40, 128),
+              (2, 16, 8, 100, 100, 256)]
+ATTN_KW = [dict(), dict(window=16), dict(softcap=30.0), dict(causal=False),
+           dict(window=16, softcap=50.0)]
+
+
+def _qkv(cuda, b, h, hkv, sq, sk, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.parametrize("kw", ATTN_KW, ids=str)
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case, kw):
+    q, k, v = _qkv(cuda, *case, torch.float32, seed=sum(case))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 50.0)])
+def test_flash_attention_kernel_decode_and_views(cuda, window, softcap):
+    """A decode query against a cache slice seen through (B, S, H, D) ->
+    (B, H, S, D) views, as the model launches it, in f32 and bf16 (bf16
+    out: the two round one f32 result, so one bf16 ulp apart at most)."""
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2 ** -7)):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        cache = torch.randn((3, 4, 130, 8, 64), generator=g, device=cuda) \
+            .to(dtype)
+        q = torch.randn((4, 1, 16, 64), generator=g, device=cuda).to(dtype)
+        kv = cache[1].transpose(1, 2)                 # (B, Hkv, S, D) view
+        kw = dict(q_offset=97, window=window, softcap=softcap)
+        got = flash_attention(q.transpose(1, 2), kv, kv, **kw)
+        want = attention_ref(q.transpose(1, 2), kv.contiguous(),
+                             kv.contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,dmax,f", [(8, 1, 8), (20, 6, 40), (33, 9, 130),
+                                      (5, 3, 256), (64, 100, 33),
+                                      (300, 192, 128)])
+def test_segment_spmm_kernel_matches_plain(cuda, n, dmax, f, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n + dmax)
+    x = torch.randn((n, f), generator=g, device=cuda).to(dtype)
+    adj = torch.randint(-1, n, (n, dmax), generator=g, device=cuda,
+                        dtype=torch.int32)
+    adj[0] = -1
+    for mode in ("sum", "mean"):
+        before = segment_spmm.launches
+        got = segment_spmm(x, adj, mode=mode)
+        assert segment_spmm.launches == before + 1
+        want = segment_spmm_ref(x, adj, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+        assert not got[0].any()
+
+
+def test_lm_layers_launch_the_attention_kernel(cuda):
+    """gemma2's smoke config on the card: every layer of a forward and of a
+    decode step launches flash_attention once, and the logits agree with
+    the plain attention's."""
+    cfg = get_arch("gemma2-9b").smoke_config
+    params = T.init_params(cfg, generator=torch.Generator(device=cuda)
+                           .manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 12), device=cuda)
+    before = flash_attention.launches
+    logits, ck, cv = T.prefill_step(params, toks, cfg)
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _, _ = T.prefill_step(params, toks, cfg, use_kernel=False)
+    torch.testing.assert_close(logits, want, rtol=2e-4, atol=2e-4)
+    pad = (0, 0, 0, 0, 0, 4)
+    ck, cv = (torch.nn.functional.pad(c, pad) for c in (ck, cv))
+    nxt = torch.randint(0, cfg.vocab, (2, 1), device=cuda)
+    before = flash_attention.launches
+    got, _, _ = T.decode_step_inplace(params, nxt, ck.clone(), cv.clone(), 12,
+                                      cfg)
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _, _ = T.decode_step_inplace(params, nxt, ck, cv, 12, cfg,
+                                       use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

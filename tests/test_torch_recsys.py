@@ -25,6 +25,7 @@ from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ops import bag_lookup
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.launch import serve
+from repro_torch.models import layers as L
 from repro_torch.models import recsys as RS
 
 # (V, D, B, L, mode): tests/test_kernels.py's embedding_bag shapes
@@ -198,7 +199,7 @@ def test_init_params_shapes_and_chunked_tables(monkeypatch):
                                   dtype=dtype)
         gen = torch.Generator().manual_seed(0)
         params = RS.init_params(cfg, generator=gen, device="cpu")
-        specs = {k: (tuple(t.shape), t.dtype) for k, t in RS._leaves(params)}
+        specs = {k: (tuple(t.shape), t.dtype) for k, t in L.leaves(params)}
         assert specs == RS.param_specs(cfg)
         table = params["user_table"].float()
         assert torch.isfinite(table).all()
@@ -227,14 +228,16 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
 
 def test_unported_archs_and_training_raise():
     for arch_id in JARCHS:
-        if arch_id == "two-tower-retrieval":
+        if arch_id in ARCHS:
             continue
         family = JARCHS[arch_id].family
         item = "A18.4" if family == "lm" else "A18.5"
         with pytest.raises(NotImplementedError, match=item):
             get_arch(arch_id)
-    with pytest.raises(NotImplementedError, match="LM slice"):
-        serve.main(["--arch", "gemma2-9b", "--device", "cpu"])
+    assert sorted(ARCHS) == ["deepseek-coder-33b", "gemma2-9b",
+                             "phi3-mini-3.8b", "two-tower-retrieval"]
+    with pytest.raises(NotImplementedError, match="A18.4"):
+        serve.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     cfg = ARCHS["two-tower-retrieval"].smoke_config
