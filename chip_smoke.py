@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card (bit-equal, no tolerance,
 for the exact kernels; flash_attention's f32 sums run in another order
 than the plain version's, so it is held at tests/test_kernels.py's 2e-5 in
-f32 and at one bf16 ulp in bf16), runs the streaming session on grqc against the
+f32 and at one bf16 ulp in bf16, on each of its three kernels: f32 CUDA
+cores, the bf16 tensor-core prefill, the bf16 decode split over the keys),
+runs the streaming session on grqc against the
 port's faithful per-event engine, drives the full-width session — the
 paper's largest dataset, twitter at scale 1.0 — through
 ``Partitioner.feed`` with both session kernels on the path, and serves
@@ -18,7 +20,8 @@ aggregates twitter's ELL adjacency through ``ell_aggregate`` with the
 width and depth (bf16, 18.48 GB of params, an 11.32 GB KV cache) through
 ``LMServer`` — 8 requests of 8,192-token prompts, 32 tokens each — with
 every attention call of prefill and decode on the ``flash_attention``
-kernel. One JSON line per phase; the last line is ``{"ok": true,
+kernel (prefill on the tensor cores, decode split over the keys). One
+JSON line per phase; the last line is ``{"ok": true,
 "device": {...}}``.
 Any failure raises and exits non-zero without that line. Needs one CUDA
 card; imports nothing of JAX.
@@ -29,6 +32,7 @@ import functools
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -102,6 +106,9 @@ ATTN_TOL = 2e-5          # tests/test_kernels.py's tolerance, f32
 # bf16 out: kernel and plain version round one f32 result computed in
 # another order, so they may land one bf16 ulp (<= 2^-7 relative) apart
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+# bf16 attention at the other LM configs' heads (phi3-mini 32/32 x 96,
+# deepseek-coder 56/8 x 128) at a short S that is no multiple of a tile
+BF16_ARCHS, BF16_S = ("phi3-mini-3.8b", "deepseek-coder-33b"), 300
 # the LM phase: gemma2-9b's CONFIG served as serve_lm serves it
 LM_ARCH, LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_GEN = "gemma2-9b", 4, 8, 8192, 32
 LM_MAX_LEN = LM_PROMPT + LM_GEN + 1
@@ -157,6 +164,20 @@ def graph_ms(fn, reps: int, replays: int = 3) -> float:
     torch.cuda.synchronize()
     ms = _elapsed_ms(lambda: [graph.replay() for _ in range(replays)])
     return ms / (reps * replays)
+
+
+def host_ms(fn, reps: int) -> float:
+    """The host's time per call of ``fn`` (Python, argument checks,
+    launches), read on the host's clock around ``reps`` calls issued back
+    to back with no sync in between, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return secs * 1e3 / reps
 
 
 def max_abs_diff(a, b) -> int:
@@ -236,14 +257,31 @@ def phase_build() -> dict:
     ptxas = {}
     for name, lib in libs.items():
         log = lib.with_suffix(".log")
-        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
-                        if "registers" in ln or "spill" in ln]
+        ptxas[name] = (_ptxas_report(log.read_text())
                        if log.exists() else ["(library was already built)"])
     out = {"phase": "build", "seconds": round(secs, 3),
            "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
            "ptxas": ptxas}
     emit(out)
     return out
+
+
+def _ptxas_report(log: str) -> list:
+    """One line per compiled function of ``nvcc -Xptxas -v``'s log: the
+    function (its mangled name's readable part), registers, static shared
+    memory, spills."""
+    rows, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            hashed = re.search(r"_cu_[0-9a-f]{8}(.*)", name)
+            name = re.sub(r"^\d+", "", hashed.group(1) if hashed else name)
+        elif "spill" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            rows.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return rows
 
 
 def _warm_state(dev, name, scale, cap, width, k_max, max_cap, window, warm):
@@ -427,9 +465,11 @@ def _attn_inputs(dev, b, h, hkv, sq, sk, d, dtype, seed, layout="bhsd"):
 
 def check_flash_attention(dev) -> dict:
     """ATTN_CASES x ATTN_KW and the decode case with a q_offset in f32 at
-    2e-5; gemma2's own prefill (S = 8,192, local and global) and decode
-    (4 slots against an 8,225-slot cache) shapes in bf16, through the
-    model's (B, S, H, D) views, at one bf16 ulp."""
+    2e-5 (the f32 kernel); in bf16, through the model's (B, S, H, D)
+    views, at one bf16 ulp: phi3-mini's and deepseek-coder's heads at a
+    short S (the tensor-core prefill kernel, and a decode step on the
+    split kernel), and gemma2's own prefill (S = 8,192, local and global)
+    and decode (4 slots against an 8,225-slot cache) shapes."""
     fa_out = {"name": "flash_attention", "cases": []}
     cases = [(c, kw) for c in ATTN_CASES for kw in ATTN_KW]
     cases.append(((2, 4, 2, 1, 96, 16), dict(q_offset=95)))
@@ -448,17 +488,29 @@ def check_flash_attention(dev) -> dict:
             raise AssertionError(f"flash_attention {[b, h, hkv, sq, sk, d]} "
                                  f"{kw}: kernel differs from the plain "
                                  f"version by {err} > {ATTN_TOL}")
+    bf16_cases = []
+    for arch in BF16_ARCHS:
+        c = get_arch(arch).config
+        heads = (c.n_heads, c.n_kv_heads, c.head_dim)
+        bf16_cases += [((2, heads[0], heads[1], BF16_S, BF16_S, heads[2]),
+                        dict(window=0, softcap=c.attn_softcap)),
+                       ((4, heads[0], heads[1], 1, BF16_S, heads[2]),
+                        dict(window=0, softcap=c.attn_softcap,
+                             q_offset=BF16_S - 1))]
     cfg = get_arch(LM_ARCH).config
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    gemma = [((1, hq, hkv, LM_PROMPT, LM_PROMPT, hd), dict(window=w))
-             for w in (cfg.window_pattern)]
-    gemma += [((LM_SLOTS, hq, hkv, 1, LM_MAX_LEN, hd),
-               dict(window=w, q_offset=LM_PROMPT + 5))
-              for w in cfg.window_pattern]
-    for (b, h, hkv_, sq, sk, d), kw in gemma:
-        kw = dict(kw, softcap=cfg.attn_softcap)
+    bf16_cases += [((1, hq, hkv, LM_PROMPT, LM_PROMPT, hd),
+                    dict(window=w, softcap=cfg.attn_softcap))
+                   for w in (cfg.window_pattern)]
+    bf16_cases += [((LM_SLOTS, hq, hkv, 1, LM_MAX_LEN, hd),
+                    dict(window=w, q_offset=LM_PROMPT + 5,
+                         softcap=cfg.attn_softcap))
+                   for w in cfg.window_pattern]
+    for (b, h, hkv_, sq, sk, d), kw in bf16_cases:
         q, k, v = _attn_inputs(dev, b, h, hkv_, sq, sk, d, torch.bfloat16,
                                seed=sq + kw["window"], layout="bshd")
+        how = fa.dispatch(q, k, window=kw["window"],
+                          q_offset=kw.get("q_offset", 0))
         got = fa.flash_attention(q, k, v, **kw)
         want = layers.attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2),
@@ -469,12 +521,15 @@ def check_flash_attention(dev) -> dict:
         excess, err = _bf16_err(got, want.transpose(1, 2))
         fa_out["cases"].append({"shape": [b, h, hkv_, sq, sk, d], **kw,
                                 "dtype": "bfloat16", "layout": "bshd views",
+                                "kernel": how["kernel"],
+                                "n_split": how["n_split"],
                                 "max_abs_err": err, "rtol": BF16_RTOL,
                                 "atol": BF16_ATOL})
         if excess > 0:
-            raise AssertionError(f"flash_attention gemma2 {[b, h, sq, sk]} "
-                                 f"{kw}: kernel differs from the plain "
-                                 f"version by {err} (beyond one bf16 ulp)")
+            raise AssertionError(f"flash_attention bf16 {[b, h, sq, sk, d]} "
+                                 f"{kw}: the {how['kernel']} kernel differs "
+                                 f"from the plain version by {err} (beyond "
+                                 f"one bf16 ulp)")
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return fa_out
@@ -573,6 +628,7 @@ SESSION_KERNELS = ("partition_affinity", "fused_chooser")
 def _reset_launches():
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
 
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
@@ -1124,10 +1180,11 @@ def _check_attention_at(rec: dict, what: str, chunk: int) -> dict:
 
 def _time_attention_at(rec: dict, reps: int, plain_reps: int,
                        chunk: int, graph: bool) -> dict:
-    """The kernel, the plain version (query-chunked as the model's plain
-    path runs it) and ``scaled_dot_product_attention`` (no softcap: timed
-    with softcap 0 and no window, so only on the global layer) at the
-    model's own q/k/v of layers 0 and 1."""
+    """The kernel (which of them ran, its split count, its achieved rates),
+    the plain version (query-chunked as the model's plain path runs it) and
+    ``scaled_dot_product_attention`` (it has no softcap: timed with softcap
+    0 and the layer's mask, a yardstick only) at the model's own q/k/v of
+    layers 0 and 1."""
     out = {}
     for i, (q, k, v, kw) in sorted(rec.items()):
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1142,33 +1199,97 @@ def _time_attention_at(rec: dict, reps: int, plain_reps: int,
                                     softcap=cap, use_kernel=False, chunk=chunk)
 
         bound, by, flops, nbytes = _attn_bound(qh, kh, win, off)
+        how = fa.dispatch(qh, kh, window=win, q_offset=off)
+        ms = graph_ms(kernel, reps) if graph else eager_ms(kernel, reps)
         row = {"window": win, "softcap": cap, "q_offset": off,
                "q": list(qh.shape), "kv": list(kh.shape),
-               "ms": graph_ms(kernel, reps) if graph else eager_ms(kernel, reps),
-               "eager_ms": eager_ms(kernel, reps),
+               "kernel": how["kernel"], "n_split": how["n_split"],
+               "ms": ms, "eager_ms": eager_ms(kernel, reps),
+               "host_ms": host_ms(kernel, reps),
                "plain_ms": eager_ms(plain, plain_reps),
                "bound_ms": bound, "bound_by": by, "flops": flops,
-               "bytes": nbytes, "library_ms": None,
+               "bytes": nbytes, "tflop_per_s": flops / ms / 1e9,
+               "gb_per_s": nbytes / ms / 1e6, "library_ms": None,
                "library": "none (softcap)"}
-        if win == 0:
-            if qh.shape[2] == kh.shape[2]:
-                def library():
-                    return torch.nn.functional.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=True, enable_gqa=True)
-            else:
-                mask = (torch.arange(kh.shape[2], device=q.device)
-                        <= off)[None, None, None, :]
+        if win == 0 and qh.shape[2] == kh.shape[2]:
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, enable_gqa=True)
+        else:
+            pq = off + torch.arange(qh.shape[2], device=q.device)[:, None]
+            pk = torch.arange(kh.shape[2], device=q.device)[None, :]
+            mask = (pq >= pk) & ((pq - pk < win) if win else True)
 
-                def library():
-                    return torch.nn.functional.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask, enable_gqa=True)
-            row["library_softcap0_ms"] = (graph_ms(library, reps) if graph
-                                          else eager_ms(library, reps))
-            row["library"] = ("none (softcap); "
-                              "F.scaled_dot_product_attention timed at the "
-                              "same shape with softcap 0")
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask[None, None], enable_gqa=True)
+        row["library_softcap0_ms"] = (graph_ms(library, reps) if graph
+                                      else eager_ms(library, reps))
+        row["library"] = ("none (softcap); F.scaled_dot_product_attention "
+                          "timed at the same shape and mask with softcap 0 "
+                          "(is_causal, else a boolean mask)")
         out[f"layer{i}"] = row
     return out
+
+
+def _decode_step_breakdown(params, cfg, cache_k, cache_v, pos: int) -> dict:
+    """Where one decode step of the serving batch (every slot at ``pos``,
+    the cache of the serve) spends its time: the step as LMServer calls it,
+    eagerly (wall time with a sync after it, and the host's time to issue
+    it: the call's return), the same step replayed from a CUDA graph
+    (device time with no host in the way), and a torch.profiler trace of
+    one eager step (each kernel's device time). The device's idle share of
+    an eager step is 1 - kernel time / wall time, on the untraced wall
+    (the profiler slows the host down)."""
+    tok = torch.zeros((cache_k.shape[1], 1), dtype=torch.int32,
+                      device=cache_k.device)
+
+    def step():
+        return T.decode_step_inplace(params, tok, cache_k, cache_v, pos,
+                                     cfg)[0]
+
+    step()
+    torch.cuda.synchronize()
+    wall, issue = [], []
+    for _ in range(7):
+        t = time.perf_counter()
+        step()
+        issue.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t)
+    graph = graph_ms(step, 1, replays=5)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    wall_ms = float(np.median(wall)) * 1e3
+    attn = sum(r[0] for r in rows if "split_kernel" in r[1]
+               or "combine_kernel" in r[1]) / 1e3
+    return {"pos": pos, "slots": int(cache_k.shape[1]),
+            "eager_wall_ms": wall_ms,
+            "eager_wall_ms_all": [w * 1e3 for w in wall],
+            "host_issue_ms": float(np.median(issue)) * 1e3,
+            "graph_ms": graph,
+            "traced_wall_ms": traced_wall * 1e3,
+            "traced_kernel_ms": busy if rows else None,
+            "traced_attention_kernel_ms": attn if rows else None,
+            "traced_kernels": len(rows),
+            "device_idle_share": 1 - busy / wall_ms if rows else None,
+            "top_kernels": [{"name": k[:120], "count": c, "ms": us / 1e3}
+                            for us, k, c in rows[:12]]}
 
 
 def _logit_check(got, want, what: str) -> dict:
@@ -1236,6 +1357,7 @@ def phase_lm(dev) -> dict:
             rng=np.random.default_rng(0))
         serve_s = time.perf_counter() - t
     launches = _read_launches(("flash_attention",))
+    by_kernel = dict(fa.flash_attention.kernel_launches)
     peak = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     n_tokens = sum(len(v) for v in outputs.values())
@@ -1249,12 +1371,24 @@ def phase_lm(dev) -> dict:
         raise AssertionError(f"lm: not every prefill and decode round ran the "
                              f"kernel in each layer: {launches}, prefills "
                              f"{prefill_l}, rounds {round_l}")
+    # every prefill call on the tensor-core kernel, every decode call split
+    if by_kernel != {"f32": 0, "prefill": cfg.n_layers * len(prefill_s),
+                     "split": cfg.n_layers * len(round_s)}:
+        raise AssertionError(f"lm: the bf16 calls did not take the prefill "
+                             f"and split kernels: {by_kernel}")
 
     with torch.inference_mode():
         # the kernel at a decode round's own q/k/v (4 slots, the last round)
         decode_rec = dict(rec.step)
         timing = {"decode": _time_attention_at(decode_rec, 20, 5,
                                                cfg.attn_chunk, graph=True)}
+        if any(row["kernel"] != "split" or row["n_split"] < 2
+               for row in timing["decode"].values()):
+            raise AssertionError(f"lm: a decode call did not split over the "
+                                 f"keys: {timing['decode']}")
+        step = _decode_step_breakdown(params, cfg, server.cache_k,
+                                      server.cache_v,
+                                      decode_rec[1][3]["q_offset"])
         del server, decode_rec, rec
         torch.cuda.empty_cache()
 
@@ -1266,8 +1400,12 @@ def phase_lm(dev) -> dict:
             logits, ck, cv = T.prefill_step(params, toks, cfg)
         checks = {"attention_prefill": _check_attention_at(
             rec.step, "prefill", cfg.attn_chunk)}
-        timing["prefill"] = _time_attention_at(rec.step, 3, 1,
+        timing["prefill"] = _time_attention_at(rec.step, 10, 1,
                                                cfg.attn_chunk, graph=False)
+        if any(row["kernel"] != "prefill"
+               for row in timing["prefill"].values()):
+            raise AssertionError(f"lm: a prefill call did not take the "
+                                 f"tensor-core kernel: {timing['prefill']}")
         del rec
         plain, _, _ = T.prefill_step(params, toks, cfg, use_kernel=False)
         checks["prefill_logits"] = _logit_check(logits, plain, "prefill")
@@ -1315,11 +1453,16 @@ def phase_lm(dev) -> dict:
            "prefill_ms_p50": prefill_p50, "prefill_ms_p99": _ms_pct(prefill_s, 99),
            "decode_round_ms_p50": round_p50,
            "decode_round_ms_p99": _ms_pct(round_s, 99),
+           "decode_round_ms_slowest": sorted(
+               ([round(x * 1e3, 3), i] for i, x in enumerate(round_s)),
+               reverse=True)[:4],
+           "decode_step": step,
            "serve_s": serve_s, "generated_tokens": n_tokens,
            "tokens_per_s": n_tokens / serve_s,
            "decode_tokens_per_s": LM_SLOTS * len(round_s) / sum(round_s),
            "max_memory_allocated": peak,
            "max_memory_allocated_checks": checks_peak, "launches": launches,
+           "launches_by_kernel": by_kernel,
            "kernel_ms_per_prefill": per_kind["prefill"],
            "kernel_ms_per_decode_round": per_kind["decode"],
            "kernel_share": {"prefill": per_kind["prefill"] / prefill_p50,
@@ -1395,8 +1538,13 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "bound_ms": fa_main["bound_ms"], "bound_by": fa_main["bound_by"],
          "library_ms": None, "library": fa_main["library"],
          "library_softcap0_ms": fa_main["library_softcap0_ms"],
+         "kernel": fa_main["kernel"], "tflop_per_s": fa_main["tflop_per_s"],
+         "launches_by_kernel": lm["launches_by_kernel"],
          **{f"{kind}_{name}": {k: lm["kernel"][kind][layer][k]
-                               for k in timed + ("bound_by", "window")
+                               for k in timed + (
+                                   "bound_by", "window", "kernel", "n_split",
+                                   "tflop_per_s", "gb_per_s",
+                                   "library_softcap0_ms")
                                if k in lm["kernel"][kind][layer]}
             for kind in ("prefill", "decode")
             for name, layer in (("local", "layer0"), ("global", "layer1"))

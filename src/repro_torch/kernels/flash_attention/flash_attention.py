@@ -1,20 +1,25 @@
-"""Flash attention (tiled online-softmax attention) — the CUDA kernel
-``csrc/flash_attention.cu`` and its wrapper.
+"""Flash attention (tiled online-softmax attention) — the CUDA kernels of
+``csrc/flash_attention.cu`` and their wrapper.
 
 For q (B, H, Sq, D) and k, v (B, Hkv, Sk, D) in f32 or bf16 (H a multiple
 of Hkv: GQA), the attention of ``ref.attention_ref``: causal, a sliding
 ``window`` (0 = none), a logit ``softcap`` (0 = none) and the query
 position offset ``q_offset`` of a decode step; keys at positions >= Sk are
-always masked. The output has ``q``'s dtype; everything inside is f32.
+always masked. The output has ``q``'s dtype; the softmax is f32.
 
 Replaces ``repro.kernels.flash_attention.flash_attention`` (the Pallas TPU
-kernel at ``flash_attention.py:90``). One CTA owns one (batch, kv head,
-tile of query rows) with the GQA group's query heads folded into the rows,
-loops over 32-key K/V tiles in shared memory with the running max,
-denominator and accumulator in f32 registers, and skips tiles that the
-causal diagonal or the window masks for all of its rows. Prefill is bound
-by operations, decode by the bytes of the visible K/V rows; the source
-says more.
+kernel, ``pl.pallas_call`` at ``flash_attention.py:133``). Every kernel
+folds the GQA group's query heads into its rows, so a K/V tile is read
+once per group. ``dispatch`` picks one of three by dtype and shape, never
+on failure:
+
+* **f32** — CUDA cores, f32 FMA chains (the f32 tolerance of
+  ``tests/test_kernels.py``, 2e-5, needs full f32 arithmetic);
+* **prefill** (bf16) — ``mma.sync`` bf16 tensor cores for Q·Kᵀ and P·V
+  (P as bf16 hi + lo), K/V tiles through a two-stage ``cp.async`` ring;
+* **split** (bf16, decode-shaped: at most ``SPLIT_ROWS`` folded rows and
+  fewer (batch, kv head) tiles than SMs) — the visible keys cut into
+  ``split_plan`` chunks, one CTA each, then a combine kernel.
 
 Every tensor is addressed through its own strides with D contiguous, so
 the model's (B, S, H, D) tensors and cache slices, seen as (B, H, S, D)
@@ -24,27 +29,45 @@ with ``q``'s memory layout.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.common import (
     check_launch, load_kernel, on_cuda, stream_ptr,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, split_plan
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
-_VEC = 4          # the kernel moves 4 elements at a time along D
+BF16_HEAD_DIM = 16   # a bf16 head dim is a multiple of the mma's depth
+ROW_TILE = 64        # folded rows per CTA of the prefill kernel
+SPLIT_ROWS = 8       # at most this many folded rows take the split kernel
+KERNELS = ("f32", "prefill", "split")
+
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+         + [ctypes.c_int] * 3 + [ctypes.c_float] * 2)
+_EXTRA = {"f32": [], "prefill": [],
+          "split": [ctypes.c_void_p] + [ctypes.c_int] * 4}
 
 
-def _lib():
-    fn = load_kernel("flash_attention").flash_attention_launch
+def _lib(kernel: str):
+    fn = getattr(load_kernel("flash_attention"),
+                 f"flash_attention_{kernel}_launch")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = _ARGS + _EXTRA[kernel] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _vec(dtype: torch.dtype) -> int:
+    """Elements per 16-byte load: the alignment the kernels need."""
+    return 4 if dtype == torch.float32 else 8
 
 
 def _check(q, k, v):
@@ -59,16 +82,39 @@ def _check(q, k, v):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d % _VEC or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes a head dim that is a multiple of "
-                         f"{_VEC} up to {MAX_HEAD_DIM}, got {d}")
+    step = BF16_HEAD_DIM if q.dtype == torch.bfloat16 else _vec(q.dtype)
+    if d % step or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the {q.dtype} kernels take a head dim that is a "
+                         f"multiple of {step} up to {MAX_HEAD_DIM}, got {d}")
+    vec = _vec(q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % _VEC for s in t.stride()[:3]) \
-                or t.data_ptr() % (_VEC * t.element_size()):
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} must have D contiguous, the other strides multiples "
-                f"of {_VEC} and a base aligned to {_VEC} elements; got strides "
+                f"of {vec} and a base aligned to 16 bytes; got strides "
                 f"{t.stride()}")
+
+
+def dispatch(q, k, *, causal: bool = True, window: int = 0,
+             q_offset: int = 0) -> dict:
+    """Which kernel a CUDA call with these q (B, H, Sq, D) and k (B, Hkv,
+    Sk, D) launches: ``{"kernel": "f32" | "prefill" | "split", "n_split":
+    int | None, "plan": split_plan's (lo, hi, chunk, n_split) | None}``.
+    Decided by dtype and shape alone (and the SM count of q's card, 132
+    for a CPU tensor, the H100's)."""
+    num_sms = _num_sms(q.device) if q.device.type == "cuda" else 132
+    b, h, sq, _ = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rows = sq * (h // hkv)
+    how = {"kernel": "prefill", "n_split": None, "plan": None}
+    if q.dtype == torch.float32:
+        how["kernel"] = "f32"
+    elif rows <= SPLIT_ROWS and b * hkv * -(-rows // ROW_TILE) < num_sms:
+        plan = split_plan(sq, sk, causal=causal, window=window,
+                          q_offset=q_offset, pairs=b * hkv, num_sms=num_sms)
+        return {"kernel": "split", "n_split": plan[3], "plan": plan}
+    return how
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -76,8 +122,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """(B, H, Sq, D) attention output in ``q.dtype``.
 
-    A CUDA tensor launches the kernel (and counts the launch in
-    ``flash_attention.launches``); a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel ``dispatch`` names (one count in
+    ``flash_attention.launches`` and in ``flash_attention.kernel_launches``
+    per call, the split kernel's combine step included); a CPU tensor runs
+    the plain version.
+
+    A query row that sees no key (possible only with a window, at a
+    position ``window`` or more past the last key; serving never makes
+    one) has no defined output here: ``attention_ref`` gives the mean of
+    all of V there, as JAX's does, the split kernel 0 (as
+    ``attention_split_ref``), and the f32 and prefill kernels an average
+    of V over the key tiles they loaded for the other rows of their CTA.
     """
     if not on_cuda(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -90,14 +145,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if sk == 0:
         raise ValueError("attention over zero keys")
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, h, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
-                 int(window), int(q_offset), float(d) ** -0.5, float(softcap),
-                 int(q.dtype == torch.bfloat16), stream_ptr(q.device))
-    check_launch(err, "flash_attention")
+    how = dispatch(q, k, causal=causal, window=window, q_offset=q_offset)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
+            int(window), int(q_offset), float(d) ** -0.5, float(softcap)]
+    if how["kernel"] == "prefill" and -(-sq * (h // hkv) // ROW_TILE) > 65535:
+        raise ValueError(f"the prefill kernel takes at most {65535 * ROW_TILE} "
+                         f"folded rows (Sq * H / Hkv), got {sq * (h // hkv)}")
+    if how["kernel"] == "split":
+        lo, hi, chunk, n_split = how["plan"]
+        part = torch.empty(b * hkv * n_split * sq * (h // hkv) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        args += [part.data_ptr(), lo, hi, chunk, n_split]
+    err = _lib(how["kernel"])(*args, stream_ptr(q.device))
+    check_launch(err, f"flash_attention ({how['kernel']})")
     flash_attention.launches += 1
+    flash_attention.kernel_launches[how["kernel"]] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -1,6 +1,7 @@
 """Card-only checks of the port's CUDA kernels against their plain PyTorch
 versions: bit for bit for the exact kernels, at tests/test_kernels.py's
-tolerance for flash_attention (its f32 sums run in another order). Marked
+tolerance for flash_attention's f32 kernel (its f32 sums run in another
+order) and at one bf16 ulp for its bf16 prefill and split kernels. Marked
 ``gpu``: they skip where there is no CUDA card, and run on one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -26,8 +27,12 @@ from repro_torch.kernels.partition_affinity.partition_affinity import (
     partition_affinity,
 )
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref, attention_split_ref,
+)
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
 from repro_torch.kernels.segment_spmm.segment_spmm import segment_spmm
 from repro_torch.configs import get_arch
@@ -188,6 +193,93 @@ def test_flash_attention_kernel_decode_and_views(cuda, window, softcap):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=2e-5)
+
+
+# bf16: kernel and plain version round one f32 result computed in another
+# order, so they may land one bf16 ulp (<= 2^-7 relative) apart
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)
+BF16_KW = [dict(window=24), dict(softcap=50.0), dict(window=24, softcap=50.0),
+           dict(causal=False)]
+
+
+def _counted(kernel, fn):
+    """Run ``fn`` and check it made one launch, of ``kernel``."""
+    before = flash_attention.launches
+    by = dict(flash_attention.kernel_launches)
+    out = fn()
+    assert flash_attention.launches == before + 1
+    assert flash_attention.kernel_launches[kernel] == by[kernel] + 1
+    assert sum(flash_attention.kernel_launches.values()) == sum(by.values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("kw", BF16_KW, ids=str)
+@pytest.mark.parametrize("group", [1, 2, 7])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_flash_attention_bf16_prefill_kernel(cuda, d, group, kw):
+    """The tensor-core kernel at every head dim of the port's configs, GQA
+    groups of 1, 2 and 7 (deepseek's, not a power of two), and a query
+    length that is no multiple of the 64-row tile (Sk longer than Sq, so
+    the queries sit at an offset)."""
+    hkv, sq, sk = 2, 100, 131
+    q, k, v = _qkv(cuda, 2, hkv * group, hkv, sq, sk, d, torch.bfloat16,
+                   seed=d + group)
+    kw = dict(kw, q_offset=sk - sq)
+    assert fa.dispatch(q, k, causal=kw.get("causal", True),
+                       window=kw.get("window", 0),
+                       q_offset=kw["q_offset"])["kernel"] == "prefill"
+    got = _counted("prefill", lambda: flash_attention(q, k, v, **kw))
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, Sq, S, q_offset, window, softcap, MIN_CHUNK or None)
+    (4, 16, 8, 1, 1000, 998, 0, 50.0, None),     # 999 keys, no multiple
+    (4, 16, 8, 1, 1000, 999, 0, 0.0, None),      # q_offset = Sk - 1
+    (2, 16, 8, 1, 3000, 2500, 700, 50.0, None),  # window: keys 1801 .. 2500
+    (2, 4, 2, 4, 1000, 990, 3, 50.0, 2),         # 8 rows, windows shorter
+                                                 # than the union: splits
+                                                 # empty for some rows
+    (1, 7, 1, 1, 2000, 1200, 0, 0.0, None),      # G = 7
+    (2, 8, 2, 2, 2000, 1500, 0, 50.0, None)],    # G = 4, two positions
+    ids=str)
+def test_flash_attention_split_kernel(cuda, monkeypatch, case, d):
+    """The decode kernel on the cache seen through (B, S, H, D) views, as
+    the model launches it, against the plain version and its own split
+    math."""
+    b, h, hkv, sq, s, off, window, softcap, min_chunk = case
+    if min_chunk is not None:     # more, shorter splits than the card wants
+        monkeypatch.setattr(fa_ref, "MIN_CHUNK", min_chunk)
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    cache = torch.randn((2, b, s, hkv, d), generator=g, device=cuda) \
+        .to(torch.bfloat16)
+    q = torch.randn((b, sq, h, d), generator=g, device=cuda) \
+        .to(torch.bfloat16).transpose(1, 2)
+    k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    kw = dict(q_offset=off, window=window, softcap=softcap)
+    how = fa.dispatch(q, k, window=window, q_offset=off)
+    lo, hi, chunk, n_split = how["plan"]
+    assert how["kernel"] == "split" and n_split > 1
+    assert lo + chunk * (n_split - 1) < hi <= lo + chunk * n_split
+    if min_chunk is not None:     # the first position sees none of the last
+        assert off < lo + chunk * (n_split - 1)
+    got = _counted("split", lambda: flash_attention(q, k, v, **kw))
+    want = attention_ref(q, k.contiguous(), v.contiguous(), **kw)
+    split = attention_split_ref(q, k, v, n_split, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(got.float(), split.float(), **BF16_TOL)
+
+
+def test_flash_attention_bf16_head_dim_raises(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 40, 40, 72, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
