@@ -82,6 +82,7 @@ EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
 # stream's max_deg exactly), 16 partition slots
 WINDOW, TWITTER_CAP, K_MAX = 256, 192, 16
 SESSION_SHAPE = (WINDOW, TWITTER_CAP, K_MAX)
+GRQC_WIDTH = 2843          # grqc's widest row, uncapped (the grqc phase's D)
 # embedding_bag cases (V, D, B, L, lowest id): tests/test_kernels.py's
 # shapes, the serve shape (4096 bags of 8 slots at D = 256), and rows past
 # 2^23 at D = 256, where idx * D passes 2^31
@@ -346,16 +347,29 @@ def check_partition_affinity(dev) -> dict:
     return pa_out
 
 
+def _fused_bytes(w: int, d: int, k: int) -> int:
+    """Bytes one fused_window_choose launch must move: its inputs (the
+    scalar rows, the two (W, D) tables, the random table, the counters,
+    knobs) read once and its outputs written once."""
+    return 4 * (w * fk.EV_COLS + 2 * w * d + w * k + 3 * k + k * k
+                + fk.SCAL_N + 7 + 2 * w + 4 * k + k * k + fk.SCAL_N)
+
+
 def check_fused_chooser(dev) -> dict:
     fc_out = {"name": "fused_chooser", "cases": []}
     # (label, dataset, scale, degree cap, row width, k_max, window, warm
     # events, max_cap): the session's shapes (SESSION_SHAPE), a window and
-    # width off every multiple of 32, and a single partition slot
+    # width off every multiple of 32, a single partition slot, partitions
+    # past the warp's 32 lanes, and grqc's uncapped 2,843-wide rows
     setups = (("main", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, K_MAX,
                WINDOW, 768, 400),
               ("odd", "grqc", 0.05, 37, 37, 5, 100, 200, 60),
               ("k1", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 1, WINDOW,
-               768, 400))
+               768, 400),
+              ("k40", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 40, WINDOW,
+               768, 400),
+              ("grqc_wide", "grqc", 1.0, 0, GRQC_WIDTH, K_MAX, WINDOW, 1024,
+               1500))
     for label, name, scale, cap, width, k_max, window, warm, max_cap in setups:
         state, cfg, (ets, vs, rows), t0 = _warm_state(
             dev, name, scale, cap, width, k_max, max_cap, window, warm)
@@ -387,8 +401,10 @@ def check_fused_chooser(dev) -> dict:
                             "autoscale": auto, "max_abs_err": err,
                             "scale_events_in_window": scale,
                             "deletions_in_window": n_del}
-                    if (label, policy, guard, auto) == ("main", "sdp", "text",
-                                                        True):
+                    timed = guard == "text" and auto and (
+                        policy == "sdp" or (label == "main"
+                                            and policy in ("ldg", "random")))
+                    if timed and label in ("main", "k40", "grqc_wide"):
                         def kernel():
                             fk.fused_window_choose(*args, **kw)
 
@@ -396,14 +412,13 @@ def check_fused_chooser(dev) -> dict:
                             fused_window_choose_ref(*args, **kw)
 
                         case["ms"] = graph_ms(kernel, 20)
-                        case["plain_ms"] = graph_ms(plain, 1, replays=2)
                         case["eager_ms"] = eager_ms(kernel, 20)
-                        case["plain_eager_ms"] = eager_ms(plain, 1)
+                        if policy == "sdp":
+                            case["plain_ms"] = graph_ms(plain, 1, replays=2)
+                            case["plain_eager_ms"] = eager_ms(plain, 1)
                         w, d, k = window, width, k_max
-                        nbytes = 4 * (w * fk.EV_COLS + 2 * w * d + w * k
-                                      + 3 * k + k * k + fk.SCAL_N + 7
-                                      + 2 * w + 4 * k + k * k + fk.SCAL_N)
-                        case["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+                        case["bound_ms"] = (_fused_bytes(w, d, k)
+                                            / HBM_BYTES_PER_S * 1e3)
                     fc_out["cases"].append(case)
                     if err:
                         raise AssertionError(
@@ -629,6 +644,7 @@ def _reset_launches():
     for fn in _WRAPPERS.values():
         fn.launches = 0
     fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
+    ss.segment_spmm.kernel_launches = dict.fromkeys(ss.KERNELS, 0)
 
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
@@ -1029,6 +1045,20 @@ def phase_recsys(dev) -> dict:
     return out
 
 
+def _load_widths_by_alignment(rows, f: int, elem_size: int) -> dict:
+    """{bytes: count}, derived on the host, not read from the kernel: the
+    load width csrc/segment_spmm.cu's alignment rule gives each gathered
+    row (one per valid slot) — 16 where ``row * F * elem_size`` is a
+    multiple of 16 in a 16-byte-aligned x, else 8, 4 or 2 (slab starts are
+    multiples of 16 bytes past the row's start)."""
+    off = (rows.to(torch.int64) * (f * elem_size)) % 16
+    widths = torch.full_like(off, 2)
+    for w in (4, 8, 16):
+        widths = torch.where(off % w == 0, w, widths)
+    vals, counts = torch.unique(widths, return_counts=True)
+    return {int(w): int(c) for w, c in zip(vals, counts)}
+
+
 def phase_spmm(dev, graphs) -> dict:
     """The segment_spmm kernel's path, ``ell_aggregate`` (the entry point
     of the JAX package that reaches it): twitter's ELL as the session holds
@@ -1071,8 +1101,10 @@ def phase_spmm(dev, graphs) -> dict:
     if not torch.equal(ones, deg[:, None].expand(n, 8)):
         raise AssertionError("ell_aggregate: sums of ones are not the degrees")
     launches = _read_launches(("segment_spmm",))
-    if launches["segment_spmm"] < 1:
-        raise AssertionError(f"ell_aggregate missed the kernel: {launches}")
+    by_kernel = dict(ss.segment_spmm.kernel_launches)
+    if launches["segment_spmm"] < 1 or min(by_kernel.values()) < 1:
+        raise AssertionError(f"ell_aggregate missed a kernel: {launches}, "
+                             f"{by_kernel}")
 
     # times at F = 128 and 1433, f32 sum, against the plain version and one
     # library call, the CSR sparse product
@@ -1083,24 +1115,38 @@ def phase_spmm(dev, graphs) -> dict:
                                   torch.ones(int(crow[-1]), device=dev),
                                   size=(n, n), check_invariants=False)
     timing = {}
+    ids = adj[valid]
+    slab_bytes = common.load_kernel("segment_spmm").segment_spmm_slab_bytes()
     for f in SPMM_WIDTHS:
         x = torch.randn((n, f), generator=torch.Generator(device=dev)
                         .manual_seed(f + 1), device=dev)
-        lib_err = float((torch.sparse.mm(csr, x)
-                         - ss.segment_spmm(x, adj)).abs().max())
+        want = ss.segment_spmm(x, adj)
+        lib_err = float((torch.sparse.mm(csr, x) - want).abs().max())
+        widths = _load_widths_by_alignment(ids.cpu(), f, x.element_size())
+        for _ in range(50):            # the card at its clocks, not idle
+            ss.segment_spmm(x, adj)
+        ms = graph_ms(lambda: ss.segment_spmm(x, adj), 20)
+        gathered = ids.numel() * f * x.element_size()
         timing[f"F{f}"] = {
             "shape": [n, adj.shape[1], f], "dtype": "float32", "mode": "sum",
-            "ms": graph_ms(lambda: ss.segment_spmm(x, adj), 20),
+            "ms": ms,
             "eager_ms": eager_ms(lambda: ss.segment_spmm(x, adj), 20),
             "plain_ms": eager_ms(lambda: segment_spmm_ref(x, adj), 2),
             "library_ms": graph_ms(lambda: torch.sparse.mm(csr, x), 20),
             "library": "torch.sparse.mm (CSR, f32)",
             "library_max_abs_diff_vs_kernel": lib_err,
-            "bound_ms": _rows_bound_ms(x, adj, n), "bound_by": "bytes"}
+            "bound_ms": _rows_bound_ms(x, adj, n), "bound_by": "bytes",
+            "slab_bytes": slab_bytes,
+            "slab_cols": slab_bytes // x.element_size(),
+            "slabs": ss.plan(n, adj.shape[1], f, x.element_size(),
+                             slab_bytes).slabs,
+            "load_widths_derived": {f"{b}B": c for b, c in widths.items()},
+            "gathered_gb": gathered / 1e9,
+            "gathered_gb_per_s": gathered / (ms * 1e-3) / 1e9}
     out = {"phase": "spmm", "graph": "twitter", "n": n,
            "dmax": adj.shape[1], "valid_slots": int(valid.sum()),
            "runs": runs, "degree_check": True, "launches": launches,
-           "kernel": timing}
+           "launches_by_kernel": by_kernel, "kernel": timing}
     del csr, x
     torch.cuda.empty_cache()
     emit(out)
@@ -1477,7 +1523,9 @@ def phase_lm(dev) -> dict:
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict) -> dict:
     pa_case = next(c for c in kernels["partition_affinity"]["cases"] if "ms" in c)
-    fc_case = next(c for c in kernels["fused_chooser"]["cases"] if "ms" in c)
+    fc_timed = {(c["case"], c["policy"]): c
+                for c in kernels["fused_chooser"]["cases"] if "ms" in c}
+    fc_case = fc_timed[("main", "sdp")]
     pa_cases = kernels["partition_affinity"]["cases"]
     fc_cases = kernels["fused_chooser"]["cases"]
     eb_cases = kernels["embedding_bag"]["cases"]
@@ -1506,7 +1554,13 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "mismatches": sum(c["max_abs_err"] != 0 for c in fc_cases),
          "ms": fc_case["ms"], "plain_ms": fc_case["plain_ms"],
          "bound_ms": fc_case["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None,
+         "policies_ms": {p: fc_timed[("main", p)]["ms"]
+                         for p in ("sdp", "ldg", "random")},
+         **{label: {k: fc_timed[(label, "sdp")][k]
+                    for k in ("shape", "ms", "eager_ms", "plain_ms",
+                              "bound_ms")}
+            for label in ("k40", "grqc_wide")}},
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:49",
@@ -1563,7 +1617,11 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "plain_ms": sp_main["plain_ms"], "bound_ms": sp_main["bound_ms"],
          "bound_by": "bytes", "library_ms": sp_main["library_ms"],
          "library": sp_main["library"],
-         "wide": {k: sp_wide[k] for k in timed + ("shape",)}})
+         "launches_by_kernel": spmm["launches_by_kernel"],
+         "slab_bytes": sp_main["slab_bytes"],
+         "gathered_gb_per_s": sp_main["gathered_gb_per_s"],
+         "wide": {k: sp_wide[k] for k in timed + (
+             "shape", "slabs", "gathered_gb_per_s")}})
     return {"kernels": rows}
 
 

@@ -1,30 +1,70 @@
-// Fused mixed-window chooser for Hopper (sm_90a): one CTA walks the W slots
-// of one window — resolve labels through the touch tables, histogram them,
-// run the policy, merge counters and the pairwise cut matrix, record the
-// slot's label, scale out before an ADD and scale in after a DEL_VERTEX.
+// Fused mixed-window chooser for Hopper (sm_90a): one warp decides the W
+// slots of one window in order — run the policy, merge counters and the
+// pairwise cut matrix, record the slot's label, scale out before an ADD
+// and scale in after a DEL_VERTEX — while two producer warps resolve the
+// labels of the next slots through the touch tables and histogram them.
 //
 // Replaces the Pallas TPU kernel `fused_window_choose`
 // (src/repro/kernels/fused_chooser/fused_chooser.py:245), which kept the
-// window in VMEM and walked the slots in a fori_loop. Here the window's
-// counters, decisions (w_label, p_sel), scale-in remap and cut matrix live
-// in shared memory (~4.5 KB at W=256, K=16); a slot's src_lbl/touch rows
-// (D wide, too many for shared memory at D=256) stream from global memory
-// while every thread resolves and histograms a stride of them; one thread
-// then runs scale-out, the policy and the scalar/K-vector merge in exactly
-// the plain PyTorch version's op order (make_slot_step in
-// repro_torch/kernels/fused_chooser/fused_chooser.py, merge_slot in
-// repro_torch/core/transition.py), and all threads apply the cut-matrix
-// row/column adds and the scale-in fold. The kernel is bound by latency —
-// W dependent slots with four to six block barriers each — not by its
-// ~W*(9 + 2D + K)*4 bytes; grid.x is left for sweep lanes.
+// window in VMEM and walked the slots in a fori_loop.
+//
+// Bound: by bytes it would take ~W*(9 + 2D + K)*4 bytes at HBM speed
+// (0.126 us at (W, D, K) = (256, 192, 16)), but the window is a chain of W
+// dependent slots — slot i + 1 reads the label slot i chose — so latency
+// bounds it. The latency floor is W times the shortest chain of one slot:
+// read the previous slot's label from shared memory (~30 cycles), count
+// the labels (shared atomics, a warp sync and a read back: ~100 cycles),
+// the K-wide choice (SDP's longest path: a warp reduction, two IEEE
+// divisions, the variance gathered to every lane and summed left to right
+// in 15 dependent adds, a square root: ~300 cycles at K = 16) and the
+// merge up to the next label write (~60 cycles): about 490 cycles a slot,
+// 125,000 cycles = 0.063 ms a window at 1.98 GHz. What the design still
+// spends above that floor is the decider warp's instruction issue: the
+// choice, the merge and the scale-in of every slot.
+//
+// * One warp carries the decision chain, so the slot loop synchronises
+//   with __syncwarp and shared-memory flags only, never a block barrier.
+//   Partition j lives on lane j % 32 (entry j / 32 of the lane's arrays;
+//   KT entries cover K <= 32 KT): its edge_load, vertex_count and slot
+//   histogram stay in registers, the active set is a warp-uniform bit
+//   mask, and the scalar counters are replicated in every lane. The cut
+//   matrix, w_label and remap sit in shared memory.
+// * The K-wide loops are warp reductions that keep the plain version's
+//   answers: argmin / argmax as (value, index) reductions whose ties go to
+//   the smallest index (__reduce_min/max_sync), nth_active as a ballot plus
+//   a popc prefix, integer sums in any order. The two f32 K-sums of
+//   load_stats stay left to right: the sum of loads is the integer sum
+//   converted once when every partial sum is exact in f32 (loads in
+//   [0, 2^24] summing to at most 2^24, the case in practice), else its
+//   terms are staged in shared memory and added in order; the variance's
+//   terms reach every lane by shuffles (K <= 32) or the same staging, and
+//   are added in order.
+// * The histogram is off the chain. Producer warp p counts the slots
+//   s = p, p + 2, ... into buffer s & 1, with the slot's random and scalar
+//   rows, and publishes it through a flag. It counts slot s while the
+//   decider decides slot s - 1: its global loads (the (D,) src_lbl and
+//   touch rows, 32 kBatch columns at a time) are issued before it waits
+//   for slots up to s - 2 to be final; it leaves out the entries slot
+//   s - 1 touched and only counts them. The decider then adds those under
+//   slot s - 1's final label, and if slot s - 1 scaled in, moves src's
+//   count to dst — labels the producer read before or after that relabel
+//   end up counted the same. Labels are counted with shared atomic
+//   increments (the hardware merges a warp's increments of one entry) and
+//   the degree with one warp sum.
 //
 // Exactness: all counting is integer. The few f32 operations follow the
-// plain version one by one; the file is built with -fmad=false so nothing
-// is contracted, except the two multiply-adds that XLA's CPU backend (and
-// hence the JAX reference) fuses — the SDP guard's w_dev - load_dev and
-// Fennel's scores - cost — which are explicit __fmaf_rn here and exact
-// FMAs in the plain version. K-reductions are summed left to right.
+// plain version one by one (make_slot_step in
+// repro_torch/kernels/fused_chooser/fused_chooser.py, merge_slot and the
+// choosers in repro_torch/core/transition.py); the file is built with
+// -fmad=false so nothing is contracted, except the two multiply-adds that
+// XLA's CPU backend (and hence the JAX reference) fuses — the SDP guard's
+// w_dev - load_dev and Fennel's scores - cost — which are explicit
+// __fmaf_rn here and exact FMAs in the plain version. grid.x is left for
+// sweep lanes.
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -39,14 +79,16 @@ enum Scal { S_NP = 0, S_TOTAL, S_CUT, S_DENIED, S_SCALE, SCAL_N };
 // knobs layout (transition.Knobs)
 enum Knob { K_MAX_CAP = 0, K_SCALE_IN_L, K_SCALE_IN_DEST, K_LDG_CAP_NUM,
             K_FENNEL_GAMMA, K_FENNEL_GM1, K_FENNEL_ALPHA, KNOB_N };
-// broadcast slots in shared memory (leader -> all threads)
-enum Misc { B_NP = 0, B_TOTAL, B_CUT, B_DENIED, B_SCALE, B_DEG, B_P, B_PDV,
-            B_PU, B_SCA, B_SCD, B_E, B_SRC, B_DST, B_DO, MISC_N };
 
-constexpr int kThreads = 256;
+constexpr unsigned kAll = 0xffffffffu;
 constexpr int kBig = 1 << 30;
 constexpr int kEventAdd = 0;
 constexpr int kEventDelVertex = 1;
+constexpr int kThreads = 96;      // a decider warp and two producer warps
+constexpr int kEvPad = 12;        // a scalar row's ints in shared memory
+constexpr int kBatch = 6;         // 32-column rounds loaded before resolving
+constexpr int kMaxKt = 6;         // K <= 192
+constexpr int kExact = 1 << 24;   // integers up to here are exact in f32
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
@@ -55,145 +97,284 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// The leader thread's view of the window state (all in shared memory).
-struct Win {
-  int k;
-  int* active;
-  int* el;
-  int* vc;
-  int* sc;
-  int* cm;
-  int* misc;
+// The window's per-lane view: partition j = lane + 32 t is entry t.
+template <int KT>
+struct Lanes {
+  int lane, k;
+  __device__ bool real(int t) const { return lane + 32 * t < k; }
+  __device__ bool active(const unsigned (&act)[KT], int t) const {
+    return (act[t] >> lane) & 1u;
+  }
+  // a[j] in every lane
+  __device__ int pick(const int (&a)[KT], int j) const {
+    int x = a[0];
+#pragma unroll
+    for (int t = 1; t < KT; ++t)
+      if ((j >> 5) == t) x = a[t];
+    return __shfl_sync(kAll, x, j & 31);
+  }
+  // the first index of the least val[j] over real j (the plain version's
+  // argmin: ties to the smallest index)
+  __device__ int argmin(const int (&val)[KT]) const {
+    int best = INT_MAX, idx = INT_MAX;
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (real(t) && (idx == INT_MAX || val[t] < best)) {
+        best = val[t];
+        idx = lane + 32 * t;
+      }
+    const int m = __reduce_min_sync(kAll, best);
+    return __reduce_min_sync(kAll, best == m ? idx : INT_MAX);
+  }
+  // masked_argmin(x, mask): masked-out entries count as kBig
+  __device__ int masked_argmin(const int (&x)[KT],
+                               const bool (&mask)[KT]) const {
+    int val[KT];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) val[t] = mask[t] ? x[t] : kBig;
+    return argmin(val);
+  }
+  // nth_active(active, i): the i-th active partition, i modulo the count
+  // (0 when none is active) — a ballot prefix
+  __device__ int nth_active(const unsigned (&act)[KT], int i) const {
+    int cnt = 0;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) cnt += __popc(act[t]);
+    i = floor_mod(i, cnt > 1 ? cnt : 1);
+    const unsigned below = (1u << lane) - 1u;
+    int found = 0, before = 0;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const bool hit = active(act, t)
+          && before + __popc(act[t] & below) == i;
+      const unsigned b = __ballot_sync(kAll, hit);
+      if (b) found = 32 * t + __ffs(b) - 1;
+      before += __popc(act[t]);
+    }
+    return found;
+  }
 };
 
-__device__ int masked_argmin(const int* x, const int* mask, int k) {
-  int best = 0, idx = 0;
-  for (int j = 0; j < k; ++j) {
-    const int val = mask[j] ? x[j] : kBig;
-    if (j == 0 || val < best) { best = val; idx = j; }
+// Window state that every lane holds (scalars replicated, K-vectors split).
+template <int KT>
+struct State {
+  unsigned act[KT];
+  int el[KT], vc[KT], sc[KT];
+  int np, total, cut, denied, scale;
+};
+
+// stage[0] + stage[1] + ... + stage[k - 1], left to right (transition's
+// _seq_sum); for K <= 32 unrolled, so that all the shared loads are issued
+// ahead of the dependent adds
+template <int KT>
+__device__ __forceinline__ float seq_sum(const float* stage, int k) {
+  float x = stage[0];
+  if (KT == 1) {
+#pragma unroll
+    for (int j = 1; j < 32; ++j)
+      if (j < k) x = x + stage[j];
+  } else {
+    for (int j = 1; j < k; ++j) x = x + stage[j];
   }
-  return idx;
+  return x;
 }
 
-__device__ int nth_active(const int* active, int k, int i) {
-  int cnt = 0;
-  for (int j = 0; j < k; ++j) cnt += active[j] != 0;
-  i = floor_mod(i, cnt > 1 ? cnt : 1);
-  int cum = -1;
-  for (int j = 0; j < k; ++j) {
-    cum += active[j] != 0;
-    if (active[j] && cum == i) return j;
+// transition.load_stats: (avg_d, load_dev) over active partitions. `stage`
+// is a per-warp shared f32 array of K. Also returns the least active load
+// (INT_MAX when none is active), which SDP's least-loaded pick reuses.
+template <int KT>
+__device__ void load_stats(const Lanes<KT>& L, const State<KT>& s,
+                           float* stage, float* avg_d, float* load_dev,
+                           int* least) {
+  int cnt = 0, mx = INT_MIN, mn = INT_MAX;
+  unsigned usum = 0;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    cnt += __popc(s.act[t]);
+    if (L.active(s.act, t)) {
+      const int e = s.el[t];
+      mx = max(mx, e);
+      mn = min(mn, e);
+      usum += static_cast<unsigned>(e);
+    }
   }
-  return 0;
-}
-
-// (avg_d, load_dev) over active partitions (transition.load_stats)
-__device__ void load_stats(const Win& s, float* avg_d, float* load_dev) {
-  int cnt = 0;
-  for (int j = 0; j < s.k; ++j) cnt += s.active[j] != 0;
+  mx = __reduce_max_sync(kAll, mx);
+  mn = __reduce_min_sync(kAll, mn);
+  usum = __reduce_add_sync(kAll, usum);
+  *least = mn;
   const float p = fmaxf(static_cast<float>(cnt), 1.0f);
-  float maxl = -f_inf(), minl = f_inf();
-  for (int j = 0; j < s.k; ++j) {
-    const float l = static_cast<float>(s.el[j]);
-    maxl = fmaxf(maxl, s.active[j] ? l : -f_inf());
-    minl = fminf(minl, s.active[j] ? l : f_inf());
-  }
+  // max / min of the converted loads: conversion is monotone
+  const float maxl = cnt ? static_cast<float>(mx) : -f_inf();
+  const float minl = cnt ? static_cast<float>(mn) : f_inf();
   *avg_d = (maxl - minl) / p;
-  float sum = s.active[0] ? static_cast<float>(s.el[0]) : 0.0f;
-  for (int j = 1; j < s.k; ++j)
-    sum = sum + (s.active[j] ? static_cast<float>(s.el[j]) : 0.0f);
+  float sum;
+  if (mn >= 0 && mx <= kExact && usum <= static_cast<unsigned>(kExact)) {
+    // loads in [0, 2^24] summing to at most 2^24 (at most 192 of them, so
+    // the unsigned sum cannot wrap): every partial sum of the left-to-right
+    // f32 sum is an integer below 2^24, hence exact — the sum is the
+    // integer sum, converted once
+    sum = static_cast<float>(usum);
+  } else {
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (L.real(t))
+        stage[L.lane + 32 * t] =
+            L.active(s.act, t) ? static_cast<float>(s.el[t]) : 0.0f;
+    __syncwarp();
+    sum = seq_sum<KT>(stage, L.k);
+    __syncwarp();
+  }
   const float mean = sum / p;
-  float var = 0.0f;
-  for (int j = 0; j < s.k; ++j) {
-    const float dv = static_cast<float>(s.el[j]) - mean;
-    const float term = s.active[j] ? dv * dv : 0.0f;
-    var = (j == 0) ? term : var + term;
+  float term[KT];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const float dv = static_cast<float>(s.el[t]) - mean;
+    term[t] = L.active(s.act, t) ? dv * dv : 0.0f;
+  }
+  float var;
+  if (KT == 1) {        // the terms gathered by shuffles, added in order
+    var = __shfl_sync(kAll, term[0], 0);
+#pragma unroll
+    for (int j = 1; j < 32; ++j) {
+      const float x = __shfl_sync(kAll, term[0], j);
+      if (j < L.k) var = var + x;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (L.real(t)) stage[L.lane + 32 * t] = term[t];
+    __syncwarp();
+    // no warp sync after these reads: stage is next written in the next
+    // slot, past publish()'s
+    var = seq_sum<KT>(stage, L.k);
   }
   *load_dev = sqrtf(var / p);
 }
 
-// SDP guard threshold TH = w_dev - load_dev with w_dev = (|E|/cut) * dev
-__device__ float sdp_threshold(const Win& s, float load_dev) {
-  const float cut = fmaxf(static_cast<float>(s.misc[B_CUT]), 1.0f);
-  const float ratio = static_cast<float>(s.misc[B_TOTAL]) / cut;
-  return __fmaf_rn(ratio, load_dev, -load_dev);
-}
-
-__device__ int affinity_choice(const Win& s, int ridx) {
-  int best = 0;
-  for (int j = 0; j < s.k; ++j) {
-    const int v = s.active[j] ? s.sc[j] : -1;
-    if (j == 0 || v > best) best = v;
+// transition._affinity_choice_at
+template <int KT>
+__device__ int affinity_choice(const Lanes<KT>& L, const State<KT>& s,
+                               int ridx) {
+  int sv[KT];
+  int best = INT_MIN;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    sv[t] = L.active(s.act, t) ? s.sc[t] : -1;
+    if (L.real(t)) best = max(best, sv[t]);
   }
-  int p_tie = 0, tie_best = 0;
-  for (int j = 0; j < s.k; ++j) {       // masked_argmin(el, tied)
-    const bool tied = s.active[j] && (s.sc[j] == best);
-    const int val = tied ? s.el[j] : kBig;
-    if (j == 0 || val < tie_best) { tie_best = val; p_tie = j; }
-  }
-  return best > 0 ? p_tie : nth_active(s.active, s.k, ridx);
+  best = __reduce_max_sync(kAll, best);
+  // both candidates, then a select: straight-line code the compiler can
+  // interleave with the caller's reductions
+  bool tied[KT];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) tied[t] = L.active(s.act, t) && sv[t] == best;
+  const int p_tie = L.masked_argmin(s.el, tied);
+  const int p_rand = L.nth_active(s.act, ridx);
+  return best > 0 ? p_tie : p_rand;
 }
 
 // argmax of h over active partitions with a 1e-6 tie band, ties broken by
 // the smallest vertex count (LDG and Fennel)
-__device__ int banded_pick(const Win& s, const float* h) {
+template <int KT>
+__device__ int banded_pick(const Lanes<KT>& L, const State<KT>& s,
+                           const float (&h)[KT]) {
   float best = -f_inf();
-  for (int j = 0; j < s.k; ++j) best = fmaxf(best, h[j]);
+#pragma unroll
+  for (int t = 0; t < KT; ++t) best = fmaxf(best, h[t]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    best = fmaxf(best, __shfl_xor_sync(kAll, best, off));
   const float floor_ = best - 1e-6f;
-  int idx = 0, vbest = 0;
-  for (int j = 0; j < s.k; ++j) {
-    const bool tied = s.active[j] && (h[j] >= floor_);
-    const int val = tied ? s.vc[j] : kBig;
-    if (j == 0 || val < vbest) { vbest = val; idx = j; }
-  }
-  return idx;
+  bool tied[KT];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) tied[t] = L.active(s.act, t) && h[t] >= floor_;
+  return L.masked_argmin(s.vc, tied);
 }
 
-template <int POLICY, bool ALG1>
-__device__ int choose(const Win& s, int deg, int v, int ridx,
-                      const float* kn, float* h) {
-  const int np = s.misc[B_NP];
+template <int POLICY, bool ALG1, int KT>
+__device__ int choose(const Lanes<KT>& L, const State<KT>& s, float* stage,
+                      int deg, int v, int ridx, const float (&kn)[KNOB_N]) {
+  const int np = s.np;
   if (POLICY == kSdp) {
-    const int p_aff = affinity_choice(s, ridx);
     float avg_d, load_dev;
-    load_stats(s, &avg_d, &load_dev);
-    const float th = sdp_threshold(s, load_dev);
-    const int p_min = masked_argmin(s.el, s.active, s.k);
+    int least;
+    load_stats(L, s, stage, &avg_d, &load_dev, &least);
+    const int p_aff = affinity_choice(L, s, ridx);
+    const float cut = fmaxf(static_cast<float>(s.cut), 1.0f);
+    const float ratio = static_cast<float>(s.total) / cut;
+    const float th = __fmaf_rn(ratio, load_dev, -load_dev);
+    // masked_argmin(el, active): the first active index holding the least
+    // active load, when that load is below the mask's 2^30 (else the
+    // general reduction, where a masked entry can tie)
+    bool act[KT];
+    int first = INT_MAX;
+#pragma unroll
+    for (int t = KT - 1; t >= 0; --t) {
+      act[t] = L.active(s.act, t);
+      if (act[t] && s.el[t] == least) first = L.lane + 32 * t;
+    }
+    const int p_min = least < kBig ? __reduce_min_sync(kAll, first)
+                                   : L.masked_argmin(s.el, act);
     if (ALG1) return (np > 1 && load_dev > th) ? p_aff : p_min;
     return (np > 1 && avg_d > th) ? p_min : p_aff;
   } else if (POLICY == kLdg) {
     const float kk = fmaxf(static_cast<float>(np), 1.0f);
     const float cap = kn[K_LDG_CAP_NUM] / kk;
-    for (int j = 0; j < s.k; ++j) {
-      const float w = 1.0f - static_cast<float>(s.vc[j]) / cap;
-      const float hv = static_cast<float>(s.sc[j]) * fmaxf(w, 0.0f);
-      h[j] = s.active[j] ? hv : -f_inf();
+    float h[KT];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const float w = 1.0f - static_cast<float>(s.vc[t]) / cap;
+      const float hv = static_cast<float>(s.sc[t]) * fmaxf(w, 0.0f);
+      h[t] = L.active(s.act, t) ? hv : -f_inf();
     }
-    return banded_pick(s, h);
+    return banded_pick(L, s, h);
   } else if (POLICY == kFennel) {
-    const float m = static_cast<float>(s.misc[B_TOTAL]) + static_cast<float>(deg);
+    const float m = static_cast<float>(s.total) + static_cast<float>(deg);
     int vsum = 0;
-    for (int j = 0; j < s.k; ++j) vsum += s.vc[j];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) vsum += L.real(t) ? s.vc[t] : 0;
+    vsum = __reduce_add_sync(kAll, vsum);
     const float nt = fmaxf(static_cast<float>(vsum), 1.0f);
     const float kk = fmaxf(static_cast<float>(np), 1.0f);
     const float alpha = kn[K_FENNEL_ALPHA] * sqrtf(kk) * m / powf(nt, 1.5f);
     const float coef = alpha * kn[K_FENNEL_GAMMA];
-    for (int j = 0; j < s.k; ++j) {
-      const float vcp = powf(static_cast<float>(s.vc[j]), kn[K_FENNEL_GM1]);
-      const float hv = __fmaf_rn(-coef, vcp, static_cast<float>(s.sc[j]));
-      h[j] = s.active[j] ? hv : -f_inf();
+    float h[KT];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      h[t] = -f_inf();
+      if (L.active(s.act, t)) {
+        const float vcp = powf(static_cast<float>(s.vc[t]), kn[K_FENNEL_GM1]);
+        h[t] = __fmaf_rn(-coef, vcp, static_cast<float>(s.sc[t]));
+      }
     }
-    return banded_pick(s, h);
+    return banded_pick(L, s, h);
   } else if (POLICY == kHash) {
-    return nth_active(s.active, s.k, floor_mod(v, np > 1 ? np : 1));
+    return L.nth_active(s.act, floor_mod(v, np > 1 ? np : 1));
   } else if (POLICY == kRandom) {
-    return nth_active(s.active, s.k, ridx);
+    return L.nth_active(s.act, ridx);
   } else {
-    return affinity_choice(s, ridx);
+    return affinity_choice(L, s, ridx);
   }
 }
 
-template <int POLICY, bool ALG1>
+// a flag in shared memory, read past the compiler's caches
+__device__ __forceinline__ int load_flag(const int* f) {
+  return *static_cast<const volatile int*>(f);
+}
+// wait until *f >= v; traps (a launch error, not a hang) if it never comes
+__device__ __forceinline__ void wait_flag(const int* f, int v) {
+  for (long long spin = 0; load_flag(f) < v; ++spin)
+    if (spin > (1ll << 28)) __trap();
+  __threadfence_block();
+}
+// *f = v once this warp's earlier shared-memory writes are visible
+__device__ __forceinline__ void publish(int* f, int v) {
+  __threadfence_block();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) *static_cast<volatile int*>(f) = v;
+}
+
+template <int POLICY, bool ALG1, int KT>
 __global__ void __launch_bounds__(kThreads)
 fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl,
                      const int* __restrict__ touch, const int* __restrict__ rand_tab,
@@ -205,228 +386,386 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
                      int* __restrict__ loads_out, int* __restrict__ cm_out,
                      int* __restrict__ scal_out, int w, int d, int k,
                      int autoscaling) {
+  const int lane = threadIdx.x & 31;
+  const int ks = k + 1;                   // cut-matrix row stride (banks)
   extern __shared__ int smem[];
-  int* w_label = smem;             // [w]
-  int* psel = w_label + w;         // [w]
-  int* remap = psel + w;           // [k]
-  int* active = remap + k;         // [k]
-  int* el = active + k;            // [k]
-  int* vc = el + k;                // [k]
-  int* sc = vc + k;                // [k] per-slot histogram
-  int* cm = sc + k;                // [k*k]
-  int* cm2 = cm + k * k;           // [k*k] scale-in fold scratch
-  int* misc = cm2 + k * k;         // [MISC_N]
-  float* h = reinterpret_cast<float*>(misc + MISC_N);   // [k] leader scratch
+  int* flags = smem;             // [decided, ready x2, deg x2, pend x2, -]
+  int* ev_s = smem + 8;                   // [2][kEvPad] two slots' scalar rows
+  int* w_label = ev_s + 2 * kEvPad;       // [w]
+  int* remap = w_label + w;               // [k], right after w_label
+  int* hist = remap + k;                  // [2][k] two slots' histograms
+  int* rand_s = hist + 2 * k;             // [2][k] two slots' random rows
+  float* stage = reinterpret_cast<float*>(rand_s + 2 * k);   // [k]
+  int* cm = rand_s + 3 * k;               // [k][ks]
+  int* decided = flags;                   // slots whose labels are final
+  int* ready = flags + 1;        // per buffer: 1 + the slot counted in it
 
-  const int tid = threadIdx.x;
-  const int kk = k * k;
-  for (int j = tid; j < w; j += blockDim.x) w_label[j] = -1;
-  for (int j = tid; j < k; j += blockDim.x) {
-    remap[j] = j;
-    active[j] = active_in[j] != 0;
-    el[j] = el_in[j];
-    vc[j] = vc_in[j];
+  for (int j = threadIdx.x; j < w; j += kThreads) w_label[j] = -1;
+  for (int j = threadIdx.x; j < k; j += kThreads) remap[j] = j;
+  for (int j = threadIdx.x; j < 2 * k; j += kThreads) hist[j] = 0;
+  for (int j = threadIdx.x; j < k * k; j += kThreads) {
+    const int r = j / k;
+    cm[r * ks + (j - r * k)] = cm_in[j];
   }
-  for (int j = tid; j < kk; j += blockDim.x) cm[j] = cm_in[j];
-  if (tid < SCAL_N) misc[B_NP + tid] = scal_in[tid];
+  if (threadIdx.x < 8) flags[threadIdx.x] = 0;
+  __syncthreads();                        // the only block barrier
+
+  // the current label: the last in-window decision if touched, else the
+  // committed label through the scale-in remap — one load, no branch
+  auto label_at = [&](int lc, int t) {
+    const int lab = w_label[t >= 0 ? t : w + max(lc, 0)];   // remap follows
+    return (t >= 0 || lc >= 0) ? lab : -1;
+  };
+
+  if (threadIdx.x >= 32) {
+    const int producer = (threadIdx.x >> 5) - 1;    // 0 or 1
+    // Producer warp p counts slots p, p + 2, ... (paper Eq. 1): slot s
+    // while the decider decides slot s - 1. It reads labels once slots up
+    // to s - 2 are final, leaves out the entries that slot s - 1 touched
+    // (their count goes to the decider, which knows their label), and
+    // hands over the counts with the slot's random and scalar rows. Its
+    // global loads are issued before it waits, off the decider's chain.
+    for (int sl = producer; sl < w; sl += 2) {
+      const int* srow = src_lbl + static_cast<size_t>(sl) * d;
+      const int* trow = touch + static_cast<size_t>(sl) * d;
+      const int buf = sl & 1;
+      int* h = hist + buf * k;
+      int seen = 0, pend = 0;
+      const int skip = sl - 1;            // the slot decided meanwhile
+      int rv[KT];                         // the slot's random and scalar rows
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        rv[t] = lane + 32 * t < k
+            ? __ldg(rand_tab + static_cast<size_t>(sl) * k + lane + 32 * t) : 0;
+      const int evv = lane < EV_COLS
+          ? __ldg(ev + static_cast<size_t>(sl) * EV_COLS + lane) : 0;
+      for (int j0 = 0; j0 < d; j0 += 32 * kBatch) {
+        int lc[kBatch], tt[kBatch], lab[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int j = min(j0 + 32 * b + lane, d - 1);
+          lc[b] = __ldg(srow + j);
+          tt[b] = __ldg(trow + j);
+        }
+        if (j0 == 0) wait_flag(decided, sl - 1);   // slots <= sl - 2 final
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const bool in = j0 + 32 * b + lane < d;
+          const bool left = in && sl > 0 && tt[b] == skip;
+          pend += left;
+          lab[b] = in && !left ? label_at(lc[b], tt[b]) : -1;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          seen += lab[b] >= 0;
+          if (lab[b] >= 0 && lab[b] < k) atomicAdd(&h[lab[b]], 1);
+        }
+      }
+      if (d == 0) wait_flag(decided, sl - 1);
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (lane + 32 * t < k) rand_s[buf * k + lane + 32 * t] = rv[t];
+      if (lane < EV_COLS) ev_s[buf * kEvPad + lane] = evv;
+      seen = __reduce_add_sync(kAll, seen);
+      pend = __reduce_add_sync(kAll, pend);
+      if (lane == 0) {
+        flags[3 + buf] = seen;
+        flags[5 + buf] = pend;
+      }
+      publish(ready + buf, sl + 1);
+    }
+    return;
+  }
+
+  // The decider warp.
+  const Lanes<KT> L{lane, k};
+  State<KT> s;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    const bool real = j < k;
+    s.act[t] = __ballot_sync(kAll, real && active_in[j] != 0);
+    s.el[t] = real ? el_in[j] : 0;
+    s.vc[t] = real ? vc_in[j] : 0;
+    s.sc[t] = 0;
+  }
+  s.np = scal_in[S_NP];
+  s.total = scal_in[S_TOTAL];
+  s.cut = scal_in[S_CUT];
+  s.denied = scal_in[S_DENIED];
+  s.scale = scal_in[S_SCALE];
   float kn[KNOB_N];
+#pragma unroll
   for (int j = 0; j < KNOB_N; ++j) kn[j] = knobs[j];
-  const Win s{k, active, el, vc, sc, cm, misc};
-  __syncthreads();
+  // slot i - 1's scale-in (src < 0: none), which slot i's counts predate
+  int in_src = -1, in_dst = 0;
 
   for (int i = 0; i < w; ++i) {
-    // (1) clear the slot histogram
-    for (int j = tid; j < k; j += blockDim.x) sc[j] = 0;
-    if (tid == 0) misc[B_DEG] = 0;
-    __syncthreads();
+    wait_flag(ready + (i & 1), i + 1);
+    const int buf = i & 1;
+    const int* e = ev_s + buf * kEvPad;
+    const int et = e[EV_ET];
+    const int v = e[EV_V];
+    const int fresh = e[EV_FRESH] != 0;
+    const int was = e[EV_WAS] != 0;
+    const int exists = e[EV_EXISTS] != 0;
+    const bool add_i = et == kEventAdd;
+    const bool dv_i = et == kEventDelVertex;
 
-    // (2) effective neighbour labels + histogram (paper Eq. 1)
-    const int* srow = src_lbl + static_cast<size_t>(i) * d;
-    const int* trow = touch + static_cast<size_t>(i) * d;
-    int cnt = 0;
-    for (int j = tid; j < d; j += blockDim.x) {
-      const int t = trow[j];
-      const int lc = srow[j];
-      const int lab = t >= 0 ? w_label[t] : (lc >= 0 ? remap[lc] : -1);
-      if (lab >= 0) {
-        ++cnt;
-        if (lab < k) atomicAdd(&sc[lab], 1);
+    // slot i's histogram: the producer's counts, relabelled as slot i - 1's
+    // scale-in did (src's count moves to dst), plus the entries slot i - 1
+    // touched, under its final label
+    int* h = hist + buf * k;
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (L.real(t)) {
+        s.sc[t] = h[lane + 32 * t];
+        h[lane + 32 * t] = 0;
+      }
+    int deg = flags[3 + buf];
+    const int n_pend = flags[5 + buf];
+    if (in_src >= 0) {
+      const int moved = L.pick(s.sc, in_src);
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int j = lane + 32 * t;
+        if (j == in_dst) s.sc[t] += moved;
+        if (j == in_src) s.sc[t] = 0;
       }
     }
-    for (int off = 16; off > 0; off >>= 1)
-      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-    if ((tid & 31) == 0 && cnt) atomicAdd(&misc[B_DEG], cnt);
-    __syncthreads();
+    if (n_pend) {
+      const int lab = w_label[i - 1];
+      deg += lab >= 0 ? n_pend : 0;
+#pragma unroll
+      for (int t = 0; t < KT; ++t)
+        if (lane + 32 * t == lab) s.sc[t] += n_pend;
+    }
+    in_src = -1;
 
-    // (3) leader: scale-out, policy, counter merge, slot label, scale-in trigger
-    if (tid == 0) {
-      const int* e = ev + static_cast<size_t>(i) * EV_COLS;
-      const int et = e[EV_ET];
-      const int v = e[EV_V];
-      const int fresh = e[EV_FRESH] != 0;
-      const int was = e[EV_WAS] != 0;
-      const int exists = e[EV_EXISTS] != 0;
-      const bool add_i = et == kEventAdd;
-      const bool dv_i = et == kEventDelVertex;
+    if (autoscaling && add_i) {                         // scale_out
+      const float p = fmaxf(static_cast<float>(s.np), 1.0f);
+      const float thr = static_cast<float>(s.total) / p;
+      const bool want = kn[K_MAX_CAP] <= thr;
+      int slot = -1;
+#pragma unroll
+      for (int t = KT - 1; t >= 0; --t) {
+        const unsigned b =
+            __ballot_sync(kAll, L.real(t) && !L.active(s.act, t));
+        if (b) slot = 32 * t + __ffs(b) - 1;
+      }
+      if (want && slot >= 0) {
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+          if ((slot >> 5) == t) s.act[t] |= 1u << (slot & 31);
+        s.np += 1;
+        s.scale += 1;
+      } else if (want) {
+        s.denied += 1;
+      }
+    }
 
-      if (autoscaling && add_i) {                       // scale_out
-        const float p = fmaxf(static_cast<float>(misc[B_NP]), 1.0f);
-        const float thr = static_cast<float>(misc[B_TOTAL]) / p;
-        const bool want = kn[K_MAX_CAP] <= thr;
-        int slot = -1;
-        for (int j = 0; j < k; ++j)
-          if (!active[j]) { slot = j; break; }
-        if (want && slot >= 0) {
-          active[slot] = 1;
-          misc[B_NP] += 1;
-          misc[B_SCALE] += 1;
-        } else if (want) {
-          misc[B_DENIED] += 1;
+    // the DEL subjects' labels do not depend on this slot's choice
+    const int vl = label_at(e[EV_VLBL], e[EV_VTOUCH]);
+    const int ul = label_at(e[EV_ULBL], e[EV_UTOUCH]);
+    const int np1 = s.np > 1 ? s.np : 1;
+    const int ridx = rand_s[buf * k + np1 - 1];
+    const int p = choose<POLICY, ALG1, KT>(L, s, stage, deg, v, ridx, kn);
+
+    const int p_dv = vl > 0 ? vl : 0;
+    const int pu = ul > 0 ? ul : 0;
+    const int d_add = fresh ? deg : 0;
+    const int d_dv = was ? deg : 0;
+    const int cutdec = (exists && p_dv != pu) ? 1 : 0;
+    const int sca_p = fresh ? L.pick(s.sc, p) : 0;
+    const int scd_pdv = was ? L.pick(s.sc, p_dv) : 0;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int j = lane + 32 * t;
+      int e_j = s.el[t] + (fresh ? s.sc[t] : 0) - (was ? s.sc[t] : 0);
+      if (j == p) e_j += d_add;
+      if (j == p_dv) e_j -= d_dv + exists;
+      if (j == pu) e_j -= exists;
+      s.el[t] = e_j;
+      if (j == p) s.vc[t] += fresh;
+      if (j == p_dv) s.vc[t] -= was;
+    }
+    s.total = s.total + d_add - d_dv - exists;
+    s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
+
+    // cut-matrix row/column adds: lane j owns [q][j] and [j][q]; a slot is
+    // one event type, so at most one of the three updates runs
+    if (fresh || was) {
+      const int q = fresh ? p : p_dv;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int j = lane + 32 * t;
+        const int add = fresh ? s.sc[t] : -s.sc[t];
+        if (L.real(t) && add) {
+          if (j == q) {
+            cm[q * ks + q] += 2 * add;
+          } else {
+            cm[q * ks + j] += add;
+            cm[j * ks + q] += add;
+          }
         }
       }
+    } else if (exists && lane == 0) {
+      cm[p_dv * ks + pu] -= 1;
+      cm[pu * ks + p_dv] -= 1;
+    }
 
-      const int deg = misc[B_DEG];
-      const int np1 = misc[B_NP] > 1 ? misc[B_NP] : 1;
-      const int ridx = rand_tab[static_cast<size_t>(i) * k + (np1 - 1)];
-      const int p = choose<POLICY, ALG1>(s, deg, v, ridx, kn, h);
-
-      auto label_at = [&](int lc, int t) {
-        return t >= 0 ? w_label[t] : (lc >= 0 ? remap[lc] : -1);
-      };
-      const int vl = label_at(e[EV_VLBL], e[EV_VTOUCH]);
-      const int ul = label_at(e[EV_ULBL], e[EV_UTOUCH]);
-      const int p_dv = vl > 0 ? vl : 0;
-      const int pu = ul > 0 ? ul : 0;
-      const int d_add = fresh ? deg : 0;
-      const int d_dv = was ? deg : 0;
-      const int cutdec = (exists && p_dv != pu) ? 1 : 0;
-
-      const int sca_p = fresh ? sc[p] : 0;
-      const int scd_pdv = was ? sc[p_dv] : 0;
-      for (int j = 0; j < k; ++j)
-        el[j] = el[j] + (fresh ? sc[j] : 0) - (was ? sc[j] : 0);
-      el[p] += d_add;
-      el[p_dv] -= d_dv;
-      el[p_dv] -= exists;
-      el[pu] -= exists;
-      vc[p] += fresh;
-      vc[p_dv] -= was;
-      misc[B_TOTAL] = misc[B_TOTAL] + d_add - d_dv - exists;
-      misc[B_CUT] = misc[B_CUT] + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
-
+    if (lane == 0) {
       const int new_lbl = add_i ? (fresh ? p : vl) : (dv_i ? -1 : vl);
       w_label[i] = (add_i || dv_i) ? new_lbl : -1;
-      psel[i] = p;
+      psel_out[i] = p;
+    }
 
-      int do_in = 0, src = 0, dst = 0;
-      if (autoscaling && dv_i) {                        // scale_in_trigger
-        int n_under = 0;
-        for (int j = 0; j < k; ++j)
-          n_under += active[j] && (static_cast<float>(el[j]) < kn[K_SCALE_IN_L]);
-        src = masked_argmin(el, active, k);
-        int best = 0;
-        for (int j = 0; j < k; ++j) {                   // masked_argmin(el, active & j != src)
-          const int val = (active[j] && j != src) ? el[j] : kBig;
-          if (j == 0 || val < best) { best = val; dst = j; }
+    if (autoscaling && dv_i) {                          // scale_in_trigger
+      int under = 0;
+      bool act[KT], act2[KT];
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        act[t] = L.active(s.act, t);
+        under += act[t] && (static_cast<float>(s.el[t]) < kn[K_SCALE_IN_L]);
+      }
+      const int n_under = __reduce_add_sync(kAll, under);
+      const int src = L.masked_argmin(s.el, act);
+#pragma unroll
+      for (int t = 0; t < KT; ++t) act2[t] = act[t] && lane + 32 * t != src;
+      const int dst = L.masked_argmin(s.el, act2);
+      const int el_src = L.pick(s.el, src), el_dst = L.pick(s.el, dst);
+      const bool fits =
+          static_cast<float>(el_src + el_dst) <= kn[K_SCALE_IN_DEST];
+      if (s.np > 1 && n_under >= 2 && fits) {           // scale in
+        in_src = src;
+        in_dst = dst;
+        const int vc_src = L.pick(s.vc, src);
+        __syncwarp();                                   // the slot's cm adds
+        s.cut -= cm[src * ks + dst];
+        // merge_cut_matrix: row src into row dst and column src into
+        // column dst, then row and column src cleared
+        const int ss = cm[src * ks + src];
+        int a[KT], row_d[KT], col_d[KT];
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const int j = lane + 32 * t;
+          if (L.real(t)) {
+            a[t] = cm[src * ks + j];
+            row_d[t] = cm[dst * ks + j];
+            col_d[t] = cm[j * ks + dst];
+          }
         }
-        const bool fits =
-            static_cast<float>(el[src] + el[dst]) <= kn[K_SCALE_IN_DEST];
-        do_in = misc[B_NP] > 1 && n_under >= 2 && fits;
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const int j = lane + 32 * t;
+          if (!L.real(t)) continue;
+          if (j == dst) {
+            cm[dst * ks + dst] = row_d[t] + a[t] + a[t] + ss;
+          } else {
+            cm[dst * ks + j] = row_d[t] + a[t];
+            cm[j * ks + dst] = col_d[t] + a[t];
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const int j = lane + 32 * t;
+          if (L.real(t)) {
+            cm[src * ks + j] = 0;
+            cm[j * ks + src] = 0;
+          }
+        }
+        for (int j = lane; j <= i; j += 32)
+          if (w_label[j] == src) w_label[j] = dst;
+        for (int j = lane; j < k; j += 32)
+          if (remap[j] == src) remap[j] = dst;
+#pragma unroll
+        for (int t = 0; t < KT; ++t) {
+          const int j = lane + 32 * t;
+          if (j == dst) {
+            s.el[t] += el_src;
+            s.vc[t] += vc_src;
+          }
+          if (j == src) {
+            s.el[t] = 0;
+            s.vc[t] = 0;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+          if ((src >> 5) == t) s.act[t] &= ~(1u << (src & 31));
+        s.np -= 1;
+        s.scale += 1;
       }
-      misc[B_P] = p;
-      misc[B_PDV] = p_dv;
-      misc[B_PU] = pu;
-      misc[B_SCA] = fresh;
-      misc[B_SCD] = was;
-      misc[B_E] = exists;
-      misc[B_SRC] = src;
-      misc[B_DST] = dst;
-      misc[B_DO] = do_in;
     }
-    __syncthreads();
-
-    // (4) cut-matrix row/column adds of the slot (commit / delete / edge)
-    {
-      const int p = misc[B_P], p_dv = misc[B_PDV], pu = misc[B_PU];
-      const int use_a = misc[B_SCA], use_d = misc[B_SCD], e = misc[B_E];
-      for (int j = tid; j < kk; j += blockDim.x) {
-        const int r = j / k, c = j - r * k;
-        int delta = 0;
-        if (use_a) delta += (r == p ? sc[c] : 0) + (c == p ? sc[r] : 0);
-        if (use_d) delta -= (r == p_dv ? sc[c] : 0) + (c == p_dv ? sc[r] : 0);
-        if (r == p_dv && c == pu) delta -= e;
-        if (r == pu && c == p_dv) delta -= e;
-        cm[j] += delta;
-      }
-    }
-    __syncthreads();
-
-    // (5) scale-in: fold src into dst (merge_cut_matrix) and relabel
-    if (misc[B_DO]) {
-      const int src = misc[B_SRC], dst = misc[B_DST];
-      for (int j = tid; j < kk; j += blockDim.x) {
-        const int r = j / k, c = j - r * k;
-        int val = cm[j];
-        if (r == dst) val += cm[src * k + c];
-        if (c == dst) val += cm[src * k + r];
-        if (r == dst && c == dst) val += cm[src * k + src];
-        cm2[j] = (r == src || c == src) ? 0 : val;
-      }
-      for (int j = tid; j < w; j += blockDim.x)
-        if (w_label[j] == src) w_label[j] = dst;
-      for (int j = tid; j < k; j += blockDim.x)
-        if (remap[j] == src) remap[j] = dst;
-      if (tid == 0) {
-        misc[B_CUT] -= cm[src * k + dst];
-        el[dst] += el[src];
-        el[src] = 0;
-        vc[dst] += vc[src];
-        vc[src] = 0;
-        active[src] = 0;
-        misc[B_NP] -= 1;
-        misc[B_SCALE] += 1;
-      }
-      __syncthreads();
-      for (int j = tid; j < kk; j += blockDim.x) cm[j] = cm2[j];
-      __syncthreads();
-    }
+    publish(decided, i + 1);              // labels, cut matrix settled
   }
 
-  for (int j = tid; j < w; j += blockDim.x) {
-    w_label_out[j] = w_label[j];
-    psel_out[j] = psel[j];
+  for (int j = lane; j < w; j += 32) w_label_out[j] = w_label[j];
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    if (L.real(t)) {
+      remap_out[j] = remap[j];
+      active_out[j] = L.active(s.act, t) ? 1 : 0;
+      loads_out[j] = s.el[t];
+      loads_out[k + j] = s.vc[t];
+    }
   }
-  for (int j = tid; j < k; j += blockDim.x) {
-    remap_out[j] = remap[j];
-    active_out[j] = active[j];
-    loads_out[j] = el[j];
-    loads_out[k + j] = vc[j];
+  for (int j = lane; j < k * k; j += 32) {
+    const int r = j / k;
+    cm_out[j] = cm[r * ks + (j - r * k)];
   }
-  for (int j = tid; j < kk; j += blockDim.x) cm_out[j] = cm[j];
-  if (tid < SCAL_N) scal_out[tid] = misc[B_NP + tid];
+  if (lane == 0) {
+    scal_out[S_NP] = s.np;
+    scal_out[S_TOTAL] = s.total;
+    scal_out[S_CUT] = s.cut;
+    scal_out[S_DENIED] = s.denied;
+    scal_out[S_SCALE] = s.scale;
+  }
 }
 
-template <int POLICY, bool ALG1>
+size_t smem_bytes(int w, int k) {
+  const size_t kk = static_cast<size_t>(k);
+  return sizeof(int) * (8 + 2 * kEvPad + static_cast<size_t>(w) + 6 * kk
+                        + kk * (kk + 1));
+}
+
+template <int POLICY, bool ALG1, int KT>
 cudaError_t launch(const int* ev, const int* src_lbl, const int* touch,
                    const int* rand_tab, const int* active, const int* el,
                    const int* vc, const int* cm, const int* scal,
                    const float* knobs, int* w_label, int* psel, int* remap,
                    int* active_out, int* loads, int* cm_out, int* scal_out,
                    int w, int d, int k, int autoscaling, cudaStream_t stream) {
-  auto kernel = fused_chooser_kernel<POLICY, ALG1>;
-  const size_t smem = sizeof(int) * (2 * static_cast<size_t>(w) + 6 * k
-                                     + 2 * static_cast<size_t>(k) * k + MISC_N);
+  auto kernel = fused_chooser_kernel<POLICY, ALG1, KT>;
+  const size_t smem = smem_bytes(w, k);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<1, kThreads, smem, stream>>>(ev, src_lbl, touch, rand_tab, active,
-                                        el, vc, cm, scal, knobs, w_label, psel,
-                                        remap, active_out, loads, cm_out,
-                                        scal_out, w, d, k, autoscaling);
+  kernel<<<1, kThreads, smem, stream>>>(ev, src_lbl, touch, rand_tab, active, el,
+                                  vc, cm, scal, knobs, w_label, psel, remap,
+                                  active_out, loads, cm_out, scal_out, w, d, k,
+                                  autoscaling);
   return cudaGetLastError();
+}
+
+template <int POLICY, bool ALG1>
+cudaError_t launch_k(const int* ev, const int* src_lbl, const int* touch,
+                     const int* rand_tab, const int* active, const int* el,
+                     const int* vc, const int* cm, const int* scal,
+                     const float* knobs, int* w_label, int* psel, int* remap,
+                     int* active_out, int* loads, int* cm_out, int* scal_out,
+                     int w, int d, int k, int autoscaling, cudaStream_t stream) {
+  if (k > 32 * kMaxKt) return cudaErrorInvalidValue;
+  return (k <= 32 ? launch<POLICY, ALG1, 1> : launch<POLICY, ALG1, kMaxKt>)(
+      ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, w_label,
+      psel, remap, active_out, loads, cm_out, scal_out, w, d, k, autoscaling,
+      stream);
 }
 
 }  // namespace
@@ -434,6 +773,9 @@ cudaError_t launch(const int* ev, const int* src_lbl, const int* touch,
 #define FUSED_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, \
                    w_label, psel, remap, active_out, loads, cm_out, scal_out,     \
                    w, d, k, autoscaling, stream
+
+// The most partition slots the kernel takes.
+extern "C" int fused_chooser_max_k() { return 32 * kMaxKt; }
 
 extern "C" int fused_chooser_launch(
     const int* ev, const int* src_lbl, const int* touch, const int* rand_tab,
@@ -443,18 +785,18 @@ extern "C" int fused_chooser_launch(
     int k, int policy, int alg1, int autoscaling, cudaStream_t stream) {
   cudaError_t err;
   switch (policy * 2 + (alg1 ? 1 : 0)) {
-    case kSdp * 2: err = launch<kSdp, false>(FUSED_ARGS); break;
-    case kSdp * 2 + 1: err = launch<kSdp, true>(FUSED_ARGS); break;
-    case kLdg * 2: err = launch<kLdg, false>(FUSED_ARGS); break;
-    case kLdg * 2 + 1: err = launch<kLdg, true>(FUSED_ARGS); break;
-    case kFennel * 2: err = launch<kFennel, false>(FUSED_ARGS); break;
-    case kFennel * 2 + 1: err = launch<kFennel, true>(FUSED_ARGS); break;
-    case kHash * 2: err = launch<kHash, false>(FUSED_ARGS); break;
-    case kHash * 2 + 1: err = launch<kHash, true>(FUSED_ARGS); break;
-    case kRandom * 2: err = launch<kRandom, false>(FUSED_ARGS); break;
-    case kRandom * 2 + 1: err = launch<kRandom, true>(FUSED_ARGS); break;
-    case kGreedy * 2: err = launch<kGreedy, false>(FUSED_ARGS); break;
-    case kGreedy * 2 + 1: err = launch<kGreedy, true>(FUSED_ARGS); break;
+    case kSdp * 2: err = launch_k<kSdp, false>(FUSED_ARGS); break;
+    case kSdp * 2 + 1: err = launch_k<kSdp, true>(FUSED_ARGS); break;
+    case kLdg * 2: err = launch_k<kLdg, false>(FUSED_ARGS); break;
+    case kLdg * 2 + 1: err = launch_k<kLdg, true>(FUSED_ARGS); break;
+    case kFennel * 2: err = launch_k<kFennel, false>(FUSED_ARGS); break;
+    case kFennel * 2 + 1: err = launch_k<kFennel, true>(FUSED_ARGS); break;
+    case kHash * 2: err = launch_k<kHash, false>(FUSED_ARGS); break;
+    case kHash * 2 + 1: err = launch_k<kHash, true>(FUSED_ARGS); break;
+    case kRandom * 2: err = launch_k<kRandom, false>(FUSED_ARGS); break;
+    case kRandom * 2 + 1: err = launch_k<kRandom, true>(FUSED_ARGS); break;
+    case kGreedy * 2: err = launch_k<kGreedy, false>(FUSED_ARGS); break;
+    case kGreedy * 2 + 1: err = launch_k<kGreedy, true>(FUSED_ARGS); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

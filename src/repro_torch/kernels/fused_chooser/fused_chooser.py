@@ -16,15 +16,18 @@ committed labels.
 ``make_slot_step`` is that loop's body in plain PyTorch, op for op the
 windowed engine's journal step; ``ref.fused_window_choose_ref`` drives it
 in a Python loop, and the CUDA kernel runs the same arithmetic in one
-CTA. The kernel replaces ``repro.kernels.fused_chooser.fused_chooser
+warp. The kernel replaces ``repro.kernels.fused_chooser.fused_chooser
 .fused_window_choose`` (the Pallas TPU kernel at ``fused_chooser.py:245``),
 which held the window in VMEM and walked the slots in a ``fori_loop``.
-On Hopper the window's counters, decisions and cut matrix live in shared
-memory; a slot's (D,) rows stream from global memory while all threads
-resolve labels and histogram them, and one thread runs the policy and the
-scalar merge in the plain version's exact op order. It is bound by
-latency — W dependent slots, each with a few block barriers — not by its
-~W·(9 + 2D + K)·4 bytes.
+On Hopper one warp carries the window's chain of dependent slots with no
+block barrier: partition j lives on lane j % 32 (its counters and slot
+histogram in registers), the K-wide loops are warp reductions that keep
+the plain version's answers (``ref.warp_argmin``, ``ref.warp_nth_active``
+model them), and the cut matrix, ``w_label`` and ``remap`` sit in shared
+memory. Two producer warps count each slot's histogram one slot ahead,
+leaving out the entries the slot being decided touches, which the decider
+adds once their label is known. It is bound by that chain's latency, not
+by its ~W·(9 + 2D + K)·4 bytes. K is at most 192.
 """
 from __future__ import annotations
 
@@ -123,12 +126,14 @@ def make_slot_step(*, k_max: int, n: int, choose, autoscaling: bool):
 
 
 def _lib():
-    fn = load_kernel("fused_chooser").fused_chooser_launch
+    lib = load_kernel("fused_chooser")
+    fn = lib.fused_chooser_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.fused_chooser_max_k.restype = ctypes.c_int
+    return lib
 
 
 def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
@@ -165,6 +170,10 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
     check_input(knobs, "knobs", torch.float32, (7,))
     if balance_guard not in ("text", "alg1"):
         raise ValueError(f"balance_guard={balance_guard!r} is unknown")
+    lib = _lib()
+    if k > lib.fused_chooser_max_k():
+        raise ValueError(f"k_max={k} is above the kernel's "
+                         f"{lib.fused_chooser_max_k()} partition slots")
     active_i = active.to(_I32)
     out = (torch.empty((w,), dtype=_I32, device=dev),          # w_label
            torch.empty((w,), dtype=_I32, device=dev),          # p_sel
@@ -176,9 +185,9 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
     ptrs = [t.data_ptr() for t in (ev, src_lbl, touch, rand_tab, active_i,
                                    edge_load, vertex_count, cut_matrix,
                                    scalars, knobs) + out]
-    err = _lib()(*ptrs, w, d, k, tx.POLICY_INDEX[policy],
-                 int(balance_guard == "alg1"), int(autoscaling),
-                 stream_ptr(dev))
+    err = lib.fused_chooser_launch(*ptrs, w, d, k, tx.POLICY_INDEX[policy],
+                                   int(balance_guard == "alg1"),
+                                   int(autoscaling), stream_ptr(dev))
     check_launch(err, "fused_chooser")
     fused_window_choose.launches += 1
     return out

@@ -131,18 +131,60 @@ def test_embedding_bag_kernel_matches_plain(cuda, v, d, b, l, low, dtype):
         assert not got[0].any()                 # the all-padding bag
 
 
-@pytest.mark.parametrize("k_max", [6, 1])
-@pytest.mark.parametrize("policy", POLICIES)
-def test_fused_chooser_kernel_matches_plain(cuda, policy, k_max):
-    n, args = _window(cuda, k_max)
+def _assert_fused_matches(n, args, policy):
     for guard in ("text", "alg1"):
         for auto in (True, False):
             kw = dict(n=n, policy=policy, balance_guard=guard,
                       autoscaling=auto)
+            before = fk.fused_window_choose.launches
             got = fk.fused_window_choose(*args, **kw)
+            assert fk.fused_window_choose.launches == before + 1
             want = fused_window_choose_ref(*args, **kw)
             for x, y in zip(got, want):
                 assert torch.equal(x, y), (policy, guard, auto)
+
+
+# k_max 40: partitions past the 32 lanes of the kernel's warp
+@pytest.mark.parametrize("k_max", [6, 1, 40])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_fused_chooser_kernel_matches_plain(cuda, policy, k_max):
+    n, args = _window(cuda, k_max)
+    _assert_fused_matches(n, args, policy)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_fused_chooser_kernel_matches_plain_wide_rows(cuda, policy):
+    """Rows of 8,001 columns: the window's own entries padded with -1 and
+    scattered over each row by a random column permutation (the same for
+    src_lbl and touch). The producer warps read a row in 42 batches of 192
+    columns, only the first before they wait for the decider; the
+    permutation puts labels, and entries that the slot before touched, in
+    the batches read after that wait. 8,001 is odd, so the rows are not
+    16-byte aligned either."""
+    n, args = _window(cuda, 6)
+    ev, src_lbl, touch, *rest = args
+    w, d = src_lbl.shape
+    pad = torch.full((w, 8001 - d), -1, dtype=torch.int32, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    perm = torch.argsort(torch.rand((w, 8001), generator=g), dim=1).to(cuda)
+    wide = tuple(torch.cat([t, pad], 1).gather(1, perm).contiguous()
+                 for t in (src_lbl, touch))
+    prev = torch.arange(-1, w - 1, device=cuda)[:, None]
+    assert bool((wide[0][:, 192:] >= 0).any())
+    assert bool(((wide[1][:, 192:] == prev) & (prev >= 0)).any())
+    _assert_fused_matches(n, (ev, *wide, *rest), policy)
+
+
+@pytest.mark.parametrize("policy", ["sdp", "greedy"])
+def test_fused_chooser_kernel_matches_plain_large_loads(cuda, policy):
+    """Edge loads past 2^24: the f32 sum of loads is no longer the integer
+    sum, and the kernel adds the terms left to right as the plain version
+    does."""
+    n, args = _window(cuda, 6)
+    args = list(args)
+    args[5] = args[5] + (1 << 25) + torch.arange(
+        6, dtype=torch.int32, device=cuda) * 7
+    _assert_fused_matches(n, tuple(args), policy)
 
 
 # flash_attention: tests/test_kernels.py's cases (B, H, Hkv, Sq, Sk, D) and
@@ -300,6 +342,75 @@ def test_segment_spmm_kernel_matches_plain(cuda, n, dmax, f, dtype):
         torch.cuda.synchronize()
         assert torch.equal(got, want), mode
         assert not got[0].any()
+
+
+def _scattered_adj(g, n, dmax, m, dev, density=0.2):
+    """(n, dmax) ids in [0, m) at scattered slots, -1 elsewhere; row 0 all
+    padding."""
+    adj = torch.randint(0, m, (n, dmax), generator=g, device=dev,
+                        dtype=torch.int32)
+    keep = torch.rand((n, dmax), generator=g, device=dev) < density
+    adj = torch.where(keep, adj, torch.full_like(adj, -1))
+    adj[0] = -1
+    return adj
+
+
+# (n, dmax, f): every F residue mod 4 (f32) and mod 8 (bf16), F = 1433 at a
+# small N, F spanning several column slabs (128 f32 or 256 bf16 columns),
+# rows whose valid slots lie past slot 32 among -1s, N off a multiple of a
+# CTA's rows
+SPMM_LAYOUTS = [(9, 40, f) for f in range(1, 9)] + [
+    (33, 70, 1433), (17, 100, 300), (21, 45, 600), (130, 192, 129),
+    (5, 2843, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,dmax,f", SPMM_LAYOUTS)
+def test_segment_spmm_kernel_layouts(cuda, n, dmax, f, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n * 7 + f)
+    x = torch.randn((n + 3, f), generator=g, device=cuda).to(dtype)
+    adj = _scattered_adj(g, n, dmax, n + 3, cuda)
+    assert bool((adj[:, 33:] >= 0).any()) or dmax <= 33
+    for mode in ("sum", "mean"):
+        got = segment_spmm(x, adj, mode=mode)
+        want = segment_spmm_ref(x, adj, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+        assert not got[0].any()
+
+
+# (dtype, F, kernels a call launches): one slab (the gather alone) or
+# several (the compaction, then the gather)
+@pytest.mark.parametrize("dtype,f,kernels", [
+    (torch.float32, 128, ("gather",)), (torch.bfloat16, 256, ("gather",)),
+    (torch.float32, 129, ("compact", "gather")),
+    (torch.bfloat16, 1433, ("compact", "gather"))])
+def test_segment_spmm_counts_each_kernel(cuda, dtype, f, kernels):
+    g = torch.Generator(device=cuda).manual_seed(f)
+    x = torch.randn((40, f), generator=g, device=cuda).to(dtype)
+    adj = _scattered_adj(g, 33, 50, 40, cuda)
+    before, by = segment_spmm.launches, dict(segment_spmm.kernel_launches)
+    got = segment_spmm(x, adj)
+    assert segment_spmm.launches == before + 1
+    assert segment_spmm.kernel_launches == {
+        k: n + (k in kernels) for k, n in by.items()}
+    assert torch.equal(got, segment_spmm_ref(x, adj))
+
+
+def test_segment_spmm_kernel_rows_past_2_31(cuda):
+    """bf16 x whose row * F passes 2^31 elements: 64-bit row offsets."""
+    f, m = 256, (1 << 23) + 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((m, f), generator=g, device=cuda).to(torch.bfloat16)
+    adj = _scattered_adj(g, 40, 24, 64, cuda, density=0.5)
+    adj = torch.where(adj >= 0, adj + (1 << 23), adj)
+    assert int(adj.max()) * f >= 2 ** 31
+    for mode in ("sum", "mean"):
+        got = segment_spmm(x, adj, mode=mode)
+        want = segment_spmm_ref(x, adj, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+    del x
 
 
 def test_lm_layers_launch_the_attention_kernel(cuda):

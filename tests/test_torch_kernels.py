@@ -154,3 +154,50 @@ def test_kernel_inputs_must_share_a_device():
     labels = torch.zeros((2, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="one CUDA device or all on the CPU"):
         partition_affinity(labels, k_max=2)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA fused chooser's warp reductions (a CPU model in
+# kernels/fused_chooser/ref.py) against transition's sequential loops
+# ---------------------------------------------------------------------------
+
+from types import SimpleNamespace  # noqa: E402
+
+from hypothesis import given, settings, strategies as st  # noqa: E402
+
+from repro_torch.kernels.fused_chooser import ref as fref  # noqa: E402
+
+
+@st.composite
+def _k_vectors(draw):
+    """K in 1..80 (past the warp's 32 lanes, into a third entry a lane):
+    loads and scores from small ranges, so ties are common, and masks that
+    may be all False."""
+    k = draw(st.integers(1, 80))
+    ints = st.lists(st.integers(-2, 6), min_size=k, max_size=k)
+    mask = draw(st.one_of(st.just([False] * k),
+                          st.lists(st.booleans(), min_size=k, max_size=k)))
+    return (torch.tensor(draw(ints), dtype=torch.int32),
+            torch.tensor(draw(ints), dtype=torch.int32),
+            torch.tensor(mask), draw(st.integers(-200, 200)))
+
+
+@settings(max_examples=300, deadline=None)
+@given(_k_vectors())
+def test_warp_reductions_pick_what_the_loops_pick(vecs):
+    load, scores, active, ridx = vecs
+    assert fref.warp_masked_argmin(load, active) == int(
+        ttx.masked_argmin(load, active))
+    assert fref.warp_nth_active(active, ridx) == int(
+        ttx.nth_active(active, torch.tensor(ridx, dtype=torch.int32)))
+    state = SimpleNamespace(active=active, edge_load=load)
+    assert fref.warp_affinity_choice(active, scores, load, ridx) == int(
+        ttx._affinity_choice_at(state, scores,
+                                torch.tensor(ridx, dtype=torch.int32)))
+    # LDG's and Fennel's banded pick (transition._choose_ldg's last lines):
+    # scores / 4 gives f32 ties and near-ties inside the 1e-6 band
+    h = torch.where(active, scores.to(torch.float32) / 4
+                    + (load == 3).to(torch.float32) * 5e-7, -torch.inf)
+    tied = active & (h >= h.max() - 1e-6)
+    assert fref.warp_banded_pick(h, active, load) == int(
+        ttx.masked_argmin(load, tied))

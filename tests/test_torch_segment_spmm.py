@@ -18,7 +18,7 @@ from repro.kernels.segment_spmm.segment_spmm import (
 )
 from repro_torch.kernels.segment_spmm.ops import ell_aggregate
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
-from repro_torch.kernels.segment_spmm.segment_spmm import segment_spmm
+from repro_torch.kernels.segment_spmm.segment_spmm import plan, segment_spmm
 
 # tests/test_kernels.py's shapes (N, Dmax, F, mode) and tolerances, plus a
 # row wider than a 32-id tile of the kernel's slot loop
@@ -62,6 +62,44 @@ def test_segment_spmm_bf16_matches_jax(mode):
     for other in (want, pallas):
         np.testing.assert_allclose(got.numpy(), other, rtol=TOL_BF16,
                                    atol=TOL_BF16)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_segment_spmm_matches_jax_across_column_blocks(mode):
+    """F = 133 (1 mod 4) spans two of the Pallas kernel's 128-column blocks
+    (its default block_f). The port runs its plain version here (CPU
+    tensors); the CUDA kernel's slab split at such an F is held bit-equal
+    to that plain version by the card tests."""
+    x, adj = _inputs(16, 40, 133, seed=5)
+    want = np.asarray(jspmm_ref(x, adj, mode=mode))
+    pallas = np.asarray(jsegment_spmm(x, adj, mode=mode))
+    got = segment_spmm(torch.from_numpy(x), torch.from_numpy(adj), mode=mode)
+    for other in (want, pallas):
+        np.testing.assert_allclose(got.numpy(), other, rtol=TOL_F32,
+                                   atol=TOL_F32)
+
+
+def test_plan_splits_f_into_slabs():
+    """512-byte slabs: 128 f32 or 256 bf16 columns; the compaction scratch
+    only where F spans several slabs."""
+    one = plan(81_306, 192, 128, 4, 512)
+    assert (one.slabs, one.packed, one.count) == (1, None, None)
+    wide = plan(81_306, 192, 1433, 4, 512)
+    assert wide.slabs == 12
+    assert wide.packed == (81_306, 192) and wide.count == (81_306,)
+    assert plan(10, 3, 1433, 2, 512).slabs == 6
+    assert plan(10, 3, 256, 2, 512).packed is None
+    assert plan(10, 3, 129, 4, 1024).packed is None
+
+
+def test_plan_rejects_grids_the_card_cannot_hold():
+    """More column slabs than grid.y holds, or more rows than the int32
+    row index of the grid, raise before any launch."""
+    assert plan(10, 3, 128 * 65_535, 4, 512).slabs == 65_535
+    with pytest.raises(ValueError, match="column slabs"):
+        plan(10, 3, 128 * 65_536, 4, 512)
+    with pytest.raises(ValueError, match="int32 grid"):
+        plan(2 ** 31 - 1, 3, 8, 4, 512)
 
 
 def test_plain_version_adds_slots_in_order():
