@@ -9,7 +9,9 @@ than the plain version's, so it is held at tests/test_kernels.py's 2e-5 in
 f32 and at one bf16 ulp in bf16, on each of its three kernels: f32 CUDA
 cores, the bf16 tensor-core prefill, the bf16 decode split over the keys),
 runs the streaming session on grqc against the
-port's faithful per-event engine, drives the full-width session — the
+port's faithful per-event engine (and at k_max = 200, the fused chooser's
+large-K kernel, against the plain session), drives the full-width
+session — the
 paper's largest dataset, twitter at scale 1.0 — through
 ``Partitioner.feed`` with both session kernels on the path, and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -49,12 +52,9 @@ from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import engine, transition as tx, windowed as wnd  # noqa: E402
 from repro_torch.core.config import EngineConfig, POLICIES  # noqa: E402
 from repro_torch.core.metrics import recompute_counters  # noqa: E402
-from repro_torch.core.state import init_state  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
 from repro_torch.graph.datasets import load_dataset  # noqa: E402
-from repro_torch.graph.stream import (  # noqa: E402
-    EVENT_ADD, VertexStream, interleaved_churn, normalize_rows,
-)
+from repro_torch.graph.stream import VertexStream, interleaved_churn  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
@@ -62,6 +62,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
+from repro_torch.kernels.fused_chooser import sweep as fsweep  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref  # noqa: E402
 from repro_torch.kernels.partition_affinity import ops as pops  # noqa: E402
 from repro_torch.kernels.partition_affinity import partition_affinity as pa  # noqa: E402
@@ -75,6 +76,7 @@ from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores (data sheet)
 EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
 # the full-width session's kernel shapes: a window of 256 events, twitter
@@ -82,13 +84,20 @@ EVENT_ARGS = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
 # stream's max_deg exactly), 16 partition slots
 WINDOW, TWITTER_CAP, K_MAX = 256, 192, 16
 SESSION_SHAPE = (WINDOW, TWITTER_CAP, K_MAX)
+K_200_CAP = 60             # grqc's k_max = 200 session: edges a partition
 GRQC_WIDTH = 2843          # grqc's widest row, uncapped (the grqc phase's D)
-# embedding_bag cases (V, D, B, L, lowest id): tests/test_kernels.py's
-# shapes, the serve shape (4096 bags of 8 slots at D = 256), and rows past
-# 2^23 at D = 256, where idx * D passes 2^31
-BAG_CASES = ((10, 8, 4, 1, -1), (50, 24, 12, 5, -1), (100, 130, 7, 9, -1),
-             (30, 256, 3, 4, -1), (1 << 20, 256, 4096, 8, -1),
-             ((1 << 23) + 4096, 256, 1024, 8, 1 << 23))
+# embedding_bag cases (V, D, B, L, lowest id, table view's offset in
+# elements): tests/test_kernels.py's shapes, the serve shape (4096 bags of 8
+# slots at D = 256), rows past 2^23 at D = 256, where idx * D passes 2^31,
+# and the load-width variants: row widths and base offsets that give every
+# width in f32 and bf16, with bags of 1, 8, 37 and 2,000 slots
+BAG_CASES = ((10, 8, 4, 1, -1, 0), (50, 24, 12, 5, -1, 0),
+             (100, 130, 7, 9, -1, 0), (30, 256, 3, 4, -1, 0),
+             (1 << 20, 256, 4096, 8, -1, 0),
+             ((1 << 23) + 4096, 256, 1024, 8, 1 << 23, 0),
+             (300, 256, 45, 37, -1, 1), (300, 256, 45, 2000, -1, 2),
+             (300, 256, 45, 1, -1, 4), (300, 6, 45, 8, -1, 0),
+             (300, 5, 45, 37, -1, 0), (300, 12, 45, 2000, -1, 0))
 # the recsys phase: requests served (after warm-up ones), the corpus chunk,
 # the serve_bulk slice checked against the plain bag, and the check's
 # tolerance on scores (|score| <= 1/temperature = 20; the kernel path and
@@ -193,22 +202,20 @@ def max_abs_diff(a, b) -> int:
     return worst
 
 
-def bag_case(dev, v, d, b, l, dtype, seed, low=-1):
-    """A (V, D) table in ``dtype`` and (B, L) int32 bags: ids in [low, V),
-    about a quarter of the slots -1, bag 0 all padding — built by hand,
-    since full-vocab ``make_batch`` ids are almost never -1."""
+def bag_case(dev, v, d, b, l, dtype, seed, low=-1, off=0):
+    """A (V, D) table in ``dtype`` — a view ``off`` elements into its
+    storage — and (B, L) int32 bags: ids in [low, V), about a quarter of
+    the slots -1, bag 0 all padding — built by hand, since full-vocab
+    ``make_batch`` ids are almost never -1."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.randn((v, d), generator=g, device=dev).to(dtype)
+    flat = torch.randn((v * d + off,), generator=g, device=dev).to(dtype)
+    table = flat[off:].view(v, d)
     idx = torch.randint(low, v, (b, l), generator=g, device=dev,
                         dtype=torch.int32)
     pad = torch.rand((b, l), generator=g, device=dev) < 0.25
     idx = torch.where(pad, torch.full_like(idx, -1), idx)
     idx[0] = -1
     return table, idx
-
-
-def clone_state(state):
-    return type(state)(*(t.clone() for t in state))
 
 
 def state_digest(state) -> str:
@@ -285,41 +292,18 @@ def _ptxas_report(log: str) -> list:
     return rows
 
 
-def _warm_state(dev, name, scale, cap, width, k_max, max_cap, window, warm):
-    """A mid-stream state of the port's plain window engines on ``dev``
-    plus the next window's events — a real churn stream's shapes."""
-    g = load_dataset(name, scale=scale)
-    if cap:
-        g = cap_degree(g, cap)
-    s = interleaved_churn(g, **EVENT_ARGS)
-    cfg = EngineConfig(k_max=k_max, k_init=1, max_cap=max_cap, autoscale=True)
-    et = torch.as_tensor(s.etype).to(dev)
-    vx = torch.as_tensor(s.vertex).to(dev)
-    nb = torch.as_tensor(normalize_rows(s.nbrs, width)).to(dev)
-    state = init_state(s.n, width, k_max, 1, seed=0, device=dev)
-    for t in range(0, warm, window):
-        sl = slice(t, t + window)
-        if np.all(s.etype[sl] == EVENT_ADD):
-            state = wnd.run_window_adds(state, vx[sl], nb[sl], t,
-                                        policy="sdp", cfg=cfg)
-        else:
-            state = wnd.run_window_mixed(state, et[sl], vx[sl], nb[sl], t,
-                                         policy="sdp", cfg=cfg)
-    sl = slice(warm, warm + window)
-    return state, cfg, (et[sl], vx[sl], nb[sl]), warm
-
-
 def check_partition_affinity(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     pa_out = {"name": "partition_affinity", "cases": []}
-    for (w, d, k) in (SESSION_SHAPE, (256, 256, 16), (100, 37, 5), (1, 1, 1)):
+    for (w, d, k) in (SESSION_SHAPE, (256, 256, 16), (100, 37, 5), (1, 1, 1),
+                      (WINDOW, TWITTER_CAP, 200), (70, GRQC_WIDTH, 2000)):
         labels = torch.randint(-1, k, (w, d), generator=gen, device=dev,
                                dtype=torch.int32)
         out = pa.partition_affinity(labels, k_max=k)
         torch.cuda.synchronize()
         err = max_abs_diff(out, partition_affinity_ref(labels, k_max=k))
         case = {"shape": [w, d, k], "max_abs_err": err}
-        if (w, d, k) == SESSION_SHAPE:
+        if (w, d) == SESSION_SHAPE[:2] and k in (K_MAX, 200):
             ones = torch.ones((w, d), dtype=torch.int32, device=dev)
             bins = (labels + 1).to(torch.int64)
 
@@ -340,6 +324,10 @@ def check_partition_affinity(dev) -> dict:
             case["plain_eager_ms"] = eager_ms(plain, 50)
             case["library_eager_ms"] = eager_ms(library, 200)
             case["bound_ms"] = (w * d + w * k + w) * 4 / HBM_BYTES_PER_S * 1e3
+            # the floor of a launch this small: a one-element zero_, timed
+            # the same way
+            one = torch.zeros(1, device=dev)
+            case["launch_floor_ms"] = graph_ms(one.zero_, 100)
         pa_out["cases"].append(case)
         if err:
             raise AssertionError(f"partition_affinity {w}x{d}x{k}: kernel "
@@ -360,7 +348,8 @@ def check_fused_chooser(dev) -> dict:
     # (label, dataset, scale, degree cap, row width, k_max, window, warm
     # events, max_cap): the session's shapes (SESSION_SHAPE), a window and
     # width off every multiple of 32, a single partition slot, partitions
-    # past the warp's 32 lanes, and grqc's uncapped 2,843-wide rows
+    # past the warp's 32 lanes, grqc's uncapped 2,843-wide rows, and 200 and
+    # 1,000 partition slots (the large-K kernel)
     setups = (("main", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, K_MAX,
                WINDOW, 768, 400),
               ("odd", "grqc", 0.05, 37, 37, 5, 100, 200, 60),
@@ -369,24 +358,21 @@ def check_fused_chooser(dev) -> dict:
               ("k40", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 40, WINDOW,
                768, 400),
               ("grqc_wide", "grqc", 1.0, 0, GRQC_WIDTH, K_MAX, WINDOW, 1024,
-               1500))
+               1500),
+              ("k200", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 200,
+               WINDOW, 768, 400),
+              ("k1000", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 1000,
+               WINDOW, 768, 400))
     for label, name, scale, cap, width, k_max, window, warm, max_cap in setups:
-        state, cfg, (ets, vs, rows), t0 = _warm_state(
-            dev, name, scale, cap, width, k_max, max_cap, window, warm)
-        n = state.assignment.shape[0]
-        prep = fops._prepare_window(clone_state(state), ets, vs, rows)
-        rand_tab = tx.rand_index_table(state.key, t0, window, k_max)
-        scalars = torch.stack([state.num_partitions, state.total_edges,
-                               state.cut_edges, state.denied_scaleout,
-                               state.scale_events])
-        knobs = torch.tensor(tx.knob_values(cfg, n), dtype=torch.float32,
-                             device=dev)
-        args = (prep.ev, prep.src_lbl, prep.touch, rand_tab, state.active,
-                state.edge_load, state.vertex_count, state.cut_matrix,
-                scalars, knobs)
+        args, n, ets = fsweep.window_inputs(
+            dev, name, scale, cap, width, k_max, max_cap, window, warm,
+            EVENT_ARGS)
+        scalars = args[8]
         n_del = int((ets != 0).sum())
         guards = ("text", "alg1")
-        for policy in POLICIES:
+        # the plain version takes ~8 s a window at K = 1,000: SDP only
+        # there (tests/test_torch_gpu.py holds every policy at K = 1,000)
+        for policy in (("sdp",) if label == "k1000" else POLICIES):
             for guard in guards:
                 for auto in ((True, False) if label == "main" else (True,)):
                     kw = dict(n=n, policy=policy, balance_guard=guard,
@@ -397,6 +383,7 @@ def check_fused_chooser(dev) -> dict:
                     err = max_abs_diff(got, want)
                     scale = int(got[6][4] - scalars[4])
                     case = {"case": label, "shape": [window, width, k_max],
+                            "kernel": fk.dispatch(window, k_max),
                             "policy": policy, "guard": guard,
                             "autoscale": auto, "max_abs_err": err,
                             "scale_events_in_window": scale,
@@ -404,7 +391,8 @@ def check_fused_chooser(dev) -> dict:
                     timed = guard == "text" and auto and (
                         policy == "sdp" or (label == "main"
                                             and policy in ("ldg", "random")))
-                    if timed and label in ("main", "k40", "grqc_wide"):
+                    if timed and label in ("main", "k40", "grqc_wide",
+                                           "k200", "k1000"):
                         def kernel():
                             fk.fused_window_choose(*args, **kw)
 
@@ -413,7 +401,12 @@ def check_fused_chooser(dev) -> dict:
 
                         case["ms"] = graph_ms(kernel, 20)
                         case["eager_ms"] = eager_ms(kernel, 20)
-                        if policy == "sdp":
+                        if policy == "sdp" and k_max > fk.LANES_MAX_K:
+                            # a graph would pool the (K, K) temporaries of
+                            # every slot's op
+                            case["plain_ms"] = case["plain_eager_ms"] = \
+                                eager_ms(plain, 1)
+                        elif policy == "sdp":
                             case["plain_ms"] = graph_ms(plain, 1, replays=2)
                             case["plain_eager_ms"] = eager_ms(plain, 1)
                         w, d, k = window, width, k_max
@@ -432,10 +425,13 @@ def check_embedding_bag(dev) -> dict:
     """f32 and bf16 tables, sum and mean, every case with -1 slots and an
     all-padding bag (BAG_CASES)."""
     eb_out = {"name": "embedding_bag", "cases": []}
-    for v, d, b, l, low in BAG_CASES:
+    for v, d, b, l, low, off in BAG_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            table, idx = bag_case(dev, v, d, b, l, dtype, seed=v + b, low=low)
+            table, idx = bag_case(dev, v, d, b, l, dtype, seed=v + b + l,
+                                  low=low, off=off)
+            width = eb.load_width(d, table.element_size(), table.data_ptr())
             for mode in ("sum", "mean"):
+                by = dict(eb.embedding_bag.kernel_launches)
                 got = eb.embedding_bag(table, idx, mode=mode)
                 want = embedding_bag_ref(table, idx, mode=mode)
                 torch.cuda.synchronize()
@@ -443,14 +439,23 @@ def check_embedding_bag(dev) -> dict:
                 same = torch.equal(got, want)
                 eb_out["cases"].append(
                     {"shape": [v, d, b, l], "dtype": str(dtype)[6:],
-                     "mode": mode, "max_abs_err": err,
+                     "mode": mode, "view_offset_bytes":
+                         off * table.element_size(),
+                     "load_width": width, "max_abs_err": err,
                      "max_row_offset": int(idx.max()) * d,
                      "padding_slots": int((idx < 0).sum())})
                 if not same or err or got[0].any():
                     raise AssertionError(
                         f"embedding_bag {v}x{d} bags {b}x{l} {dtype} {mode}: "
                         f"kernel differs from the plain version by {err}")
+                if eb.embedding_bag.kernel_launches != {
+                        k: n + (k == f"load{width}") for k, n in by.items()}:
+                    raise AssertionError(f"embedding_bag {v}x{d} {dtype}: the "
+                                         f"call did not take load{width}")
             del table, idx
+    widths = {c["load_width"] for c in eb_out["cases"]}
+    if widths != set(eb.LOAD_WIDTHS):
+        raise AssertionError(f"embedding_bag cases took widths {widths}")
     torch.cuda.empty_cache()
     return eb_out
 
@@ -645,6 +650,8 @@ def _reset_launches():
         fn.launches = 0
     fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
     ss.segment_spmm.kernel_launches = dict.fromkeys(ss.KERNELS, 0)
+    eb.embedding_bag.kernel_launches = dict.fromkeys(eb.KERNELS, 0)
+    fk.fused_window_choose.kernel_launches = dict.fromkeys(fk.KERNELS, 0)
 
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
@@ -676,9 +683,35 @@ def phase_grqc(dev) -> dict:
            **_scaling(part.state, cfg.k_init),
            "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"], "launches": launches,
-           "faithful_s": round(t_ref, 3), "session_s": round(t_part, 3)}
+           "faithful_s": round(t_ref, 3), "session_s": round(t_part, 3),
+           "k200": _session_k200(s, dev)}
     emit(out)
     return out
+
+
+def _session_k200(s, dev) -> dict:
+    """The same stream at k_max = 200 (K_200_CAP a partition): the session
+    with both kernels — the large-K fused_chooser, partition_affinity's
+    shared histogram — against the plain windowed session on the card."""
+    cfg = EngineConfig(k_max=200, k_init=1, max_cap=K_200_CAP, autoscale=True)
+    _reset_launches()
+    t = time.perf_counter()
+    part = _session(s, cfg, dev, 256)
+    t_part = time.perf_counter() - t
+    launches = _read_launches()
+    by_kernel = dict(fk.fused_window_choose.kernel_launches)
+    plain = Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=256,
+                                    device=dev).feed(s)
+    plain.sync()
+    assert_states_equal(part.state, plain.state,
+                        "grqc k_max=200 session vs the plain session")
+    if min(launches.values()) < 1 or by_kernel["large"] != \
+            launches["fused_chooser"]:
+        raise AssertionError(f"grqc k_max=200 session missed a kernel: "
+                             f"{launches}, {by_kernel}")
+    return {"k_max": cfg.k_max, "max_cap": cfg.max_cap, "bit_equal": True,
+            **_scaling(part.state, cfg.k_init), "launches": launches,
+            "launches_by_kernel": by_kernel, "session_s": round(t_part, 3)}
 
 
 class _Split:
@@ -729,8 +762,11 @@ def phase_twitter(dev) -> dict:
     part = _session(s, cfg, dev, WINDOW)
     run_s = time.perf_counter() - t
     launches = _read_launches()
-    if min(launches.values()) < 1:
-        raise AssertionError(f"twitter session missed a kernel: {launches}")
+    by_kernel = dict(fk.fused_window_choose.kernel_launches)
+    if min(launches.values()) < 1 or by_kernel["lanes"] != \
+            launches["fused_chooser"]:
+        raise AssertionError(f"twitter session missed a kernel: {launches}, "
+                             f"{by_kernel}")
     shape = (WINDOW, part.max_deg, cfg.k_max)
     if shape != SESSION_SHAPE:
         raise AssertionError(f"twitter session ran its kernels at (W, D, K) = "
@@ -791,7 +827,8 @@ def phase_twitter(dev) -> dict:
            "window": WINDOW, "max_cap": cfg.max_cap,
            "setup_s": round(setup_s, 3), "run_s": run_s,
            "events_per_s": s.num_events / run_s,
-           "launches": launches, "kernel_windows": m["kernel_windows"],
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"],
            "metrics": {k: m[k] for k in ("edge_cut", "total_edges",
                                          "edge_cut_ratio", "load_imbalance",
@@ -828,42 +865,72 @@ def _rows_bound_ms(table, idx, n_out: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_bag(table, idx, reps: int, plain_in_graph: bool) -> dict:
+def _rotation(fns):
+    """One callable that calls ``fns`` in turn, the next one each call."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _cold_rotation(row_bytes: int) -> int:
+    """How many requests, each gathering ``row_bytes`` of table rows, to
+    time in turn so that their rows add up to 4x the L2: each request's
+    rows have then left the L2 when it comes round again, and its gather
+    reads HBM, as a new request's does. One request replayed alone would
+    find its rows in the L2 if they fit."""
+    return max(1, -(-4 * L2_BYTES // row_bytes))
+
+
+def time_bag(table, idxs: list, reps: int, plain_in_graph: bool) -> dict:
     """The kernel (mean bags, as the towers call it), its plain version and
     ``torch.nn.functional.embedding_bag`` — the yardstick, over the same
     ids compacted into the offsets form outside the timing; with a bf16
-    table it returns bf16 — on the same table and ids."""
+    table it returns bf16 — on the same table, each timed over the bags
+    ``idxs`` in turn (one request's ids each; several where one request's
+    rows fit the L2, see ``_cold_requests``). Bounds and rates are per
+    call, averaged over ``idxs``."""
     torch.cuda.empty_cache()       # earlier graphs' pools, before big temporaries
-    valid = idx >= 0
-    flat = idx[valid].to(torch.int64)
-    offsets = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
-    offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
-
-    def kernel():
-        return eb.embedding_bag(table, idx, mode="mean")
-
-    def plain():
-        return embedding_bag_ref(table, idx, mode="mean")
-
-    def library():
-        return torch.nn.functional.embedding_bag(flat, table, offsets,
-                                                 mode="mean")
-
-    lib_out = library()
-    out = {"bags": idx.shape[0], "slots": idx.shape[1],
-           "dim": table.shape[1], "table_dtype": str(table.dtype)[6:],
+    reps = len(idxs) * max(reps // len(idxs), 1)
+    d = table.shape[1]
+    kernels, plains, libraries, slot_bytes = [], [], [], 0
+    for idx in idxs:
+        valid = idx >= 0
+        flat = idx[valid].to(torch.int64)
+        offsets = torch.zeros(idx.shape[0], dtype=torch.int64,
+                              device=idx.device)
+        offsets[1:] = torch.cumsum(valid.sum(dim=1), 0)[:-1]
+        kernels.append(functools.partial(eb.embedding_bag, table, idx,
+                                         mode="mean"))
+        plains.append(functools.partial(embedding_bag_ref, table, idx,
+                                        mode="mean"))
+        libraries.append(functools.partial(
+            torch.nn.functional.embedding_bag, flat, table, offsets,
+            mode="mean"))
+        # every valid slot's row read, the ids and the output
+        slot_bytes += (int(valid.sum()) * d * table.element_size()
+                       + idx.numel() * 4 + idx.shape[0] * d * 4)
+    slot_bytes /= len(idxs)
+    kernel, plain, library = map(_rotation, (kernels, plains, libraries))
+    lib_out = libraries[0]()
+    out = {"bags": idxs[0].shape[0], "slots": idxs[0].shape[1], "dim": d,
+           "table_dtype": str(table.dtype)[6:], "requests": len(idxs),
            "ms": graph_ms(kernel, reps), "eager_ms": eager_ms(kernel, reps),
            "library_ms": graph_ms(library, reps),
            "library_eager_ms": eager_ms(library, reps),
            "library_out_dtype": str(lib_out.dtype)[6:],
            "library_max_abs_diff_vs_kernel": float(
-               (lib_out.float() - kernel()).abs().max()),
-           "bound_ms": _rows_bound_ms(table, idx, idx.shape[0]),
+               (lib_out.float() - kernels[0]()).abs().max()),
+           "bound_ms": sum(_rows_bound_ms(table, idx, idx.shape[0])
+                           for idx in idxs) / len(idxs),
            "bound_by": "bytes"}
+    out["all_slot_bytes"] = slot_bytes
+    out["all_slot_bound_ms"] = slot_bytes / HBM_BYTES_PER_S * 1e3
+    out["all_slot_gb_per_s"] = slot_bytes / (out["ms"] * 1e-3) / 1e9
+    out["load_width"] = eb.load_width(d, table.element_size(),
+                                      table.data_ptr())
     del lib_out
     if plain_in_graph:
-        out["plain_ms"] = graph_ms(plain, max(reps // 5, 1))
-        out["plain_eager_ms"] = eager_ms(plain, max(reps // 5, 1))
+        out["plain_ms"] = graph_ms(plain, max(reps // 5, len(idxs)))
+        out["plain_eager_ms"] = eager_ms(plain, max(reps // 5, len(idxs)))
     else:    # a graph would keep the plain version's temporaries pooled
         out["plain_ms"] = out["plain_eager_ms"] = eager_ms(plain, 1)
     return out
@@ -980,9 +1047,12 @@ def phase_recsys(dev) -> dict:
         if q >= WARMUP:
             lat.append(time.perf_counter() - t0)
     launches = _read_launches(("embedding_bag",))
+    by_kernel = dict(eb.embedding_bag.kernel_launches)
     peak = torch.cuda.max_memory_allocated(dev)
-    if launches["embedding_bag"] < 1:
-        raise AssertionError(f"recsys serving missed the kernel: {launches}")
+    if launches["embedding_bag"] < 1 or by_kernel["load16"] != \
+            launches["embedding_bag"]:
+        raise AssertionError(f"recsys serving missed the kernel or its "
+                             f"16-byte loads: {launches}, {by_kernel}")
     retrieval = {"batch": shape.batch, "candidates": nc,
                  "corpus_s": corpus_s, "queries": len(lat), "warmup": WARMUP,
                  "latency_ms_p50": _ms_pct(lat, 50),
@@ -1013,21 +1083,29 @@ def phase_recsys(dev) -> dict:
                              f"plain bag's by {err} > {SCORE_ATOL}")
     checks["serve_bulk"]["max_abs_err_in_full_request"] = err
 
-    # the kernel timed at both serve shapes on the full bf16 table
+    # the kernel timed at both serve shapes on the full bf16 table; at
+    # serve_p99 over a rotation of requests, so that their rows are read
+    # from HBM (_cold_rotation: one request's 25 MB of rows fit the L2)
     table = params["user_table"]
-    p99_batch = serve.request_tensors(
-        RS.make_batch(cfg, b_p99, seed=WARMUP), dev)
-    timing = {"serve_p99": time_bag(table, _bag_ids(p99_batch, cfg), 100,
-                                    plain_in_graph=True)}
+    row_bytes = table.shape[1] * table.element_size()
+    first = RS.make_batch(cfg, b_p99, seed=WARMUP)
+    n_req = _cold_rotation(row_bytes * min(first["user_ids"].size,
+                                           first["item_ids"].size))
+    p99_batches = [serve.request_tensors(RS.make_batch(
+        cfg, b_p99, seed=WARMUP + r), dev) for r in range(n_req)]
+    timing = {"serve_p99": time_bag(
+        table, [_bag_ids(b, cfg) for b in p99_batches], 100,
+        plain_in_graph=True)}
     # a request launches two bags (user, item); their device time per request
     per_request_ms = 0.0
     for tbl, key in (("user_table", "user_ids"), ("item_table", "item_ids")):
-        ids = p99_batch[key].reshape(-1, cfg.field_slots)
-        per_request_ms += graph_ms(functools.partial(
-            eb.embedding_bag, params[tbl], ids, mode="mean"), 100)
+        per_request_ms += graph_ms(_rotation([functools.partial(
+            eb.embedding_bag, params[tbl],
+            b[key].reshape(-1, cfg.field_slots), mode="mean")
+            for b in p99_batches]), n_req * max(100 // n_req, 1))
     timing["serve_p99"]["per_request_ms"] = per_request_ms
     timing["serve_bulk"] = time_bag(
-        table, _bag_ids(serve.request_tensors(bulk_ids, dev), cfg), 3,
+        table, [_bag_ids(serve.request_tensors(bulk_ids, dev), cfg)], 3,
         plain_in_graph=False)
     share = {"serve_p99_of_serve_p50": per_request_ms / p99["serve_ms_p50"],
              "serve_p99_of_latency_p50": per_request_ms / p99["latency_ms_p50"],
@@ -1037,9 +1115,10 @@ def phase_recsys(dev) -> dict:
            "config": vars(cfg),
            "table_bytes": table_bytes, "init_s": init_s,
            "serve_p99": p99, "serve_bulk": bulk, "retrieval_cand": retrieval,
-           "launches": launches, "max_memory_allocated": peak,
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "max_memory_allocated": peak,
            "checks": checks, "kernel": timing, "kernel_share": share}
-    del params, table, p99_batch
+    del params, table, p99_batches
     torch.cuda.empty_cache()
     emit(out)
     return out
@@ -1522,7 +1601,9 @@ def phase_lm(dev) -> dict:
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict) -> dict:
-    pa_case = next(c for c in kernels["partition_affinity"]["cases"] if "ms" in c)
+    pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
+                if "ms" in c}
+    pa_case = pa_timed[K_MAX]
     fc_timed = {(c["case"], c["policy"]): c
                 for c in kernels["fused_chooser"]["cases"] if "ms" in c}
     fc_case = fc_timed[("main", "sdp")]
@@ -1544,7 +1625,11 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "mismatches": sum(c["max_abs_err"] != 0 for c in pa_cases),
          "ms": pa_case["ms"], "plain_ms": pa_case["plain_ms"],
          "bound_ms": pa_case["bound_ms"], "bound_by": "bytes",
-         "library_ms": pa_case["library_ms"]},
+         "library_ms": pa_case["library_ms"],
+         "launch_floor_ms": pa_case["launch_floor_ms"],
+         "k200": {k: pa_timed[200][k] for k in (
+             "shape", "ms", "plain_ms", "bound_ms", "library_ms",
+             "launch_floor_ms")}},
         {"name": "fused_chooser", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_chooser.cu",
          "replaces": "src/repro/kernels/fused_chooser/fused_chooser.py:245",
@@ -1555,12 +1640,13 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "ms": fc_case["ms"], "plain_ms": fc_case["plain_ms"],
          "bound_ms": fc_case["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
+         "launches_by_kernel": twitter["launches_by_kernel"],
          "policies_ms": {p: fc_timed[("main", p)]["ms"]
                          for p in ("sdp", "ldg", "random")},
          **{label: {k: fc_timed[(label, "sdp")][k]
-                    for k in ("shape", "ms", "eager_ms", "plain_ms",
-                              "bound_ms")}
-            for label in ("k40", "grqc_wide")}},
+                    for k in ("shape", "kernel", "ms", "eager_ms",
+                              "plain_ms", "bound_ms")}
+            for label in ("k40", "grqc_wide", "k200", "k1000")}},
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/csrc/embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:49",
@@ -1573,9 +1659,14 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "bound_ms": eb_p99["bound_ms"], "bound_by": "bytes",
          "library_ms": eb_p99["library_ms"],
          "library": "torch.nn.functional.embedding_bag (bf16 output)",
+         "launches_by_kernel": recsys["launches_by_kernel"],
+         "all_slot_bound_ms": eb_p99["all_slot_bound_ms"],
+         "all_slot_gb_per_s": eb_p99["all_slot_gb_per_s"],
+         "requests_in_turn": eb_p99["requests"],
          "serve_bulk": {"shape": [eb_bulk["bags"], eb_bulk["slots"],
                                   eb_bulk["dim"]],
-                        **{k: eb_bulk[k] for k in timed}}},
+                        **{k: eb_bulk[k] for k in timed + (
+                            "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
     fa_cases = kernels["flash_attention"]["cases"]
     fa_main = lm["kernel"]["prefill"]["layer1"]          # a global layer

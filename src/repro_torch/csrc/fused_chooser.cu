@@ -3,6 +3,9 @@
 // pairwise cut matrix, record the slot's label, scale out before an ADD
 // and scale in after a DEL_VERTEX — while two producer warps resolve the
 // labels of the next slots through the touch tables and histogram them.
+// Two kernels, chosen by K on the host: the lanes kernel (K <= 192, its
+// partitions on the decider's lanes, described here) and the large-K kernel
+// (any K whose vectors fit shared memory, described where it starts).
 //
 // Replaces the Pallas TPU kernel `fused_window_choose`
 // (src/repro/kernels/fused_chooser/fused_chooser.py:245), which kept the
@@ -89,6 +92,7 @@ constexpr int kEvPad = 12;        // a scalar row's ints in shared memory
 constexpr int kBatch = 6;         // 32-column rounds loaded before resolving
 constexpr int kMaxKt = 6;         // K <= 192
 constexpr int kExact = 1 << 24;   // integers up to here are exact in f32
+constexpr size_t kSmemMax = 232448;   // shared memory a block can have
 
 __device__ __forceinline__ float f_inf() { return __int_as_float(0x7f800000); }
 
@@ -726,6 +730,562 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
   }
 }
 
+// ---------------------------------------------------------------------------
+// The large-K kernel (K > 32 kMaxKt): the same slot loop, the same producer
+// warps, but the decider keeps its K-vectors in shared memory — partition j
+// at index j of edge_load, vertex_count and the slot histogram, bit j of a
+// word array for the active set, an f32 stage for the banded policies — and
+// the K x K cut matrix in device memory (cm_out, copied from the input by
+// the launch and updated in place: only the decider warp writes it, each
+// entry of a pass from one lane, with warp syncs between passes). The
+// K-wide loops walk K in 32-lane strides with the same (value, index)
+// reductions and ties as the lanes kernel; nth_active runs a warp prefix
+// over the active words. The f32 K-sums of load_stats stay left to right
+// over the active partitions (an inactive entry adds +0.0 to a sum that is
+// never -0.0, so skipping it is exact); the sum of loads is the 64-bit
+// integer sum converted once when every partial sum is exact in f32. Its
+// shared memory is 4 (32 + W + 6 K + K / 32) bytes, so at W = 256 it takes
+// K up to 9,587 (fused_chooser_large_max_k).
+// ---------------------------------------------------------------------------
+
+// the current label of a score source or a DEL subject: the last in-window
+// decision if a slot touched it (t >= 0), else its committed label lc through
+// the scale-in remap, which follows w_label in shared memory — one load, no
+// branch
+__device__ __forceinline__ int label_at(const int* w_label, int w, int lc,
+                                        int t) {
+  const int lab = w_label[t >= 0 ? t : w + max(lc, 0)];
+  return (t >= 0 || lc >= 0) ? lab : -1;
+}
+
+// The large-K kernel's producer warps (threads 32..95): the lanes kernel's
+// producer loop, less the random row, which the large-K decider reads from
+// device memory. Producer warp p counts slots p, p + 2, ... (paper Eq. 1):
+// slot s while the decider decides slot s - 1. It reads labels once slots
+// up to s - 2 are final, leaves out the entries that slot s - 1 touched
+// (their count goes to the decider, which knows their label), and hands
+// over the counts with the slot's scalar row. Its global loads are issued
+// before it waits, off the decider's chain.
+__device__ __forceinline__ void produce(
+    const int* __restrict__ ev, const int* __restrict__ src_lbl,
+    const int* __restrict__ touch, int* flags, int* ev_s,
+    const int* w_label, int* hist, int w, int d, int k) {
+  const int lane = threadIdx.x & 31;
+  const int producer = (threadIdx.x >> 5) - 1;    // 0 or 1
+  int* decided = flags;
+  int* ready = flags + 1;
+  for (int sl = producer; sl < w; sl += 2) {
+    const int* srow = src_lbl + static_cast<size_t>(sl) * d;
+    const int* trow = touch + static_cast<size_t>(sl) * d;
+    const int buf = sl & 1;
+    int* h = hist + buf * k;
+    int seen = 0, pend = 0;
+    const int skip = sl - 1;            // the slot decided meanwhile
+    const int evv = lane < EV_COLS   // the slot's scalar row
+        ? __ldg(ev + static_cast<size_t>(sl) * EV_COLS + lane) : 0;
+    for (int j0 = 0; j0 < d; j0 += 32 * kBatch) {
+      int lc[kBatch], tt[kBatch], lab[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int j = min(j0 + 32 * b + lane, d - 1);
+        lc[b] = __ldg(srow + j);
+        tt[b] = __ldg(trow + j);
+      }
+      if (j0 == 0) wait_flag(decided, sl - 1);   // slots <= sl - 2 final
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool in = j0 + 32 * b + lane < d;
+        const bool left = in && sl > 0 && tt[b] == skip;
+        pend += left;
+        lab[b] = in && !left ? label_at(w_label, w, lc[b], tt[b]) : -1;
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        seen += lab[b] >= 0;
+        if (lab[b] >= 0 && lab[b] < k) atomicAdd(&h[lab[b]], 1);
+      }
+    }
+    if (d == 0) wait_flag(decided, sl - 1);
+    if (lane < EV_COLS) ev_s[buf * kEvPad + lane] = evv;
+    seen = __reduce_add_sync(kAll, seen);
+    pend = __reduce_add_sync(kAll, pend);
+    if (lane == 0) {
+      flags[3 + buf] = seen;
+      flags[5 + buf] = pend;
+    }
+    publish(ready + buf, sl + 1);
+  }
+}
+
+namespace wide {
+
+constexpr int kStrides = 8;    // strides of a cut-matrix pass in flight
+
+// The large-K decider's view of the window: K-vectors in shared memory.
+struct Wide {
+  int lane, k, nw;          // nw = ceil(k / 32) words of the active set
+  int* el;                  // [k] edge loads
+  int* vc;                  // [k] vertex counts
+  unsigned* act;            // [nw] active set, bit j & 31 of word j >> 5
+  float* stage;             // [k] f32 terms of the banded policies
+  __device__ bool active(int j) const { return (act[j >> 5] >> (j & 31)) & 1u; }
+  // the first index of the least val(j) over j < k (ties to the smallest
+  // index, as Lanes::argmin)
+  template <typename F>
+  __device__ int argmin(F val) const {
+    int best = INT_MAX, idx = INT_MAX;
+    for (int j = lane; j < k; j += 32) {
+      const int v = val(j);
+      if (idx == INT_MAX || v < best) {
+        best = v;
+        idx = j;
+      }
+    }
+    const int m = __reduce_min_sync(kAll, best);
+    return __reduce_min_sync(kAll, best == m ? idx : INT_MAX);
+  }
+  // masked_argmin(x, mask): masked-out entries count as kBig
+  template <typename M>
+  __device__ int masked_argmin(const int* x, M mask) const {
+    return argmin([&](int j) { return mask(j) ? x[j] : kBig; });
+  }
+  // nth_active(active, i): the i-th active partition, i modulo the count
+  // (0 when none is active)
+  __device__ int nth_active(int i) const {
+    int cnt = 0;
+    for (int t = lane; t < nw; t += 32) cnt += __popc(act[t]);
+    cnt = __reduce_add_sync(kAll, cnt);
+    i = floor_mod(i, cnt > 1 ? cnt : 1);
+    int before = 0;
+    for (int t0 = 0; t0 < nw; t0 += 32) {
+      const unsigned word = t0 + lane < nw ? act[t0 + lane] : 0u;
+      const int c = __popc(word);
+      int incl = c;                     // inclusive prefix over the lanes
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kAll, incl, off);
+        if (lane >= off) incl += y;
+      }
+      const unsigned hit =
+          __ballot_sync(kAll, before + incl - c <= i && i < before + incl);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        unsigned bits = __shfl_sync(kAll, word, src);
+        for (int r = i - before - __shfl_sync(kAll, incl - c, src); r > 0; --r)
+          bits &= bits - 1;
+        return 32 * (t0 + src) + __ffs(bits) - 1;
+      }
+      before += __shfl_sync(kAll, incl, 31);
+    }
+    return 0;
+  }
+  // +0.0 + term(j) + ... over the active j in index order (transition's
+  // _seq_sum of a where(active, term, 0.0) vector); every lane gets it
+  template <typename F>
+  __device__ float active_sum(F term) const {
+    float x = 0.0f;
+    for (int t = 0; t < nw; ++t)
+      for (unsigned bits = act[t]; bits; bits &= bits - 1)
+        x = x + term(32 * t + __ffs(bits) - 1);
+    return x;
+  }
+};
+
+struct Scalars {
+  int np, total, cut, denied, scale;
+};
+
+// transition.load_stats over the shared K-vectors
+__device__ void load_stats(const Wide& S, float* avg_d, float* load_dev) {
+  int cnt = 0, mx = INT_MIN, mn = INT_MAX;
+  long long sum = 0;
+  for (int j = S.lane; j < S.k; j += 32)
+    if (S.active(j)) {
+      const int e = S.el[j];
+      ++cnt;
+      mx = max(mx, e);
+      mn = min(mn, e);
+      sum += e;
+    }
+  cnt = __reduce_add_sync(kAll, cnt);
+  mx = __reduce_max_sync(kAll, mx);
+  mn = __reduce_min_sync(kAll, mn);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kAll, sum, off);
+  const float p = fmaxf(static_cast<float>(cnt), 1.0f);
+  const float maxl = cnt ? static_cast<float>(mx) : -f_inf();
+  const float minl = cnt ? static_cast<float>(mn) : f_inf();
+  *avg_d = (maxl - minl) / p;
+  // loads in [0, 2^24] summing to at most 2^24: every partial sum of the
+  // left-to-right f32 sum is an integer below 2^24, hence exact (a 64-bit
+  // sum: K loads of up to 2^31 each would wrap 32 bits past K = 2)
+  const float total = (mn >= 0 && mx <= kExact && sum <= kExact)
+      ? static_cast<float>(sum)
+      : S.active_sum([&](int j) { return static_cast<float>(S.el[j]); });
+  const float mean = total / p;
+  const float var = S.active_sum([&](int j) {
+    const float dv = static_cast<float>(S.el[j]) - mean;
+    return dv * dv;
+  });
+  *load_dev = sqrtf(var / p);
+}
+
+// transition._affinity_choice_at
+__device__ int affinity_choice(const Wide& S, const int* sc, int ridx) {
+  int best = INT_MIN;
+  for (int j = S.lane; j < S.k; j += 32)
+    best = max(best, S.active(j) ? sc[j] : -1);
+  best = __reduce_max_sync(kAll, best);
+  if (best <= 0) return S.nth_active(ridx);
+  return S.masked_argmin(S.el,
+                         [&](int j) { return S.active(j) && sc[j] == best; });
+}
+
+// argmax of stage (h, -inf where inactive) with a 1e-6 tie band, ties
+// broken by the smallest vertex count (LDG and Fennel)
+__device__ int banded_pick(const Wide& S) {
+  float best = -f_inf();
+  for (int j = S.lane; j < S.k; j += 32) best = fmaxf(best, S.stage[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    best = fmaxf(best, __shfl_xor_sync(kAll, best, off));
+  const float floor_ = best - 1e-6f;
+  return S.masked_argmin(
+      S.vc, [&](int j) { return S.active(j) && S.stage[j] >= floor_; });
+}
+
+template <int POLICY, bool ALG1>
+__device__ int choose(const Wide& S, const int* sc, const Scalars& s, int deg,
+                      int v, int ridx, const float (&kn)[KNOB_N]) {
+  const int np = s.np;
+  if (POLICY == kSdp) {
+    float avg_d, load_dev;
+    load_stats(S, &avg_d, &load_dev);
+    const int p_aff = affinity_choice(S, sc, ridx);
+    const float cut = fmaxf(static_cast<float>(s.cut), 1.0f);
+    const float ratio = static_cast<float>(s.total) / cut;
+    const float th = __fmaf_rn(ratio, load_dev, -load_dev);
+    const int p_min = S.masked_argmin(S.el, [&](int j) { return S.active(j); });
+    if (ALG1) return (np > 1 && load_dev > th) ? p_aff : p_min;
+    return (np > 1 && avg_d > th) ? p_min : p_aff;
+  } else if (POLICY == kLdg) {
+    const float kk = fmaxf(static_cast<float>(np), 1.0f);
+    const float cap = kn[K_LDG_CAP_NUM] / kk;
+    for (int j = S.lane; j < S.k; j += 32) {
+      const float w = 1.0f - static_cast<float>(S.vc[j]) / cap;
+      const float hv = static_cast<float>(sc[j]) * fmaxf(w, 0.0f);
+      S.stage[j] = S.active(j) ? hv : -f_inf();
+    }
+    __syncwarp();
+    const int p = banded_pick(S);
+    __syncwarp();                       // stage is written again next slot
+    return p;
+  } else if (POLICY == kFennel) {
+    const float m = static_cast<float>(s.total) + static_cast<float>(deg);
+    unsigned vsum = 0;                  // int32 sum, wrapping as torch's does
+    for (int j = S.lane; j < S.k; j += 32) vsum += static_cast<unsigned>(S.vc[j]);
+    vsum = __reduce_add_sync(kAll, vsum);
+    const float nt = fmaxf(static_cast<float>(static_cast<int>(vsum)), 1.0f);
+    const float kk = fmaxf(static_cast<float>(np), 1.0f);
+    const float alpha = kn[K_FENNEL_ALPHA] * sqrtf(kk) * m / powf(nt, 1.5f);
+    const float coef = alpha * kn[K_FENNEL_GAMMA];
+    for (int j = S.lane; j < S.k; j += 32) {
+      float h = -f_inf();
+      if (S.active(j)) {
+        const float vcp = powf(static_cast<float>(S.vc[j]), kn[K_FENNEL_GM1]);
+        h = __fmaf_rn(-coef, vcp, static_cast<float>(sc[j]));
+      }
+      S.stage[j] = h;
+    }
+    __syncwarp();
+    const int p = banded_pick(S);
+    __syncwarp();
+    return p;
+  } else if (POLICY == kHash) {
+    return S.nth_active(floor_mod(v, np > 1 ? np : 1));
+  } else if (POLICY == kRandom) {
+    return S.nth_active(ridx);
+  } else {
+    return affinity_choice(S, sc, ridx);
+  }
+}
+
+}  // namespace wide
+
+template <int POLICY, bool ALG1>
+__global__ void __launch_bounds__(kThreads)
+fused_chooser_large_kernel(
+    const int* __restrict__ ev, const int* __restrict__ src_lbl,
+    const int* __restrict__ touch, const int* __restrict__ rand_tab,
+    const int* __restrict__ active_in, const int* __restrict__ el_in,
+    const int* __restrict__ vc_in, const int* __restrict__ scal_in,
+    const float* __restrict__ knobs, int* __restrict__ w_label_out,
+    int* __restrict__ psel_out, int* __restrict__ remap_out,
+    int* __restrict__ active_out, int* __restrict__ loads_out,
+    int* cm, int* __restrict__ scal_out, int w, int d, int k,
+    int autoscaling) {
+  const int lane = threadIdx.x & 31;
+  const int nw = (k + 31) >> 5;
+  extern __shared__ int smem[];
+  int* flags = smem;             // [decided, ready x2, deg x2, pend x2, -]
+  int* ev_s = smem + 8;                   // [2][kEvPad] two slots' scalar rows
+  int* w_label = ev_s + 2 * kEvPad;       // [w]
+  int* remap = w_label + w;               // [k], right after w_label
+  int* hist = remap + k;                  // [2][k] two slots' histograms
+  float* stage = reinterpret_cast<float*>(hist + 2 * k);     // [k]
+  int* el = hist + 3 * k;                 // [k]
+  int* vc = el + k;                       // [k]
+  unsigned* act = reinterpret_cast<unsigned*>(vc + k);       // [nw]
+  int* decided = flags;
+  int* ready = flags + 1;
+
+  for (int j = threadIdx.x; j < w; j += kThreads) w_label[j] = -1;
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    remap[j] = j;
+    hist[j] = 0;
+    hist[k + j] = 0;
+    el[j] = el_in[j];
+    vc[j] = vc_in[j];
+  }
+  for (int t = threadIdx.x; t < nw; t += kThreads) {
+    unsigned bits = 0;
+    for (int b = 0; b < 32 && 32 * t + b < k; ++b)
+      bits |= (active_in[32 * t + b] != 0 ? 1u : 0u) << b;
+    act[t] = bits;
+  }
+  if (threadIdx.x < 8) flags[threadIdx.x] = 0;
+  __syncthreads();                        // the only block barrier
+
+  if (threadIdx.x >= 32) {
+    produce(ev, src_lbl, touch, flags, ev_s, w_label, hist, w, d, k);
+    return;
+  }
+
+  // The decider warp.
+  using wide::kStrides;
+  const wide::Wide S{lane, k, nw, el, vc, act, stage};
+  wide::Scalars s{scal_in[S_NP], scal_in[S_TOTAL], scal_in[S_CUT], scal_in[S_DENIED],
+            scal_in[S_SCALE]};
+  float kn[KNOB_N];
+#pragma unroll
+  for (int j = 0; j < KNOB_N; ++j) kn[j] = knobs[j];
+  int in_src = -1, in_dst = 0;    // slot i - 1's scale-in, as in the lanes kernel
+
+  for (int i = 0; i < w; ++i) {
+    // the slot's random index is entry np - 1 of its row, np after the
+    // slot's scale-out: one of two entries, both loaded before the wait
+    const int np0 = s.np;
+    const int* rrow = rand_tab + static_cast<size_t>(i) * k;
+    const int r_keep = __ldg(rrow + (np0 > 1 ? np0 : 1) - 1);
+    const int r_grow = __ldg(rrow + min(np0, k - 1));
+    wait_flag(ready + (i & 1), i + 1);
+    const int buf = i & 1;
+    const int* e = ev_s + buf * kEvPad;
+    const int et = e[EV_ET];
+    const int v = e[EV_V];
+    const int fresh = e[EV_FRESH] != 0;
+    const int was = e[EV_WAS] != 0;
+    const int exists = e[EV_EXISTS] != 0;
+    const bool add_i = et == kEventAdd;
+    const bool dv_i = et == kEventDelVertex;
+
+    // slot i's histogram, in place: slot i - 1's scale-in moves src's count
+    // to dst, then the entries slot i - 1 touched count under its label
+    int* sc = hist + buf * k;
+    int deg = flags[3 + buf];
+    const int n_pend = flags[5 + buf];
+    const int lab = n_pend ? w_label[i - 1] : -1;
+    deg += lab >= 0 ? n_pend : 0;
+    if (lane == 0) {
+      if (in_src >= 0) {
+        sc[in_dst] += sc[in_src];
+        sc[in_src] = 0;
+      }
+      if (lab >= 0) sc[lab] += n_pend;
+    }
+    in_src = -1;
+    __syncwarp();
+
+    if (autoscaling && add_i) {                         // scale_out
+      const float p = fmaxf(static_cast<float>(s.np), 1.0f);
+      const float thr = static_cast<float>(s.total) / p;
+      const bool want = kn[K_MAX_CAP] <= thr;
+      int slot = -1;
+      for (int t0 = 0; t0 < nw && slot < 0; t0 += 32) {
+        const int t = t0 + lane;
+        const int left = k - 32 * t;
+        const unsigned real = left >= 32 ? kAll : (left > 0 ? (1u << left) - 1u : 0u);
+        const unsigned free_ = t < nw ? ~act[t] & real : 0u;
+        const unsigned b = __ballot_sync(kAll, free_ != 0);
+        if (b) {
+          const int src = __ffs(b) - 1;
+          slot = 32 * (t0 + src) + __ffs(__shfl_sync(kAll, free_, src)) - 1;
+        }
+      }
+      if (want && slot >= 0) {
+        if (lane == 0) act[slot >> 5] |= 1u << (slot & 31);
+        s.np += 1;
+        s.scale += 1;
+      } else if (want) {
+        s.denied += 1;
+      }
+      __syncwarp();
+    }
+
+    // the DEL subjects' labels do not depend on this slot's choice
+    const int vl = label_at(w_label, w, e[EV_VLBL], e[EV_VTOUCH]);
+    const int ul = label_at(w_label, w, e[EV_ULBL], e[EV_UTOUCH]);
+    const int ridx = s.np == np0 ? r_keep : r_grow;
+    const int p = wide::choose<POLICY, ALG1>(S, sc, s, deg, v, ridx, kn);
+
+    const int p_dv = vl > 0 ? vl : 0;
+    const int pu = ul > 0 ? ul : 0;
+    const int d_add = fresh ? deg : 0;
+    const int d_dv = was ? deg : 0;
+    const int cutdec = (exists && p_dv != pu) ? 1 : 0;
+    const int sca_p = fresh ? sc[p] : 0;
+    const int scd_pdv = was ? sc[p_dv] : 0;
+    for (int j = lane; j < k; j += 32) {
+      int e_j = el[j] + (fresh ? sc[j] : 0) - (was ? sc[j] : 0);
+      if (j == p) e_j += d_add;
+      if (j == p_dv) e_j -= d_dv + exists;
+      if (j == pu) e_j -= exists;
+      el[j] = e_j;
+      if (j == p) vc[j] += fresh;
+      if (j == p_dv) vc[j] -= was;
+    }
+    s.total = s.total + d_add - d_dv - exists;
+    s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
+
+    // cut-matrix row/column adds in device memory: lane j % 32 owns [q][j]
+    // and [j][q]; a slot is one event type, so at most one update runs.
+    // kStrides strides' entries are read before any is written (no entry
+    // is touched twice in a pass), so their reads are in flight together.
+    if (fresh || was) {
+      const int q = fresh ? p : p_dv;
+      int* row_q = cm + static_cast<size_t>(q) * k;
+      for (int j0 = lane; j0 < k; j0 += 32 * kStrides) {
+        int add[kStrides], row[kStrides], col[kStrides];
+#pragma unroll
+        for (int u = 0; u < kStrides; ++u) {
+          const int j = j0 + 32 * u;
+          add[u] = j < k ? (fresh ? sc[j] : -sc[j]) : 0;
+          if (add[u]) {
+            row[u] = row_q[j];
+            col[u] = cm[static_cast<size_t>(j) * k + q];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kStrides; ++u) {
+          const int j = j0 + 32 * u;
+          if (add[u] && j == q) {
+            row_q[q] = row[u] + 2 * add[u];
+          } else if (add[u]) {
+            row_q[j] = row[u] + add[u];
+            cm[static_cast<size_t>(j) * k + q] = col[u] + add[u];
+          }
+        }
+      }
+    } else if (exists && lane == 0) {
+      cm[static_cast<size_t>(p_dv) * k + pu] -= 1;
+      cm[static_cast<size_t>(pu) * k + p_dv] -= 1;
+    }
+
+    if (lane == 0) {
+      const int new_lbl = add_i ? (fresh ? p : vl) : (dv_i ? -1 : vl);
+      w_label[i] = (add_i || dv_i) ? new_lbl : -1;
+      psel_out[i] = p;
+    }
+    __syncwarp();                       // el, vc, cm and w_label settled
+
+    if (autoscaling && dv_i) {                          // scale_in_trigger
+      int under = 0;
+      for (int j = lane; j < k; j += 32)
+        under += S.active(j) && (static_cast<float>(el[j]) < kn[K_SCALE_IN_L]);
+      const int n_under = __reduce_add_sync(kAll, under);
+      const int src = S.masked_argmin(el, [&](int j) { return S.active(j); });
+      const int dst = S.masked_argmin(
+          el, [&](int j) { return S.active(j) && j != src; });
+      const int el_src = el[src], el_dst = el[dst];
+      const bool fits =
+          static_cast<float>(el_src + el_dst) <= kn[K_SCALE_IN_DEST];
+      if (s.np > 1 && n_under >= 2 && fits) {           // scale in
+        in_src = src;
+        in_dst = dst;
+        const int vc_src = vc[src];
+        int* row_s = cm + static_cast<size_t>(src) * k;
+        int* row_d = cm + static_cast<size_t>(dst) * k;
+        const int a_dst = row_s[dst];   // [src][dst], rewritten below as [j][dst]
+        const int ss = row_s[src];
+        s.cut -= a_dst;
+        __syncwarp();
+        // merge_cut_matrix: row src into row dst and column src into
+        // column dst (each entry read and written by one lane, kStrides
+        // strides read before any is written), then row and column src
+        // cleared
+        for (int j0 = lane; j0 < k; j0 += 32 * kStrides) {
+          int a[kStrides], rd[kStrides], cd[kStrides];
+#pragma unroll
+          for (int u = 0; u < kStrides; ++u) {
+            const int j = j0 + 32 * u;
+            if (j < k) {
+              a[u] = j == dst ? a_dst : row_s[j];
+              rd[u] = row_d[j];
+              cd[u] = cm[static_cast<size_t>(j) * k + dst];
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kStrides; ++u) {
+            const int j = j0 + 32 * u;
+            if (j < k && j == dst) {
+              row_d[dst] = rd[u] + a[u] + a[u] + ss;
+            } else if (j < k) {
+              row_d[j] = rd[u] + a[u];
+              cm[static_cast<size_t>(j) * k + dst] = cd[u] + a[u];
+            }
+          }
+        }
+        __syncwarp();
+        for (int j = lane; j < k; j += 32) {
+          row_s[j] = 0;
+          cm[static_cast<size_t>(j) * k + src] = 0;
+        }
+        for (int j = lane; j <= i; j += 32)
+          if (w_label[j] == src) w_label[j] = dst;
+        for (int j = lane; j < k; j += 32)
+          if (remap[j] == src) remap[j] = dst;
+        if (lane == 0) {
+          el[dst] += el_src;
+          vc[dst] += vc_src;
+          el[src] = 0;
+          vc[src] = 0;
+          act[src >> 5] &= ~(1u << (src & 31));
+        }
+        s.np -= 1;
+        s.scale += 1;
+      }
+    }
+    __syncwarp();
+    for (int j = lane; j < k; j += 32) sc[j] = 0;   // the buffer of slot i + 2
+    publish(decided, i + 1);              // labels, cut matrix settled
+  }
+
+  for (int j = lane; j < w; j += 32) w_label_out[j] = w_label[j];
+  for (int j = lane; j < k; j += 32) {
+    remap_out[j] = remap[j];
+    active_out[j] = S.active(j) ? 1 : 0;
+    loads_out[j] = el[j];
+    loads_out[k + j] = vc[j];
+  }
+  if (lane == 0) {
+    scal_out[S_NP] = s.np;
+    scal_out[S_TOTAL] = s.total;
+    scal_out[S_CUT] = s.cut;
+    scal_out[S_DENIED] = s.denied;
+    scal_out[S_SCALE] = s.scale;
+  }
+}
+
 size_t smem_bytes(int w, int k) {
   const size_t kk = static_cast<size_t>(k);
   return sizeof(int) * (8 + 2 * kEvPad + static_cast<size_t>(w) + 6 * kk
@@ -768,36 +1328,99 @@ cudaError_t launch_k(const int* ev, const int* src_lbl, const int* touch,
       stream);
 }
 
+size_t large_smem_bytes(int w, int k) {
+  return sizeof(int) * (8 + 2 * kEvPad + static_cast<size_t>(w)
+                        + 6 * static_cast<size_t>(k) + (k + 31) / 32);
+}
+
+template <int POLICY, bool ALG1>
+cudaError_t launch_large(const int* ev, const int* src_lbl, const int* touch,
+                         const int* rand_tab, const int* active, const int* el,
+                         const int* vc, const int* cm, const int* scal,
+                         const float* knobs, int* w_label, int* psel,
+                         int* remap, int* active_out, int* loads, int* cm_out,
+                         int* scal_out, int w, int d, int k, int autoscaling,
+                         cudaStream_t stream) {
+  auto kernel = fused_chooser_large_kernel<POLICY, ALG1>;
+  const size_t smem = large_smem_bytes(w, k);
+  if (k <= 0 || smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // the kernel updates the cut matrix in place, in the output
+  const cudaError_t err = cudaMemcpyAsync(
+      cm_out, cm, sizeof(int) * static_cast<size_t>(k) * k,
+      cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kThreads, smem, stream>>>(ev, src_lbl, touch, rand_tab, active,
+                                        el, vc, scal, knobs, w_label, psel,
+                                        remap, active_out, loads, cm_out,
+                                        scal_out, w, d, k, autoscaling);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define FUSED_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, \
                    w_label, psel, remap, active_out, loads, cm_out, scal_out,     \
                    w, d, k, autoscaling, stream
 
-// The most partition slots the kernel takes.
+#define POLICY_SWITCH(LAUNCH)                                                  \
+  switch (policy * 2 + (alg1 ? 1 : 0)) {                                       \
+    case kSdp * 2: return static_cast<int>(LAUNCH<kSdp, false>(FUSED_ARGS));   \
+    case kSdp * 2 + 1: return static_cast<int>(LAUNCH<kSdp, true>(FUSED_ARGS));\
+    case kLdg * 2: return static_cast<int>(LAUNCH<kLdg, false>(FUSED_ARGS));   \
+    case kLdg * 2 + 1: return static_cast<int>(LAUNCH<kLdg, true>(FUSED_ARGS));\
+    case kFennel * 2:                                                          \
+      return static_cast<int>(LAUNCH<kFennel, false>(FUSED_ARGS));             \
+    case kFennel * 2 + 1:                                                      \
+      return static_cast<int>(LAUNCH<kFennel, true>(FUSED_ARGS));              \
+    case kHash * 2: return static_cast<int>(LAUNCH<kHash, false>(FUSED_ARGS)); \
+    case kHash * 2 + 1:                                                        \
+      return static_cast<int>(LAUNCH<kHash, true>(FUSED_ARGS));                \
+    case kRandom * 2:                                                          \
+      return static_cast<int>(LAUNCH<kRandom, false>(FUSED_ARGS));             \
+    case kRandom * 2 + 1:                                                      \
+      return static_cast<int>(LAUNCH<kRandom, true>(FUSED_ARGS));              \
+    case kGreedy * 2:                                                          \
+      return static_cast<int>(LAUNCH<kGreedy, false>(FUSED_ARGS));             \
+    case kGreedy * 2 + 1:                                                      \
+      return static_cast<int>(LAUNCH<kGreedy, true>(FUSED_ARGS));              \
+    default: return static_cast<int>(cudaErrorInvalidValue);                   \
+  }
+
+// The most partition slots the lanes kernel takes (K <= 192).
 extern "C" int fused_chooser_max_k() { return 32 * kMaxKt; }
 
+// The most partition slots the large-K kernel takes at a window of w slots:
+// its shared memory, 4 (32 + w + 6 K + ceil(K / 32)) bytes, within the
+// 232,448 a block can have.
+extern "C" int fused_chooser_large_max_k(int w) {
+  int k = 0;
+  while (large_smem_bytes(w, k + 1) <= kSmemMax) ++k;
+  return k;
+}
+
+// The window's slot loop in the lanes kernel (K <= 192).
 extern "C" int fused_chooser_launch(
     const int* ev, const int* src_lbl, const int* touch, const int* rand_tab,
     const int* active, const int* el, const int* vc, const int* cm,
     const int* scal, const float* knobs, int* w_label, int* psel, int* remap,
     int* active_out, int* loads, int* cm_out, int* scal_out, int w, int d,
     int k, int policy, int alg1, int autoscaling, cudaStream_t stream) {
-  cudaError_t err;
-  switch (policy * 2 + (alg1 ? 1 : 0)) {
-    case kSdp * 2: err = launch_k<kSdp, false>(FUSED_ARGS); break;
-    case kSdp * 2 + 1: err = launch_k<kSdp, true>(FUSED_ARGS); break;
-    case kLdg * 2: err = launch_k<kLdg, false>(FUSED_ARGS); break;
-    case kLdg * 2 + 1: err = launch_k<kLdg, true>(FUSED_ARGS); break;
-    case kFennel * 2: err = launch_k<kFennel, false>(FUSED_ARGS); break;
-    case kFennel * 2 + 1: err = launch_k<kFennel, true>(FUSED_ARGS); break;
-    case kHash * 2: err = launch_k<kHash, false>(FUSED_ARGS); break;
-    case kHash * 2 + 1: err = launch_k<kHash, true>(FUSED_ARGS); break;
-    case kRandom * 2: err = launch_k<kRandom, false>(FUSED_ARGS); break;
-    case kRandom * 2 + 1: err = launch_k<kRandom, true>(FUSED_ARGS); break;
-    case kGreedy * 2: err = launch_k<kGreedy, false>(FUSED_ARGS); break;
-    case kGreedy * 2 + 1: err = launch_k<kGreedy, true>(FUSED_ARGS); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  POLICY_SWITCH(launch_k)
+}
+
+// The window's slot loop in the large-K kernel (any K up to
+// fused_chooser_large_max_k(w)).
+extern "C" int fused_chooser_large_launch(
+    const int* ev, const int* src_lbl, const int* touch, const int* rand_tab,
+    const int* active, const int* el, const int* vc, const int* cm,
+    const int* scal, const float* knobs, int* w_label, int* psel, int* remap,
+    int* active_out, int* loads, int* cm_out, int* scal_out, int w, int d,
+    int k, int policy, int alg1, int autoscaling, cudaStream_t stream) {
+  POLICY_SWITCH(launch_large)
 }

@@ -32,6 +32,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# the dynamic shared memory a block can have on sm_90 (the csrc files'
+# kSmemMax): the limit of the kernels that size it from K
+SMEM_MAX = 232_448
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

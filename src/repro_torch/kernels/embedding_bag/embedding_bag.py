@@ -10,12 +10,14 @@ padded with -1:
 Replaces ``repro.kernels.embedding_bag.embedding_bag`` (the Pallas TPU
 kernel at ``embedding_bag.py:49``). The TPU version scalar-prefetched the
 indices and gathered one row tile per step of a sequential slot grid
-axis; on Hopper one warp owns one bag, reads its L indices once, and its
-lanes stride over D summing the slots in order 0..L-1 in f32, so it is
-bit-equal to ``embedding_bag_ref``. It is bound by bytes — L·D table
-elements, L indices and D output floats per bag, each moved once. Indices
->= V are a precondition (not read back to the host to check), as in the
-Pallas kernel.
+axis; on Hopper one warp owns one bag: its ids come in with one load and
+reach the lanes by shuffles, each lane loads ``load_width`` bytes of every
+row (16 where the row width and the table's base allow: a bf16 row of
+D = 256 is one warp-wide load), a chunk of rows is in flight before any is
+added, and the slots are summed in order 0..L-1 in f32, so it is bit-equal
+to ``embedding_bag_ref``. Any L. It is bound by bytes — every valid slot's
+row, the ids and the output floats. Indices >= V are a precondition (not
+read back to the host to check), as in the Pallas kernel.
 """
 from __future__ import annotations
 
@@ -28,10 +30,21 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
-_WARPS_PER_BLOCK = 8
-_SMEM_LIMIT = 48 * 1024      # default dynamic shared memory per block
 _INT32_MAX = 2 ** 31 - 1
 TABLE_DTYPES = (torch.float32, torch.bfloat16)
+LOAD_WIDTHS = (16, 8, 4, 2)        # bytes a lane loads of a row
+KERNELS = tuple(f"load{w}" for w in LOAD_WIDTHS)
+
+
+def load_width(d: int, elem_size: int, base: int) -> int:
+    """The bytes a lane loads of a row: the widest of 16, 8 and 4 that
+    divides both the row's ``d * elem_size`` bytes and the table's base
+    address ``base``, else the element's own width."""
+    for width in LOAD_WIDTHS[:-1]:
+        if width >= elem_size and (d * elem_size) % width == 0 \
+                and base % width == 0:
+            return width
+    return elem_size
 
 
 def _lib():
@@ -40,7 +53,8 @@ def _lib():
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -49,8 +63,10 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
                   mode: str = "sum") -> torch.Tensor:
     """(B, D) f32 bags of ``table`` rows over ``indices`` (-1 = padding).
 
-    A CUDA tensor launches the kernel (and counts the launch in
-    ``embedding_bag.launches``); a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel at the ``load_width`` of the table
+    (the call counted in ``embedding_bag.launches``, the width in
+    ``embedding_bag.kernel_launches``); a CPU tensor runs the plain
+    version.
     """
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
@@ -62,20 +78,20 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor, *,
     b, l = indices.shape
     check_input(table, "table", table.dtype, (v, d))
     check_input(indices, "indices", torch.int32, (b, l))
-    if _WARPS_PER_BLOCK * l * 4 > _SMEM_LIMIT or b > _INT32_MAX - 32:
-        raise ValueError(
-            f"bags ({b}, {l}) do not fit the kernel: L <= "
-            f"{_SMEM_LIMIT // (4 * _WARPS_PER_BLOCK)} slots (per-warp shared "
-            f"index lists) and B < 2^31")
+    if b > _INT32_MAX - 32:
+        raise ValueError(f"{b} bags do not fit the kernel: B < 2^31")
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     if b == 0 or d == 0:
         return out
+    width = load_width(d, table.element_size(), table.data_ptr())
     err = _lib()(table.data_ptr(), indices.data_ptr(), out.data_ptr(), b, l,
                  d, int(table.dtype == torch.bfloat16), int(mode == "mean"),
-                 stream_ptr(table.device))
+                 width, stream_ptr(table.device))
     check_launch(err, "embedding_bag")
     embedding_bag.launches += 1
+    embedding_bag.kernel_launches[f"load{width}"] += 1
     return out
 
 
 embedding_bag.launches = 0
+embedding_bag.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -27,10 +27,16 @@ model them), and the cut matrix, ``w_label`` and ``remap`` sit in shared
 memory. Two producer warps count each slot's histogram one slot ahead,
 leaving out the entries the slot being decided touches, which the decider
 adds once their label is known. It is bound by that chain's latency, not
-by its ~W·(9 + 2D + K)·4 bytes. K is at most 192.
+by its ~W·(9 + 2D + K)·4 bytes. That is the **lanes** kernel, for K <= 192
+(six partitions a lane). Above that, ``dispatch`` takes the **large**
+kernel: the same slot loop with the decider's K-vectors in shared memory
+and the cut matrix in device memory, for any K up to ``large_max_k(W)``
+(9,587 at W = 256), where its 4·(32 + W + 6K + ⌈K/32⌉) bytes of shared
+memory reach the 232,448 a block can have.
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import torch
@@ -38,8 +44,8 @@ import torch
 from repro_torch.core import transition as tx
 from repro_torch.graph.stream import EVENT_ADD, EVENT_DEL_VERTEX
 from repro_torch.kernels.common import (
-    check_input, check_launch, label_histogram, load_kernel, on_cuda,
-    stream_ptr,
+    SMEM_MAX, check_input, check_launch, label_histogram, load_kernel,
+    on_cuda, stream_ptr,
 )
 
 # per-slot scalar row layout (ops._prepare_window packs, the kernel unpacks)
@@ -52,6 +58,41 @@ SCAL_NP, SCAL_TOTAL, SCAL_CUT, SCAL_DENIED, SCAL_SCALE = 0, 1, 2, 3, 4
 SCAL_N = 5
 
 _I32 = torch.int32
+
+KERNELS = ("lanes", "large")
+LANES_MAX_K = 192            # csrc's 32 * kMaxKt: six partitions a lane
+EV_PAD = 12                  # csrc's kEvPad: a scalar row's ints in smem
+
+
+def large_smem_bytes(w: int, k: int) -> int:
+    """Shared memory of the large kernel at a window of ``w`` slots and
+    ``k`` partitions (csrc's ``large_smem_bytes``): 8 flags, two scalar
+    rows, ``w_label``, six K-vectors and the active bits."""
+    return 4 * (8 + 2 * EV_PAD + w + 6 * k + -(-k // 32))
+
+
+def large_max_k(w: int) -> int:
+    """The most partitions the large kernel takes at a window of ``w``:
+    the largest K whose ``large_smem_bytes`` fit SMEM_MAX."""
+    return bisect.bisect_right(range(1, SMEM_MAX), SMEM_MAX,
+                               key=lambda k: large_smem_bytes(w, k))
+
+
+def dispatch(w: int, k: int) -> str:
+    """Which kernel a window of ``w`` slots over ``k`` partitions takes:
+    ``lanes`` up to LANES_MAX_K, ``large`` above — by shape, never on
+    failure. Raises where neither takes it."""
+    if k < 1:
+        raise ValueError(f"k_max must be >= 1, got {k}")
+    if k <= LANES_MAX_K:
+        return "lanes"
+    if k > large_max_k(w):
+        raise ValueError(
+            f"k_max={k} is above the {large_max_k(w)} partitions the large "
+            f"fused_chooser kernel takes at a window of {w}: its "
+            f"{large_smem_bytes(w, k)} bytes of shared memory pass the "
+            f"{SMEM_MAX} a block can have")
+    return "large"
 
 
 def _scale_in_touch(small, w_label, remap, kn, gate):
@@ -132,7 +173,11 @@ def _lib():
         fn.argtypes = ([ctypes.c_void_p] * 17
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        large = lib.fused_chooser_large_launch
+        large.argtypes, large.restype = fn.argtypes, fn.restype
         lib.fused_chooser_max_k.restype = ctypes.c_int
+        lib.fused_chooser_large_max_k.argtypes = [ctypes.c_int]
+        lib.fused_chooser_large_max_k.restype = ctypes.c_int
     return lib
 
 
@@ -145,8 +190,10 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
 
     Inputs are the prep tables (``ops._prepare_window``), the per-slot
     random table (``transition.rand_index_table``), the O(K) counter slice
-    and the (7,) f32 knobs. CUDA tensors launch the kernel (counted in
-    ``fused_window_choose.launches``); CPU tensors run the plain loop."""
+    and the (7,) f32 knobs. CUDA tensors launch the kernel that
+    ``dispatch`` names (counted in ``fused_window_choose.launches`` and,
+    by kernel, in ``fused_window_choose.kernel_launches``); CPU tensors run
+    the plain loop."""
     if not on_cuda(ev, src_lbl, touch, rand_tab, active, edge_load,
                    vertex_count, cut_matrix, scalars, knobs):
         from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref
@@ -156,7 +203,6 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
             balance_guard=balance_guard, autoscaling=autoscaling)
     w, d = src_lbl.shape
     k = rand_tab.shape[1]
-    dev = ev.device
     check_input(ev, "ev", _I32, (w, EV_COLS))
     check_input(src_lbl, "src_lbl", _I32, (w, d))
     check_input(touch, "touch", _I32, (w, d))
@@ -170,10 +216,31 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
     check_input(knobs, "knobs", torch.float32, (7,))
     if balance_guard not in ("text", "alg1"):
         raise ValueError(f"balance_guard={balance_guard!r} is unknown")
+    kernel = dispatch(w, k)
+    out = launch(kernel, ev, src_lbl, touch, rand_tab, active, edge_load,
+                 vertex_count, cut_matrix, scalars, knobs, policy=policy,
+                 balance_guard=balance_guard, autoscaling=autoscaling)
+    fused_window_choose.launches += 1
+    fused_window_choose.kernel_launches[kernel] += 1
+    return out
+
+
+def launch(kernel, ev, src_lbl, touch, rand_tab, active, edge_load,
+           vertex_count, cut_matrix, scalars, knobs, *, policy: str,
+           balance_guard: str, autoscaling: bool):
+    """Launches ``kernel`` (one of KERNELS) on checked CUDA inputs and
+    returns ``fused_window_choose``'s outputs, uncounted: the wrapper's
+    launch, and the sweep's, which times the large kernel at shapes the
+    wrapper sends to the lanes kernel."""
+    if not on_cuda(ev, src_lbl, touch, rand_tab, active, edge_load,
+                   vertex_count, cut_matrix, scalars, knobs):
+        raise ValueError("launch takes CUDA tensors")
+    w, d = src_lbl.shape
+    k = rand_tab.shape[1]
+    dev = ev.device
     lib = _lib()
-    if k > lib.fused_chooser_max_k():
-        raise ValueError(f"k_max={k} is above the kernel's "
-                         f"{lib.fused_chooser_max_k()} partition slots")
+    fn = (lib.fused_chooser_launch if kernel == "lanes"
+          else lib.fused_chooser_large_launch)
     active_i = active.to(_I32)
     out = (torch.empty((w,), dtype=_I32, device=dev),          # w_label
            torch.empty((w,), dtype=_I32, device=dev),          # p_sel
@@ -185,12 +252,11 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
     ptrs = [t.data_ptr() for t in (ev, src_lbl, touch, rand_tab, active_i,
                                    edge_load, vertex_count, cut_matrix,
                                    scalars, knobs) + out]
-    err = lib.fused_chooser_launch(*ptrs, w, d, k, tx.POLICY_INDEX[policy],
-                                   int(balance_guard == "alg1"),
-                                   int(autoscaling), stream_ptr(dev))
-    check_launch(err, "fused_chooser")
-    fused_window_choose.launches += 1
+    err = fn(*ptrs, w, d, k, tx.POLICY_INDEX[policy],
+             int(balance_guard == "alg1"), int(autoscaling), stream_ptr(dev))
+    check_launch(err, f"fused_chooser ({kernel})")
     return out
 
 
 fused_window_choose.launches = 0
+fused_window_choose.kernel_launches = dict.fromkeys(KERNELS, 0)

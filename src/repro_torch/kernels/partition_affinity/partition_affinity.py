@@ -10,13 +10,16 @@ partition labels ``labels[w, d] ∈ {-1, 0..K-1}``:
 Replaces ``repro.kernels.partition_affinity.partition_affinity`` (the
 Pallas TPU kernel at ``partition_affinity.py:47``). The TPU version tiled
 (W, D) into VMEM blocks and reduced over a sequential D grid axis; on
-Hopper, one warp owns one window row, its lanes stride over D, and the K
-counts live in a per-warp shared-memory histogram (integer atomics, so
-the order of the adds does not matter). It is bound by bytes —
-(W·D + W·K + W)·4 read and written once — which at the session's shapes
-is far below a microsecond of HBM time, so launch latency sets its time.
-The gather ``assignment[rows]`` stays outside the kernel, as in the JAX
-package (``ops.gather_labels``).
+Hopper one warp owns one window row and issues all its loads of the row
+at once (16-byte loads where the row is aligned), then counts: for
+K <= 32 in registers, a byte a bin and four bins to a register, added
+over the warp with two reductions a register; else in a per-warp
+shared-memory histogram with integer atomics, as many rows a block as
+shared memory holds — any K up to ``MAX_K`` (58,112). It is bound by
+bytes — (W·D + W·K + W)·4 read and written once — which at the session's
+shapes is far below a microsecond of HBM time, so launch latency sets its
+time. The gather ``assignment[rows]`` stays outside the kernel, as in the
+JAX package (``ops.gather_labels``).
 """
 from __future__ import annotations
 
@@ -25,12 +28,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels.common import (
-    check_input, check_launch, load_kernel, on_cuda, stream_ptr,
+    SMEM_MAX, check_input, check_launch, load_kernel, on_cuda, stream_ptr,
 )
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref
 
-_WARPS_PER_BLOCK = 8
-_SMEM_LIMIT = 48 * 1024      # default dynamic shared memory per block
+MAX_K = SMEM_MAX // 4        # one row's histogram in a block's shared memory
 
 
 def _lib():
@@ -41,6 +43,8 @@ def _lib():
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.partition_affinity_max_k.argtypes = []
+        lib.partition_affinity_max_k.restype = ctypes.c_int
     return fn
 
 
@@ -54,11 +58,11 @@ def partition_affinity(labels: torch.Tensor, *, k_max: int):
         return partition_affinity_ref(labels, k_max=k_max)
     w, d = labels.shape
     check_input(labels, "labels", torch.int32, (w, d))
-    if k_max < 1 or _WARPS_PER_BLOCK * k_max * 4 > _SMEM_LIMIT:
+    if not 1 <= k_max <= MAX_K:
         raise ValueError(
-            f"k_max={k_max} does not fit the kernel's per-warp shared "
-            f"histograms ({_WARPS_PER_BLOCK} x k_max int32 <= "
-            f"{_SMEM_LIMIT} bytes)")
+            f"k_max={k_max} is outside the kernel's 1..{MAX_K} partitions "
+            f"(one row's int32 histogram in a block's {SMEM_MAX} bytes of "
+            f"shared memory)")
     scores = torch.empty((w, k_max), dtype=torch.int32, device=labels.device)
     deg = torch.empty((w,), dtype=torch.int32, device=labels.device)
     if w == 0:

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
-import subprocess
 import sys
 
 import numpy as np
@@ -26,6 +24,7 @@ from repro_torch.graph.csr import cap_degree
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.kernels import common
 from repro_torch.kernels.segment_spmm.segment_spmm import segment_spmm
+from repro_torch.kernels.sweep import build_variants, card, graph_ms
 
 WIDTHS = (128, 1433)
 DEGREE_CAP = 192
@@ -43,62 +42,6 @@ def twitter_ell(dev) -> torch.Tensor:
     ell[rows, np.arange(g.indptr[-1]) - np.repeat(g.indptr[:-1], deg)] = \
         g.indices
     return torch.from_numpy(ell).to(dev)
-
-
-def build_variants() -> dict:
-    """{name: launch function} of every VARIANTS build, compiled in
-    parallel into ``build/repro_torch/sweep/``."""
-    src = (common.CSRC / "segment_spmm.cu").read_text()
-    out = common.BUILD_DIR / "sweep"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, consts in VARIANTS.items():
-        text = src
-        for const, val in consts.items():
-            text, n = re.subn(rf"constexpr int {const} = \d+;",
-                              f"constexpr int {const} = {val};", text)
-            if n != 1:
-                raise ValueError(f"segment_spmm.cu has no {const}")
-        cu = out / f"segment_spmm_{name}.cu"
-        cu.write_text(text)
-        lib = out / f"libsegment_spmm_{name}.so"
-        jobs.append((name, lib, subprocess.Popen(
-            [common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    common.build_kernels(["segment_spmm"])
-    fns = {}
-    for name, lib, proc in jobs:
-        log = proc.communicate()[0].decode()
-        if proc.returncode:
-            raise RuntimeError(f"segment_spmm {name} failed:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(lib)).segment_spmm_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fns[name] = fn
-    return fns
-
-
-def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
-    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph, replayed ``replays`` times between two CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (reps * replays)
 
 
 def sweep(fns: dict, adj: torch.Tensor, f: int) -> dict:
@@ -136,15 +79,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("the sweep needs a CUDA card")
     dev = torch.device("cuda", 0)
-    fns = build_variants()
+    fns = build_variants("segment_spmm", VARIANTS,
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
     adj = twitter_ell(dev)
     result = {"graph": "twitter", "shape": list(adj.shape),
               "valid_slots": int((adj >= 0).sum()), "variants": VARIANTS,
               "ms": {f"F{f}": sweep(fns, adj, f) for f in WIDTHS}}
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps(result), flush=True)
     return 0
 

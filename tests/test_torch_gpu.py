@@ -18,11 +18,16 @@ from repro_torch.core.state import init_state
 from repro_torch.core import windowed as wnd
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.graph.stream import EVENT_ADD, interleaved_churn
-from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
+from repro_torch.api import Partitioner
+from repro_torch.kernels import common
+from repro_torch.kernels.embedding_bag.embedding_bag import (
+    embedding_bag, load_width,
+)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
 from repro_torch.kernels.fused_chooser.ops import _prepare_window
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref
+from repro_torch.kernels.partition_affinity import partition_affinity as pa
 from repro_torch.kernels.partition_affinity.partition_affinity import (
     partition_affinity,
 )
@@ -48,18 +53,51 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("w,d,k", [(256, 192, 16), (256, 256, 16),
-                                   (100, 37, 5), (1, 1, 1), (33, 1000, 7)])
-def test_partition_affinity_kernel_matches_plain(cuda, w, d, k):
-    g = torch.Generator(device=cuda).manual_seed(w + d + k)
-    labels = torch.randint(-1, k, (w, d), generator=g, device=cuda,
-                           dtype=torch.int32)
+def _assert_affinity_matches(labels, k):
     before = partition_affinity.launches
     got = partition_affinity(labels, k_max=k)
     assert partition_affinity.launches == before + 1
     want = partition_affinity_ref(labels, k_max=k)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("w,d,k", [(256, 192, 16), (256, 256, 16),
+                                   (100, 37, 5), (1, 1, 1), (33, 1000, 7)])
+def test_partition_affinity_kernel_matches_plain(cuda, w, d, k):
+    g = torch.Generator(device=cuda).manual_seed(w + d + k)
+    labels = torch.randint(-1, k, (w, d), generator=g, device=cuda,
+                           dtype=torch.int32)
+    _assert_affinity_matches(labels, k)
+
+
+# rows of one label, of 37 (4-byte loads), of the session's 192 (16-byte
+# loads) and of grqc's 2,843 (several load rounds); K in registers (1, 16;
+# 32, the last), and in a shared histogram (200, 2,000: fewer rows a
+# block); labels up to K + 2, which count in no bin
+@pytest.mark.parametrize("k", [1, 16, 32, 200, 2000])
+@pytest.mark.parametrize("d", [1, 37, 192, 2843])
+def test_partition_affinity_kernel_any_width_and_k(cuda, d, k):
+    g = torch.Generator(device=cuda).manual_seed(d * 7 + k)
+    labels = torch.randint(-1, k + 2, (70, d), generator=g, device=cuda,
+                           dtype=torch.int32)
+    _assert_affinity_matches(labels, k)
+    # the same rows seen from an int32 past a 16-byte boundary
+    flat = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=cuda),
+                      labels.reshape(-1)])
+    view = flat[1:].view(70, d)
+    assert view.data_ptr() % 16 == 4
+    _assert_affinity_matches(view, k)
+
+
+def test_partition_affinity_refuses_only_above_its_limit(cuda):
+    pa._lib()                                    # binds the library's entries
+    lib = common.load_kernel("partition_affinity")
+    assert lib.partition_affinity_max_k() == pa.MAX_K >= 4096
+    labels = torch.randint(-1, 4, (3, 5), device=cuda, dtype=torch.int32)
+    _assert_affinity_matches(labels, pa.MAX_K)
+    with pytest.raises(ValueError, match="58112"):
+        partition_affinity(labels, k_max=pa.MAX_K + 1)
 
 
 def _window(cuda, k_max, window=64, warm=128):
@@ -131,21 +169,77 @@ def test_embedding_bag_kernel_matches_plain(cuda, v, d, b, l, low, dtype):
         assert not got[0].any()                 # the all-padding bag
 
 
+# (dtype, D, base offset in elements, load width): every width the wrapper
+# picks, from the row width (D * element size) and the table's base
+# alignment — 16-byte rows seen from a base 4 or 8 bytes past a 16-byte
+# boundary, and bf16 rows 2 bytes past one
+BAG_WIDTHS = [(torch.float32, 256, 0, 16), (torch.float32, 6, 0, 8),
+              (torch.float32, 5, 0, 4), (torch.float32, 256, 1, 4),
+              (torch.float32, 256, 2, 8), (torch.bfloat16, 256, 0, 16),
+              (torch.bfloat16, 12, 0, 8), (torch.bfloat16, 6, 0, 4),
+              (torch.bfloat16, 5, 0, 2), (torch.bfloat16, 256, 1, 2),
+              (torch.bfloat16, 256, 2, 4), (torch.bfloat16, 256, 4, 8)]
+
+
+@pytest.mark.parametrize("l", [1, 8, 37, 2000])
+@pytest.mark.parametrize("dtype,d,off,width", BAG_WIDTHS, ids=str)
+def test_embedding_bag_kernel_load_widths(cuda, dtype, d, off, width, l):
+    """Each load width on a table view at that alignment, bags of 1, 8, 37
+    (past one 32-slot id load) and 2,000 slots (past the earlier kernel's
+    1,536), a quarter of the slots -1 and bag 0 all padding; the launch
+    counted under its width."""
+    v, b = 300, 45
+    g = torch.Generator(device=cuda).manual_seed(d + off + l)
+    flat = torch.randn((v * d + off,), generator=g, device=cuda).to(dtype)
+    table = flat[off:].view(v, d)
+    assert table.data_ptr() % 16 == (off * table.element_size()) % 16
+    assert load_width(d, table.element_size(), table.data_ptr()) == width
+    idx = torch.randint(0, v, (b, l), generator=g, device=cuda,
+                        dtype=torch.int32)
+    pad = torch.rand((b, l), generator=g, device=cuda) < 0.25
+    idx = torch.where(pad, torch.full_like(idx, -1), idx)
+    idx[0] = -1
+    for mode in ("sum", "mean"):
+        before = embedding_bag.launches
+        by = dict(embedding_bag.kernel_launches)
+        got = embedding_bag(table, idx, mode=mode)
+        assert embedding_bag.launches == before + 1
+        assert embedding_bag.kernel_launches == {
+            k: n + (k == f"load{width}") for k, n in by.items()}
+        want = embedding_bag_ref(table, idx, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+        assert not got[0].any()
+
+
+def test_embedding_bag_kernel_all_padding(cuda):
+    table = torch.randn((20, 256), device=cuda).to(torch.bfloat16)
+    idx = torch.full((70, 9), -1, dtype=torch.int32, device=cuda)
+    for mode in ("sum", "mean"):
+        got = embedding_bag(table, idx, mode=mode)
+        assert torch.equal(got, torch.zeros((70, 256), device=cuda))
+
+
 def _assert_fused_matches(n, args, policy):
     for guard in ("text", "alg1"):
         for auto in (True, False):
             kw = dict(n=n, policy=policy, balance_guard=guard,
                       autoscaling=auto)
             before = fk.fused_window_choose.launches
+            kernel = fk.dispatch(args[1].shape[0], args[3].shape[1])
+            by = dict(fk.fused_window_choose.kernel_launches)
             got = fk.fused_window_choose(*args, **kw)
             assert fk.fused_window_choose.launches == before + 1
+            assert fk.fused_window_choose.kernel_launches == {
+                k: c + (k == kernel) for k, c in by.items()}
             want = fused_window_choose_ref(*args, **kw)
             for x, y in zip(got, want):
                 assert torch.equal(x, y), (policy, guard, auto)
 
 
-# k_max 40: partitions past the 32 lanes of the kernel's warp
-@pytest.mark.parametrize("k_max", [6, 1, 40])
+# k_max 40: partitions past the 32 lanes of the kernel's warp; 192, the
+# lanes kernel's last; 193 and up, the large kernel
+@pytest.mark.parametrize("k_max", [6, 1, 40, 192, 193, 200, 1000])
 @pytest.mark.parametrize("policy", POLICIES)
 def test_fused_chooser_kernel_matches_plain(cuda, policy, k_max):
     n, args = _window(cuda, k_max)
@@ -175,16 +269,63 @@ def test_fused_chooser_kernel_matches_plain_wide_rows(cuda, policy):
     _assert_fused_matches(n, (ev, *wide, *rest), policy)
 
 
+@pytest.mark.parametrize("k_max", [6, 300])
 @pytest.mark.parametrize("policy", ["sdp", "greedy"])
-def test_fused_chooser_kernel_matches_plain_large_loads(cuda, policy):
+def test_fused_chooser_kernel_matches_plain_large_loads(cuda, policy, k_max):
     """Edge loads past 2^24: the f32 sum of loads is no longer the integer
     sum, and the kernel adds the terms left to right as the plain version
-    does."""
-    n, args = _window(cuda, 6)
+    does (at K = 300, 300 loads of 2^25 would also wrap a 32-bit sum)."""
+    n, args = _window(cuda, k_max)
     args = list(args)
     args[5] = args[5] + (1 << 25) + torch.arange(
-        6, dtype=torch.int32, device=cuda) * 7
+        k_max, dtype=torch.int32, device=cuda) * 7
     _assert_fused_matches(n, tuple(args), policy)
+
+
+@pytest.mark.parametrize("k_max", [1, 16, 40, 192])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_fused_chooser_large_kernel_matches_lanes(cuda, policy, k_max):
+    """The large kernel, which takes any K, launched (uncounted) at K the
+    wrapper sends to the lanes kernel: bit-equal to the lanes kernel."""
+    n, args = _window(cuda, k_max)
+    counts = (fk.fused_window_choose.launches,
+              dict(fk.fused_window_choose.kernel_launches))
+    for guard in ("text", "alg1"):
+        for auto in (True, False):
+            kw = dict(policy=policy, balance_guard=guard, autoscaling=auto)
+            for x, y in zip(fk.launch("large", *args, **kw),
+                            fk.launch("lanes", *args, **kw)):
+                assert torch.equal(x, y), (guard, auto)
+    assert counts == (fk.fused_window_choose.launches,
+                      fk.fused_window_choose.kernel_launches)
+
+
+def test_fused_chooser_limits_match_the_build(cuda):
+    lib = fk._lib()
+    assert lib.fused_chooser_max_k() == fk.LANES_MAX_K
+    for w in (1, 64, 256, 4096):
+        assert lib.fused_chooser_large_max_k(w) == fk.large_max_k(w)
+    assert fk.large_max_k(256) >= 4096
+
+
+def test_partitioner_session_k200_matches_plain(cuda):
+    """A card session with use_kernel=True at k_max = 200 (the large
+    fused_chooser kernel and partition_affinity's shared histogram) leaf
+    for leaf equal to the plain windowed session on the card."""
+    s = interleaved_churn(load_dataset("grqc", scale=0.2), warmup_frac=0.2,
+                          del_every=3, edge_del_every=5, seed=0)
+    cfg = EngineConfig(k_max=200, k_init=1, max_cap=40, autoscale=True)
+    before = dict(fk.fused_window_choose.kernel_launches)
+    aff = partition_affinity.launches
+    parts = [Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=64,
+                                     use_kernel=k, device=cuda).feed(s)
+             for k in (True, False)]
+    assert fk.fused_window_choose.kernel_launches["large"] > before["large"]
+    assert fk.fused_window_choose.kernel_launches["lanes"] == before["lanes"]
+    assert partition_affinity.launches > aff
+    for f in parts[0].state._fields:
+        assert torch.equal(getattr(parts[0].state, f),
+                           getattr(parts[1].state, f)), f
 
 
 # flash_attention: tests/test_kernels.py's cases (B, H, Hkv, Sq, Sk, D) and
