@@ -13,7 +13,11 @@ port's faithful per-event engine (and at k_max = 200, the fused chooser's
 large-K kernel, against the plain session), drives the full-width
 session — the
 paper's largest dataset, twitter at scale 1.0 — through
-``Partitioner.feed`` with both session kernels on the path, and serves
+``Partitioner.feed`` with its five kernels on the path (pure-ADD windows:
+``partition_affinity``, ``window_rng``, the pure-ADD fixup
+``add_window_choose``; mixed ones: ``window_prep``, ``window_rng``,
+``fused_chooser``), times its window pipelines against the host loops
+they replace on the same card, and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -49,7 +53,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.api.partitioner import Partitioner  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
-from repro_torch.core import engine, transition as tx, windowed as wnd  # noqa: E402
+from repro_torch.core import engine, windowed as wnd  # noqa: E402
+from repro_torch.core.rng import prng_key  # noqa: E402
+from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.core.transition import knob_tensor  # noqa: E402
 from repro_torch.core.config import EngineConfig, POLICIES  # noqa: E402
 from repro_torch.core.metrics import recompute_counters  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
@@ -63,13 +70,18 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
 from repro_torch.kernels.fused_chooser import sweep as fsweep  # noqa: E402
-from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref  # noqa: E402
+from repro_torch.kernels.fused_chooser.ref import (  # noqa: E402
+    fused_window_choose_ref, prepare_window_ref,
+)
+from repro_torch.kernels.fused_chooser.window_prep import window_prep  # noqa: E402
 from repro_torch.kernels.partition_affinity import ops as pops  # noqa: E402
 from repro_torch.kernels.partition_affinity import partition_affinity as pa  # noqa: E402
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref  # noqa: E402
 from repro_torch.kernels.segment_spmm import ops as sops  # noqa: E402
 from repro_torch.kernels.segment_spmm import segment_spmm as ss  # noqa: E402
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref  # noqa: E402
+from repro_torch.kernels.window_rng import ops as rops  # noqa: E402
+from repro_torch.kernels.window_rng.ref import window_rng_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
@@ -128,6 +140,12 @@ LM_MAX_LEN = LM_PROMPT + LM_GEN + 1
 # places, so they drift apart by a few bf16 ulps; a wrong mask, position
 # or cache slot moves the logits by O(1). Limit on the relative L2 error:
 LOGIT_REL = 2.0 ** -4
+# int32 operations a second: 132 SMs x 64 results a clock for 32-bit
+# integer add, shift, compare and logic (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) x the 1.98 GHz
+# boost clock of the H100 SXM data sheet (its 67 TFLOP/s f32 is 132 x 128
+# lanes x 2 (an FMA) x that clock)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # segment_spmm: the twitter session's ELL (degree cap 192) at MeshGraphNet's
 # hidden width and at full_graph_sm's d_feat, and grqc's uncapped rows
 SPMM_WIDTHS = (128, 1433)
@@ -259,6 +277,7 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     t = time.perf_counter()
     libs = common.build_kernels(["partition_affinity", "fused_chooser",
+                                 "window_prep", "window_rng",
                                  "embedding_bag", "flash_attention",
                                  "segment_spmm"])
     secs = time.perf_counter() - t
@@ -345,25 +364,13 @@ def _fused_bytes(w: int, d: int, k: int) -> int:
 
 def check_fused_chooser(dev) -> dict:
     fc_out = {"name": "fused_chooser", "cases": []}
-    # (label, dataset, scale, degree cap, row width, k_max, window, warm
-    # events, max_cap): the session's shapes (SESSION_SHAPE), a window and
-    # width off every multiple of 32, a single partition slot, partitions
-    # past the warp's 32 lanes, grqc's uncapped 2,843-wide rows, and 200 and
-    # 1,000 partition slots (the large-K kernel)
-    setups = (("main", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, K_MAX,
-               WINDOW, 768, 400),
-              ("odd", "grqc", 0.05, 37, 37, 5, 100, 200, 60),
-              ("k1", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 1, WINDOW,
-               768, 400),
-              ("k40", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 40, WINDOW,
-               768, 400),
-              ("grqc_wide", "grqc", 1.0, 0, GRQC_WIDTH, K_MAX, WINDOW, 1024,
-               1500),
-              ("k200", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 200,
-               WINDOW, 768, 400),
-              ("k1000", "twitter", 0.03, TWITTER_CAP, TWITTER_CAP, 1000,
-               WINDOW, 768, 400))
-    for label, name, scale, cap, width, k_max, window, warm, max_cap in setups:
+    # the window kernels' setups (sweep.WINDOW_SETUPS): the session's shapes
+    # (SESSION_SHAPE), a window and width off every multiple of 32, a single
+    # partition slot, partitions past the warp's 32 lanes, grqc's uncapped
+    # 2,843-wide rows, and 200 and 1,000 partition slots (the large-K
+    # kernel)
+    for label, spec in fsweep.WINDOW_SETUPS.items():
+        name, scale, cap, width, k_max, max_cap, window, warm = spec
         args, n, ets = fsweep.window_inputs(
             dev, name, scale, cap, width, k_max, max_cap, window, warm,
             EVENT_ARGS)
@@ -374,7 +381,8 @@ def check_fused_chooser(dev) -> dict:
         # there (tests/test_torch_gpu.py holds every policy at K = 1,000)
         for policy in (("sdp",) if label == "k1000" else POLICIES):
             for guard in guards:
-                for auto in ((True, False) if label == "main" else (True,)):
+                for auto in ((True, False) if label == "session"
+                             else (True,)):
                     kw = dict(n=n, policy=policy, balance_guard=guard,
                               autoscaling=auto)
                     got = fk.fused_window_choose(*args, **kw)
@@ -389,9 +397,9 @@ def check_fused_chooser(dev) -> dict:
                             "scale_events_in_window": scale,
                             "deletions_in_window": n_del}
                     timed = guard == "text" and auto and (
-                        policy == "sdp" or (label == "main"
+                        policy == "sdp" or (label == "session"
                                             and policy in ("ldg", "random")))
-                    if timed and label in ("main", "k40", "grqc_wide",
+                    if timed and label in ("session", "k40", "grqc_wide",
                                            "k200", "k1000"):
                         def kernel():
                             fk.fused_window_choose(*args, **kw)
@@ -419,6 +427,194 @@ def check_fused_chooser(dev) -> dict:
                             f"autoscale={auto}: kernel differs from the plain "
                             f"version by {err}")
     return fc_out
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for a call that moves ``nbytes`` and does ``ops``
+    int32 operations: the larger of the two."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "int_ops": ops}
+
+
+def _window_cases(dev):
+    """{setup: (state, cfg, (etype, vertex, rows))} of the window
+    kernels' setups (``sweep.WINDOW_SETUPS``)."""
+    return {name: fsweep.window_state(dev, *spec, fsweep.CHURN)
+            for name, spec in fsweep.WINDOW_SETUPS.items()}
+
+
+def check_window_rng(dev) -> dict:
+    """Bit-equal to the plain version at the session's t0s, the uint32
+    wrap and K from 1 to 1,000; timed at the session's (W, K)."""
+    out = {"name": "window_rng", "cases": []}
+    for seed in (0, 2**40 + 5):
+        key = prng_key(seed, device=dev)
+        for t0 in (0, 114_958, 2**32 - 100):
+            for k in (1, K_MAX, 200, 1000):
+                got = rops.window_rng(key, t0, WINDOW, k)
+                want = window_rng_ref(key, t0, WINDOW, k)
+                torch.cuda.synchronize()
+                err = max_abs_diff([got], [want])
+                case = {"seed": seed, "t0": t0, "shape": [WINDOW, k],
+                        "max_abs_err": err}
+                if (seed, t0, k) == (0, 114_958, K_MAX):
+                    case["ms"] = graph_ms(lambda: rops.window_rng(
+                        key, t0, WINDOW, k), 100)
+                    case["eager_ms"] = eager_ms(lambda: rops.window_rng(
+                        key, t0, WINDOW, k), 100)
+                    case["plain_ms"] = graph_ms(lambda: window_rng_ref(
+                        key, t0, WINDOW, k), 5)
+                    case["plain_eager_ms"] = eager_ms(lambda: window_rng_ref(
+                        key, t0, WINDOW, k), 5)
+                    # five threefry blocks of ~117 operations a slot, and
+                    # 10 for each table entry's range reduction (five
+                    # modulos and five products, masks and sums, each
+                    # modulo counted as one operation, so a lower bound);
+                    # the key in, the table out
+                    case.update(_bound(8 + WINDOW * k * 4,
+                                       WINDOW * (5 * 117 + 2 + 10 * k)))
+                out["cases"].append(case)
+                if err:
+                    raise AssertionError(f"window_rng seed={seed} t0={t0} "
+                                         f"k={k}: kernel differs from the "
+                                         f"plain version by {err}")
+    return out
+
+
+def _prep_bytes(prep, state, rows) -> int:
+    """Bytes one window_prep call must move: the events in, the scalar
+    rows and both tables out, the committed labels and presence (n) in,
+    last_touch (n) out, and the adjacency rows the window reads (one a
+    slot) and writes (one a fresh ADD or DEL_EDGE, one more a DEL_EDGE)."""
+    w, d = rows.shape
+    n = state.assignment.shape[0]
+    ev = prep.ev
+    writes = int((ev[:, fk.EV_FRESH] != 0).sum()) + 2 * int(
+        (ev[:, fk.EV_ET] == 2).sum())
+    return (4 * (2 * w + w * d) + 4 * w * fk.EV_COLS + 8 * w * d + 5 * n
+            + 4 * n + 4 * d * (w + writes))
+
+
+def check_window_prep(dev, cases) -> dict:
+    """Bit-equal to the plain loop (every output, the adjacency after it,
+    presence unwritten) on each setup's own window and two crafted ones
+    (pads, self-loops, an edge deleted from both endpoints, a vertex added
+    twice, a deleted vertex added again); timed on the session's window
+    and grqc's wide one."""
+    out = {"name": "window_prep", "cases": []}
+    for name in ("session", "grqc_wide", "odd"):
+        state, _, (et, vx, nb) = cases[name]
+        w, warm = fsweep.WINDOW_SETUPS[name][6:]
+        sl = slice(warm, warm + w)
+        windows = {"stream": (et[sl], vx[sl], nb[sl])}
+        for seed in (0, 1):
+            windows[f"crafted{seed}"] = fsweep.crafted_window(state, w, seed)
+        for label, (ets, vs, rows) in windows.items():
+            a, b = fsweep.clone_state(state), fsweep.clone_state(state)
+            got = window_prep(a, ets, vs, rows)
+            want = prepare_window_ref(b, ets, vs, rows)
+            torch.cuda.synchronize()
+            err = max(max_abs_diff(got, want),
+                      max_abs_diff([a.adj, a.present], [b.adj, state.present]))
+            case = {"case": name, "window": label,
+                    "shape": list(rows.shape), "max_abs_err": err,
+                    "del_edges": int((ets == 2).sum()),
+                    "exists": int(got.ev[:, fk.EV_EXISTS].sum())}
+            if label == "stream" and name in ("session", "grqc_wide"):
+                c = fsweep.clone_state(state)
+                case["ms"] = graph_ms(lambda: window_prep(c, ets, vs, rows),
+                                      20)
+                case["eager_ms"] = eager_ms(
+                    lambda: window_prep(c, ets, vs, rows), 20)
+                case["plain_ms"] = graph_ms(
+                    lambda: prepare_window_ref(c, ets, vs, rows), 1,
+                    replays=2)
+                case["plain_eager_ms"] = eager_ms(
+                    lambda: prepare_window_ref(c, ets, vs, rows), 1)
+                case.update(_bound(_prep_bytes(got, state, rows), 0))
+            out["cases"].append(case)
+            if err:
+                raise AssertionError(f"window_prep {name}/{label}: kernel "
+                                     f"differs from the plain loop by {err}")
+    return out
+
+
+def _add_bytes(w: int, d: int, k: int) -> int:
+    """Bytes one add_window_choose call must move: scores, degrees,
+    win_pos, fresh flags, subjects, the random table and the counters in
+    (knobs too), w_assign and the counters out."""
+    return (4 * (w * k + w + w * d + w + w * k) + w
+            + 4 * (3 * k + k * k + fk.SCAL_N + 7)
+            + 4 * (w + 3 * k + k * k + fk.SCAL_N))
+
+
+def check_add_window_choose(dev, cases) -> dict:
+    """Bit-equal to the plain loop (``windowed.add_window_fixup_ref``) for
+    every policy x guard (and autoscale off too at the session's shape) on
+    a pure-ADD window of each setup: the stream's first events from the
+    empty state (deletions among them turned into pads) and a crafted window
+    mid-stream (pads, a vertex added twice, ADDs of present vertices, rows
+    naming their subject); timed (SDP) on both windows at the session's
+    shape (the first window, all of whose 256 slots commit, is the session's
+    own), and on the crafted ones at grqc's rows, K = 200 and 1,000."""
+    out = {"name": "add_window_choose", "cases": []}
+    for name, (state, cfg, (et, vx, nb)) in cases.items():
+        w, warm = fsweep.WINDOW_SETUPS[name][6:]
+        first = init_state(state.assignment.shape[0], state.adj.shape[1],
+                           state.edge_load.shape[0], 1, seed=0, device=dev)
+        windows = {
+            "first": (first, torch.where(et[:w] == 0, vx[:w], -1), nb[:w], 0),
+            "crafted": (state, *fsweep.crafted_window(state, w, 3,
+                                                      adds_only=True)[1:],
+                        warm)}
+        for label, (st, vs, rows, t0) in windows.items():
+            args = fsweep.add_window_args(st, cfg, vs, rows, t0,
+                                          pops.scores_for_state)
+            n = st.assignment.shape[0]
+            for policy in POLICIES:
+                for guard in ("text", "alg1"):
+                    for auto in ((True, False) if name == "session"
+                                 else (True,)):
+                        kw = dict(n=n, policy=policy, balance_guard=guard,
+                                  autoscaling=auto)
+                        got = fk.add_window_choose(*args, **kw)
+                        want = wnd.add_window_fixup_ref(*args, **kw)
+                        torch.cuda.synchronize()
+                        err = max_abs_diff(got, want)
+                        case = {"case": name, "window": label,
+                                "shape": [w, rows.shape[1],
+                                          st.edge_load.shape[0]],
+                                "policy": policy, "guard": guard,
+                                "autoscale": auto, "max_abs_err": err,
+                                "fresh": int(args[3].sum()),
+                                "committed": int((got[0] >= 0).sum())}
+                        timed = (policy == "sdp" and guard == "text"
+                                 and auto and (name == "session" or (
+                                     label == "crafted" and name in (
+                                         "grqc_wide", "k200", "k1000"))))
+                        if timed:
+                            def kernel():
+                                fk.add_window_choose(*args, **kw)
+
+                            def plain():
+                                wnd.add_window_fixup_ref(*args, **kw)
+
+                            d, k = rows.shape[1], st.edge_load.shape[0]
+                            case["ms"] = graph_ms(kernel, 20)
+                            case["eager_ms"] = eager_ms(kernel, 20)
+                            case["plain_ms"] = graph_ms(plain, 1, replays=2)
+                            case["plain_eager_ms"] = eager_ms(plain, 1)
+                            case.update(_bound(_add_bytes(w, d, k), 0))
+                        out["cases"].append(case)
+                        if err:
+                            raise AssertionError(
+                                f"add_window_choose {name}/{label} {policy}/"
+                                f"{guard}/autoscale={auto}: kernel differs "
+                                f"from the plain loop by {err}")
+    return out
 
 
 def check_embedding_bag(dev) -> dict:
@@ -608,9 +804,13 @@ def check_segment_spmm(dev, graphs) -> dict:
 def phase_kernels(dev, graphs) -> dict:
     """Each kernel against its plain version on the card: bit for bit, but
     flash_attention at its stated tolerances."""
+    cases = _window_cases(dev)
     out = {"phase": "kernels",
            "partition_affinity": check_partition_affinity(dev),
            "fused_chooser": check_fused_chooser(dev),
+           "window_rng": check_window_rng(dev),
+           "window_prep": check_window_prep(dev, cases),
+           "add_window_choose": check_add_window_choose(dev, cases),
            "embedding_bag": check_embedding_bag(dev),
            "flash_attention": check_flash_attention(dev),
            "segment_spmm": check_segment_spmm(dev, graphs)}
@@ -639,10 +839,14 @@ def _scaling(state, k_init) -> dict:
 
 _WRAPPERS = {"partition_affinity": pa.partition_affinity,
              "fused_chooser": fk.fused_window_choose,
+             "window_prep": window_prep,
+             "window_rng": rops.window_rng,
+             "add_window_choose": fk.add_window_choose,
              "embedding_bag": eb.embedding_bag,
              "flash_attention": fa.flash_attention,
              "segment_spmm": ss.segment_spmm}
-SESSION_KERNELS = ("partition_affinity", "fused_chooser")
+SESSION_KERNELS = ("partition_affinity", "fused_chooser", "window_prep",
+                   "window_rng", "add_window_choose")
 
 
 def _reset_launches():
@@ -656,6 +860,27 @@ def _reset_launches():
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
     return {name: _WRAPPERS[name].launches for name in names}
+
+
+def _check_session_launches(launches: dict, windows: dict, what: str):
+    """Every session kernel launched, once a window of its kind: the prep
+    scan and the fused chooser per mixed window, partition_affinity and
+    the pure-ADD fixup per pure-ADD window, the RNG per window."""
+    want = {"window_prep": windows["mixed"],
+            "fused_chooser": windows["mixed"],
+            "partition_affinity": windows["add"],
+            "add_window_choose": windows["add"],
+            "window_rng": windows["mixed"] + windows["add"]}
+    if min(launches.values()) < 1 or launches != want:
+        raise AssertionError(f"{what} missed a kernel: launched {launches}, "
+                             f"windows {windows}")
+
+
+def _window_kinds(part) -> dict:
+    """How many of a session's full windows were pure-ADD and mixed, as
+    the Partitioner counted them."""
+    m = part.metrics()
+    return {"add": m["add_windows"], "mixed": m["mixed_windows"]}
 
 
 def phase_grqc(dev) -> dict:
@@ -674,8 +899,8 @@ def phase_grqc(dev) -> dict:
     t_part = time.perf_counter() - t
     launches = _read_launches()
     assert_states_equal(part.state, ref, "grqc session vs faithful engine")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"grqc session missed a kernel: {launches}")
+    _check_session_launches(launches, _window_kinds(part),
+                            "grqc session")
     m = part.metrics()
     out = {"phase": "grqc", "n": s.n, "events": T, "max_deg": s.max_deg,
            "max_cap": cfg.max_cap, "bit_equal": True,
@@ -705,10 +930,11 @@ def _session_k200(s, dev) -> dict:
     plain.sync()
     assert_states_equal(part.state, plain.state,
                         "grqc k_max=200 session vs the plain session")
-    if min(launches.values()) < 1 or by_kernel["large"] != \
-            launches["fused_chooser"]:
-        raise AssertionError(f"grqc k_max=200 session missed a kernel: "
-                             f"{launches}, {by_kernel}")
+    _check_session_launches(launches, _window_kinds(part),
+                            "grqc k_max=200 session")
+    if by_kernel["large"] != launches["fused_chooser"]:
+        raise AssertionError(f"grqc k_max=200 session missed the large "
+                             f"kernel: {by_kernel}")
     return {"k_max": cfg.k_max, "max_cap": cfg.max_cap, "bit_equal": True,
             **_scaling(part.state, cfg.k_init), "launches": launches,
             "launches_by_kernel": by_kernel, "session_s": round(t_part, 3)}
@@ -763,9 +989,10 @@ def phase_twitter(dev) -> dict:
     run_s = time.perf_counter() - t
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
-    if min(launches.values()) < 1 or by_kernel["lanes"] != \
-            launches["fused_chooser"]:
-        raise AssertionError(f"twitter session missed a kernel: {launches}, "
+    windows = _window_kinds(part)
+    _check_session_launches(launches, windows, "twitter session")
+    if by_kernel["lanes"] != launches["fused_chooser"]:
+        raise AssertionError(f"twitter session left the lanes kernel: "
                              f"{by_kernel}")
     shape = (WINDOW, part.max_deg, cfg.k_max)
     if shape != SESSION_SHAPE:
@@ -793,33 +1020,38 @@ def phase_twitter(dev) -> dict:
     sub = VertexStream(s.etype[:prefix], s.vertex[:prefix], s.nbrs[:prefix],
                        n=s.n)
     split = _Split()
-    split.wrap(fops, "_prepare_window", "prep_loop")
-    split.wrap(tx, "rand_index_table", "rand_table")
+    split.wrap(fops, "_prepare_window", "prep_kernel")
+    split.wrap(fops, "window_rng", "rand_kernel")
     split.wrap(fk, "fused_window_choose", "fused_kernel")
-    split.wrap(fops, "_fused_lane", "mixed_window_total")
+    split.wrap(fk, "add_window_choose", "add_fixup_kernel")
     split.wrap(pops, "partition_affinity", "partition_affinity")
-    split.wrap(wnd, "run_window_adds", "add_window_total")
+    split.wrap(fops, "_fused_lane", "mixed_window_total")
+    split.wrap(fops, "run_window_adds_fused", "add_window_total")
     split.wrap(engine, "run_events", "scan_tail")
     try:
         t = time.perf_counter()
-        _session(sub, cfg, dev, WINDOW)
+        split_part = _session(sub, cfg, dev, WINDOW)
         split_total = time.perf_counter() - t
     finally:
         split.restore()
-    sec = split.seconds
+    sec = {k: split.seconds.get(k, 0.0) for k in (
+        "prep_kernel", "rand_kernel", "fused_kernel", "add_fixup_kernel",
+        "partition_affinity", "mixed_window_total", "add_window_total",
+        "scan_tail")}
     split_out = {
-        "events": prefix,
+        "events": prefix, "windows": _window_kinds(split_part),
         "total_s": split_total,
-        "prep_loop_s": sec.get("prep_loop", 0.0),
-        "rand_table_s": sec.get("rand_table", 0.0),
-        "fused_kernel_s": sec.get("fused_kernel", 0.0),
-        "apply_s": (sec.get("mixed_window_total", 0.0)
-                    - sec.get("prep_loop", 0.0) - sec.get("rand_table", 0.0)
-                    - sec.get("fused_kernel", 0.0)),
-        "add_fixup_s": (sec.get("add_window_total", 0.0)
-                        - sec.get("partition_affinity", 0.0)),
-        "partition_affinity_s": sec.get("partition_affinity", 0.0),
-        "scan_tail_s": sec.get("scan_tail", 0.0),
+        **{f"{k}_s": sec[k] for k in (
+            "prep_kernel", "rand_kernel", "fused_kernel", "add_fixup_kernel",
+            "partition_affinity", "scan_tail")},
+        # the rest of both window kinds: set-up, the O(n) writes and
+        # gathers, the wrappers' own ops
+        "apply_s": (sec["mixed_window_total"] + sec["add_window_total"]
+                    - sec["prep_kernel"] - sec["rand_kernel"]
+                    - sec["fused_kernel"] - sec["add_fixup_kernel"]
+                    - sec["partition_affinity"]),
+        "mixed_window_total_s": sec["mixed_window_total"],
+        "add_window_total_s": sec["add_window_total"],
     }
     out = {"phase": "twitter", "scale": 1.0, "n": s.n,
            "edges_capped": g.num_edges, "events": s.num_events, **counts,
@@ -828,7 +1060,7 @@ def phase_twitter(dev) -> dict:
            "setup_s": round(setup_s, 3), "run_s": run_s,
            "events_per_s": s.num_events / run_s,
            "launches": launches, "launches_by_kernel": by_kernel,
-           "kernel_windows": m["kernel_windows"],
+           "windows": windows, "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"],
            "metrics": {k: m[k] for k in ("edge_cut", "total_edges",
                                          "edge_cut_ratio", "load_imbalance",
@@ -836,9 +1068,130 @@ def phase_twitter(dev) -> dict:
                                          "scale_events")},
            **_scaling(st, cfg.k_init),
            "recount_ok": True, "max_memory_allocated": peak,
-           "split": split_out}
+           "split": split_out,
+           "loops": _window_loops(s, cfg, dev, prefix)}
     emit(out)
     return out
+
+
+class _PlainLoops:
+    """Within it, the window pipelines run the host loops that the window
+    kernels replace: the prep loop, the plain RNG and the pure-ADD loop
+    (``fused_window_choose`` and ``partition_affinity`` stay kernels)."""
+
+    def __enter__(self):
+        self._undo = [(fops, "_prepare_window", fops._prepare_window),
+                      (fops, "window_rng", fops.window_rng),
+                      (fk, "add_window_choose", fk.add_window_choose)]
+        fops._prepare_window = prepare_window_ref
+        fops.window_rng = window_rng_ref
+        fk.add_window_choose = wnd.add_window_fixup_ref
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self._undo:
+            setattr(module, attr, fn)
+
+
+def _window_loops(s, cfg, dev, prefix: int) -> dict:
+    """The window pipelines with the host loops (before) and with the
+    window kernels (after), on one card, on the first ``prefix`` events of
+    the session's stream: each window function on the same state, timed
+    on the host's clock with a sync after it, for 4 pure-ADD and 4 mixed
+    windows (the states after both held equal); then, over 8 windows of
+    each kind with the kernels, the device's launches a window
+    (torch.profiler) and its busy share of the windows' untraced wall, and
+    one window of each kind replayed from a CUDA graph (capture fails on a
+    read back to the host)."""
+    W = WINDOW
+    et = torch.as_tensor(s.etype[:prefix]).to(dev)
+    vx = torch.as_tensor(s.vertex[:prefix]).to(dev)
+    nb = torch.as_tensor(s.nbrs[:prefix]).to(dev)
+    kinds = ["add" if np.all(s.etype[j * W:(j + 1) * W] == 0) else "mixed"
+             for j in range(prefix // W)]
+    by_kind = {k: [j for j, x in enumerate(kinds) if x == k]
+               for k in ("add", "mixed")}
+    picks = {j for js in by_kind.values()
+             for j in js[len(js) // 8::len(js) // 4][:4]}
+    traced = {k: js[8:16] for k, js in by_kind.items()}
+    if min(len(js) for js in traced.values()) < 8:
+        raise AssertionError(f"the prefix holds too few windows of a kind "
+                             f"to trace 8: {traced}")
+    state = init_state(s.n, nb.shape[1], cfg.k_max, cfg.k_init, seed=0,
+                       device=dev)
+    knobs = knob_tensor(cfg, s.n, dev)
+
+    def run(st, j):
+        sl = slice(j * W, (j + 1) * W)
+        if kinds[j] == "add":
+            return fops.run_window_adds_fused(
+                st, vx[sl], nb[sl], j * W, policy="sdp", cfg=cfg, knobs=knobs)
+        return fops.run_window_mixed_fused(
+            st, et[sl], vx[sl], nb[sl], j * W, policy="sdp", cfg=cfg,
+            knobs=knobs)
+
+    def timed(st, js):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for j in js:
+            st = run(st, j)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, st
+
+    per_window = {"add": [], "mixed": []}
+    profile, graph = {}, {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for j in range(len(kinds)):
+        if j in picks:
+            with _PlainLoops():
+                before_s, b = timed(fsweep.clone_state(state), [j])
+            after_s, a = timed(fsweep.clone_state(state), [j])
+            assert_states_equal(a, b, f"twitter window {j}: kernels vs "
+                                      f"host loops")
+            per_window[kinds[j]].append(
+                {"window": j, "before_s": before_s, "after_s": after_s})
+            del a, b
+        for kind, js in traced.items():
+            if j == js[0]:
+                wall_s, _ = timed(fsweep.clone_state(state), js)
+                c = fsweep.clone_state(state)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=acts) as prof:
+                    timed(c, js)
+                n_dev, busy_us = 0, 0.0
+                for e in prof.key_averages():
+                    if e.device_type != torch.autograd.DeviceType.CUDA:
+                        continue
+                    us = getattr(e, "self_device_time_total", None)
+                    busy_us += e.self_cuda_time_total if us is None else us
+                    n_dev += e.count
+                profile[kind] = {
+                    "windows": js, "wall_ms_per_window": wall_s * 1e3 / 8,
+                    "device_ops_per_window": n_dev / 8,
+                    "device_busy_ms_per_window": busy_us / 1e3 / 8,
+                    "device_busy_share": (busy_us / 1e6 / wall_s
+                                          if n_dev else None)}
+                del c
+                # one window captured in a CUDA graph, which a read back to
+                # the host would break (its replays re-apply the window to
+                # the state it left, so their time is not a window's)
+                c = fsweep.clone_state(state)
+                graph_ms(lambda c=c, j=j: run(c, j), 1, replays=1)
+                graph[kind] = {"window": j, "captured": True}
+                del c
+        state = run(state, j)
+
+    def summary(rows):
+        return {"windows": [r["window"] for r in rows],
+                "before_s": [r["before_s"] for r in rows],
+                "after_s": [r["after_s"] for r in rows],
+                "before_s_mean": float(np.mean([r["before_s"] for r in rows])),
+                "after_s_mean": float(np.mean([r["after_s"] for r in rows]))}
+
+    return {"events": prefix, "add": summary(per_window["add"]),
+            "mixed": summary(per_window["mixed"]), "profile": profile,
+            "graph": graph}
 
 
 def _ms_pct(seconds, q) -> float:
@@ -1606,7 +1959,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
     pa_case = pa_timed[K_MAX]
     fc_timed = {(c["case"], c["policy"]): c
                 for c in kernels["fused_chooser"]["cases"] if "ms" in c}
-    fc_case = fc_timed[("main", "sdp")]
+    fc_case = fc_timed[("session", "sdp")]
     pa_cases = kernels["partition_affinity"]["cases"]
     fc_cases = kernels["fused_chooser"]["cases"]
     eb_cases = kernels["embedding_bag"]["cases"]
@@ -1641,7 +1994,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "bound_ms": fc_case["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "launches_by_kernel": twitter["launches_by_kernel"],
-         "policies_ms": {p: fc_timed[("main", p)]["ms"]
+         "policies_ms": {p: fc_timed[("session", p)]["ms"]
                          for p in ("sdp", "ldg", "random")},
          **{label: {k: fc_timed[(label, "sdp")][k]
                     for k in ("shape", "kernel", "ms", "eager_ms",
@@ -1668,6 +2021,38 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                         **{k: eb_bulk[k] for k in timed + (
                             "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
+    timed_scan = timed + ("eager_ms", "plain_eager_ms", "bound_by")
+    for name, source, replaces, main, others in (
+            ("window_prep", "src/repro_torch/csrc/window_prep.cu",
+             "src/repro/kernels/fused_chooser/ops.py:113",
+             ("session", "stream"), (("grqc_wide", "stream"),)),
+            ("window_rng", "src/repro_torch/csrc/window_rng.cu",
+             "src/repro/core/transition.py:374", None, ()),
+            ("add_window_choose", "src/repro_torch/csrc/fused_chooser.cu",
+             "src/repro/core/windowed.py:167",
+             ("session", "first"), (("session", "crafted"),
+                                    ("grqc_wide", "crafted"),
+                                    ("k200", "crafted"),
+                                    ("k1000", "crafted")))):
+        cases = kernels[name]["cases"]
+        timed_cases = {(c.get("case"), c.get("window")): c
+                       for c in cases if "ms" in c}
+        case = timed_cases[main if main else (None, None)]
+        rows.append(
+            {"name": name, "route": "cuda", "source": source,
+             # no Pallas kernel: the lax.scan / XLA ops of the JAX package
+             "replaces": replaces,
+             "launches": twitter["launches"][name],
+             "max_abs_err": max(c["max_abs_err"] for c in cases),
+             "shape": case["shape"], "cases": len(cases),
+             "mismatches": sum(c["max_abs_err"] != 0 for c in cases),
+             "ms": case["ms"], "plain_ms": case["plain_ms"],
+             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+             "library_ms": None,
+             **{k: case[k] for k in ("eager_ms", "plain_eager_ms")},
+             **{"_".join(o): {k: timed_cases[o][k] for k in
+                              ("shape",) + timed_scan if k in timed_cases[o]}
+                for o in others}})
     fa_cases = kernels["flash_attention"]["cases"]
     fa_main = lm["kernel"]["prefill"]["layer1"]          # a global layer
     rows.append(

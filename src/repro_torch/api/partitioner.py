@@ -21,9 +21,13 @@ card by default) and a global event cursor.
   kernel otherwise); small tails ride the faithful per-event loop. Both
   are bit-identical, so the choice is throughput only. With
   ``use_kernel=True`` full windows run through the CUDA kernels —
-  ``partition_affinity`` for pure-ADD windows, ``fused_chooser`` for mixed
-  ones — and ``metrics()`` reports ``kernel_windows`` vs
-  ``fallback_windows``.
+  ``partition_affinity``, ``window_rng`` and the pure-ADD fixup
+  (``fused_chooser.add_window_choose``) for pure-ADD windows;
+  ``window_prep``, ``window_rng`` and ``fused_chooser`` for mixed ones —
+  and ``metrics()`` reports ``kernel_windows`` vs ``fallback_windows``,
+  and the window engines' ``add_windows`` vs ``mixed_windows``.
+  A window reads nothing back from the card: the only host decision, the
+  pure-ADD test, reads the host's copy of the event types.
 * **Elastic geometry.** ``feed()`` grows ``(n, max_deg)`` along
   power-of-two tiers whenever an event needs more — a semantics no-op.
 
@@ -46,7 +50,7 @@ from repro_torch.core.state import (
     PartitionState, grow_state, init_state, resolve_device, state_bytes,
     state_metrics,
 )
-from repro_torch.core.transition import EventTrace
+from repro_torch.core.transition import EventTrace, knob_tensor
 from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_PAD, VertexStream, normalize_rows, required_geometry_of,
 )
@@ -157,16 +161,18 @@ class Partitioner:
         self.device = resolve_device(device)
         if use_kernel:
             from repro_torch.kernels.fused_chooser import ops as fops
-            from repro_torch.kernels.partition_affinity import ops as pops
-            self._score_fn = pops.scores_for_state
+            self._adds_fn = fops.run_window_adds_fused
             self._mixed_fn = fops.run_window_mixed_fused
         else:
-            self._score_fn = None
+            self._adds_fn = wnd.run_window_adds
             self._mixed_fn = wnd.run_window_mixed
         self._kernel_windows = 0
         self._fallback_windows = 0
+        self._add_windows = 0
+        self._mixed_windows = 0
         self._state = init_state(int(n or 1), int(max_deg or 1), cfg.k_max,
                                  cfg.k_init, seed, device=self.device)
+        self._knobs = knob_tensor(cfg, self.n, self.device)
         self._regeometries = 0
         self._cursor = 0
         self._geometry_events: list[dict] = []
@@ -237,6 +243,7 @@ class Partitioner:
 
     def _grow(self, cur: Geometry, target: Geometry) -> None:
         self._state = grow_state(self._state, target)
+        self._knobs = knob_tensor(self.cfg, self.n, self.device)
         self._regeometries += 1
         self._geometry_events.append(
             {"cursor": self._cursor, "kind": "grow", "from": cur,
@@ -344,13 +351,16 @@ class Partitioner:
         vs_w = wnd._pad_to(vx, w, -1)
         rows_w = wnd._pad_to(nb, w, -1)
         if np.all(et_host == EVENT_ADD):
-            self._state = wnd.run_window_adds(
+            self._add_windows += 1
+            self._state = self._adds_fn(
                 self._state, vs_w, rows_w, self._cursor, policy=self.policy,
-                cfg=self.cfg, score_fn=self._score_fn)
+                cfg=self.cfg, knobs=self._knobs)
         else:
+            self._mixed_windows += 1
             self._state = self._mixed_fn(
                 self._state, wnd._pad_to(et, w, EVENT_PAD), vs_w, rows_w,
-                self._cursor, policy=self.policy, cfg=self.cfg)
+                self._cursor, policy=self.policy, cfg=self.cfg,
+                knobs=self._knobs)
 
     def sync(self) -> "Partitioner":
         """Block until every enqueued feed has executed on the device."""
@@ -375,6 +385,9 @@ class Partitioner:
         # engines (per-event loop slices count as one fallback unit each)
         m["kernel_windows"] = self._kernel_windows
         m["fallback_windows"] = self._fallback_windows
+        # the window engines' windows by kind: pure-ADD and mixed
+        m["add_windows"] = self._add_windows
+        m["mixed_windows"] = self._mixed_windows
         return m
 
     def trace(self) -> EventTrace:

@@ -86,10 +86,16 @@ def knob_values(cfg: EngineConfig, n: int) -> tuple[float, ...]:
     )
 
 
+def knob_tensor(cfg: EngineConfig, n: int, device) -> torch.Tensor:
+    """The seven knobs as one (7,) f32 tensor on ``device``: what the
+    window engines and kernels take, made once per session (a copy to the
+    card waits for the card)."""
+    return torch.tensor(knob_values(cfg, n), dtype=_F32, device=device)
+
+
 def make_knobs(cfg: EngineConfig, n: int, device) -> Knobs:
     """Host-side knob derivation shared by every engine path."""
-    vals = torch.tensor(knob_values(cfg, n), dtype=_F32, device=device)
-    return Knobs(*vals.unbind())
+    return Knobs(*knob_tensor(cfg, n, device).unbind())
 
 
 # ---------------------------------------------------------------------------

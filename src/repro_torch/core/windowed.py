@@ -3,18 +3,22 @@
 to the faithful engine.
 
 * ``run_window_adds`` — ADD-only windows: one batched committed-affinity
-  histogram (W, K) against the window-start state (the
-  ``partition_affinity`` kernel under ``use_kernel``), then a sequential
-  fixup over the W slots that adds the intra-window neighbours and keeps
-  the O(K) counters.
+  histogram (W, K) against the window-start state
+  (``prepare_add_window``), then a sequential fixup over the W slots that
+  adds the intra-window neighbours and keeps the O(K) counters
+  (``add_window_fixup_ref``), then the O(n) writes
+  (``commit_add_window``). Under ``use_kernel`` the same three steps run
+  as ``fused_chooser.ops.run_window_adds_fused``: the histogram in the
+  ``partition_affinity`` kernel, the fixup in the pure-ADD kernel.
 * ``run_window_mixed`` — arbitrary ADD / DEL_VERTEX / DEL_EDGE windows,
   scoring every slot from a dense per-vertex label journal. Under
   ``use_kernel`` the whole slot loop runs in the fused chooser kernel
   instead (``repro_torch.kernels.fused_chooser``).
 
 RNG is the engines' ``fold_in(key, global_event_index)`` scheme, drawn in
-one batch per window. Like every engine of the port, these consume the
-state they are given (O(n) leaves updated in place).
+one batch per window (``repro_torch.kernels.window_rng``). Like every
+engine of the port, these consume the state they are given (O(n) leaves
+updated in place).
 """
 from __future__ import annotations
 
@@ -36,6 +40,9 @@ from repro_torch.kernels.common import label_histogram
 from repro_torch.kernels.partition_affinity.ops import gather_labels
 
 _I32 = torch.int32
+# the scalar counters in the window kernels' order (csrc's enum Scal)
+_SCALARS = ("num_partitions", "total_edges", "cut_edges", "denied_scaleout",
+            "scale_events")
 
 
 class SmallState(NamedTuple):
@@ -85,51 +92,100 @@ def committed_scores(state: PartitionState, rows: torch.Tensor):
     return label_histogram(labels, state.edge_load.shape[0])   # (W, K), (W,)
 
 
-def run_window_adds(
-    state: PartitionState,
-    vs: torch.Tensor,       # (W,) vertex ids (-1 pad allowed)
-    rows: torch.Tensor,     # (W, max_deg)
-    t0: int,                # global event index of window start
-    *,
-    policy: str,
-    cfg: EngineConfig,
-    score_fn=None,
-) -> PartitionState:
-    """Process one ADD-only window. Bit-identical to the faithful engine."""
-    check_row_width(state, rows)
+class AddWindow(NamedTuple):
+    """The choice-independent tables of a pure-ADD window."""
+    scores_c: torch.Tensor    # (W, K) affinity vs the window-start state
+    deg_c: torch.Tensor       # (W,) degree vs the window-start state
+    win_pos: torch.Tensor     # (W, D) window slot of each row entry, -1 none
+    fresh_c: torch.Tensor     # (W,) an ADD of a vertex absent at the start
+
+
+def prepare_add_window(state: PartitionState, vs: torch.Tensor,
+                       rows: torch.Tensor, score_fn=None) -> AddWindow:
+    """The batched half of a pure-ADD window: committed scores
+    (``score_fn``, by default ``committed_scores``), each row entry's window
+    slot (the last slot adding that vertex) and the fresh flags."""
     n = state.assignment.shape[0]
     w = vs.shape[0]
-    k_max = state.edge_load.shape[0]
-    dev = vs.device
-    kn = tx.make_knobs(cfg, n, dev)
-    choose = tx.make_chooser(cfg.balance_guard, policy)
-    autoscale = policy == "sdp" and cfg.autoscale
     is_add = vs >= 0
     safe_vs = torch.where(is_add, vs, 0)
-    slots = torch.arange(w, dtype=_I32, device=dev)
-
     scores_c, deg_c = (score_fn or committed_scores)(state, rows)
-    # window position of each vertex, for the intra-window neighbour fixup
-    pos_of = torch.full((n,), -1, dtype=_I32, device=dev)
-    _scatter_last(pos_of, safe_vs, slots, is_add)
+    pos_of = torch.full((n,), -1, dtype=_I32, device=vs.device)
+    _scatter_last(pos_of, safe_vs,
+                  torch.arange(w, dtype=_I32, device=vs.device), is_add)
     valid = rows >= 0
     win_pos = torch.where(valid, pos_of[torch.where(valid, rows, 0)], -1)
+    return AddWindow(scores_c, deg_c, win_pos,
+                     is_add & ~state.present[safe_vs])
+
+
+def small_args(state: PartitionState) -> tuple:
+    """The O(K) counter slice as the window kernels take it: (active,
+    edge_load, vertex_count, cut_matrix, scalars (5,) in ``_SCALARS``
+    order)."""
+    return (state.active, state.edge_load, state.vertex_count,
+            state.cut_matrix, torch.stack([getattr(state, f)
+                                           for f in _SCALARS]))
+
+
+def small_from_args(active, edge_load, vertex_count, cut_matrix,
+                    scalars) -> SmallState:
+    """``small_args``' tensors (``active`` bool or int) as a SmallState."""
+    return SmallState(active=active != 0, edge_load=edge_load,
+                      vertex_count=vertex_count, cut_matrix=cut_matrix,
+                      **dict(zip(_SCALARS, scalars.unbind())))
+
+
+def small_outputs(small: SmallState) -> tuple:
+    """A SmallState as the window kernels return it: (active int32, loads
+    (2, K) [edge_load; vertex_count], cut_matrix, scalars (5,))."""
+    return (small.active.to(_I32),
+            torch.stack([small.edge_load, small.vertex_count]),
+            small.cut_matrix,
+            torch.stack([getattr(small, f) for f in _SCALARS]))
+
+
+def with_small_outputs(state: PartitionState, active, loads, cut_matrix,
+                       scalars, **kw) -> PartitionState:
+    """``state`` with a window kernel's counter outputs (and ``kw``)."""
+    return state._replace(
+        active=active != 0, edge_load=loads[0], vertex_count=loads[1],
+        cut_matrix=cut_matrix, **dict(zip(_SCALARS, scalars.unbind())), **kw)
+
+
+def add_window_fixup_ref(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab,
+                         active, edge_load, vertex_count, cut_matrix, scalars,
+                         knobs, *, n: int, policy: str, balance_guard: str,
+                         autoscaling: bool):
+    """The pure-ADD window's slot loop, on any device: the plain version of
+    ``fused_chooser.add_window_choose`` (same arguments and outputs). Slot
+    i adds its neighbours among the earlier slots (``win_pos < i``) to its
+    committed scores — every one to its degree, and under its label where
+    its slot committed one — draws ``rand_tab[i, num_partitions - 1]``,
+    chooses and commits if fresh, keeping the O(K) counters."""
+    w = vs.shape[0]
+    k_max = rand_tab.shape[1]
+    kn = tx.Knobs(*knobs.unbind())
+    choose = tx.make_table_chooser(balance_guard, policy)
+    small = small_from_args(active, edge_load, vertex_count, cut_matrix,
+                            scalars)
+    is_add = vs >= 0
+    safe_vs = torch.where(is_add, vs, 0)
+    slots = torch.arange(w, dtype=_I32, device=vs.device)
     intra_all = (win_pos >= 0) & (win_pos < slots[:, None])
     safe_pos = torch.clamp(win_pos, min=0)
-    fresh_c = is_add & ~state.present[safe_vs]
-    hi, lo = rng.draw_words(state.key, t0 + slots.to(torch.int64))
-
-    small = _small(state)
-    w_assign = torch.full((w,), -1, dtype=_I32, device=dev)
+    w_assign = torch.full((w,), -1, dtype=_I32, device=vs.device)
     for i in range(w):
-        if autoscale:
+        if autoscaling:
             # the faithful engine scales out per ADD event only
             small = tx.scale_out(small, kn, is_add[i])
         intra = intra_all[i]
         nb_wa = torch.where(intra, w_assign[safe_pos[i]], -1)
         sc = scores_c[i] + label_histogram(nb_wa, k_max)[0]
         deg = deg_c[i] + intra.sum(dtype=_I32)
-        p = choose(small, sc, deg, safe_vs[i], (hi[i], lo[i]), kn, n)
+        ridx = tx._take(rand_tab[i],
+                        torch.clamp(small.num_partitions, min=1) - 1)
+        p = choose(small, sc, deg, safe_vs[i], ridx, kn, n)
         do = fresh_c[i]
         d = torch.where(do, deg, 0)
         scm = torch.where(do, sc, 0)
@@ -141,13 +197,50 @@ def run_window_adds(
             cut_matrix=tx._add_row_col(small.cut_matrix, p, scm),
         )
         w_assign[i] = torch.where(do, p, w_assign[i])
+    return (w_assign, *small_outputs(small))
 
+
+def commit_add_window(state: PartitionState, vs, rows, w_assign, *small_out
+                      ) -> PartitionState:
+    """Write a pure-ADD window's decisions into the O(n) state (in place;
+    of several slots adding one vertex the last wins) and take the new
+    counters ``small_out`` (``add_window_choose``'s outputs after
+    ``w_assign``)."""
+    is_add = vs >= 0
+    safe_vs = torch.where(is_add, vs, 0)
     fresh = is_add & (w_assign >= 0)
     _scatter_last(state.assignment, safe_vs, w_assign, fresh)
     _scatter_last(state.present, safe_vs, fresh, fresh)
     _scatter_last(state.adj, safe_vs, rows, fresh)
-    return _with_small(state, small)
+    return with_small_outputs(state, *small_out)
 
+
+def run_window_adds(
+    state: PartitionState,
+    vs: torch.Tensor,       # (W,) vertex ids (-1 pad allowed)
+    rows: torch.Tensor,     # (W, max_deg)
+    t0: int,                # global event index of window start
+    *,
+    policy: str,
+    cfg: EngineConfig,
+    knobs: torch.Tensor | None = None,
+) -> PartitionState:
+    """Process one ADD-only window with the plain versions (committed
+    scores, random table, slot loop). Bit-identical to the faithful
+    engine. ``knobs`` is ``transition.knob_tensor(cfg, n, device)``, made
+    here when not given."""
+    check_row_width(state, rows)
+    n = state.assignment.shape[0]
+    if knobs is None:
+        knobs = tx.knob_tensor(cfg, n, vs.device)
+    prep = prepare_add_window(state, vs, rows)
+    rand_tab = tx.rand_index_table(state.key, t0, vs.shape[0],
+                                   state.edge_load.shape[0])
+    out = add_window_fixup_ref(
+        *prep, vs, rand_tab, *small_args(state), knobs, n=n, policy=policy,
+        balance_guard=cfg.balance_guard,
+        autoscaling=policy == "sdp" and cfg.autoscale)
+    return commit_add_window(state, vs, rows, *out)
 
 
 def _scale_in_journal(small: SmallState, label_now: torch.Tensor, kn, gate):
@@ -253,13 +346,17 @@ def run_window_mixed(
     *,
     policy: str,
     cfg: EngineConfig,
+    knobs: torch.Tensor | None = None,
 ) -> PartitionState:
     """One window of interleaved ADD / DEL_VERTEX / DEL_EDGE events,
-    bit-identical to the faithful engine (static knob)."""
+    bit-identical to the faithful engine (static knob). ``knobs`` as in
+    ``run_window_adds``."""
     check_row_width(state, rows)
     n = state.assignment.shape[0]
+    if knobs is None:
+        knobs = tx.knob_tensor(cfg, n, vs.device)
     return _window_mixed_lane(
-        state, ets, vs, rows, t0, tx.make_knobs(cfg, n, vs.device),
+        state, ets, vs, rows, t0, tx.Knobs(*knobs.unbind()),
         choose=tx.make_chooser(cfg.balance_guard, policy),
         autoscaling=policy == "sdp" and cfg.autoscale,
     )
@@ -291,23 +388,23 @@ def run_stream_windowed(
 
     Pure-ADD windows take ``run_window_adds``; windows with deletions take
     ``run_window_mixed``. ``use_kernel=True`` routes both through the
-    kernels: pure-ADD windows score with ``partition_affinity``, mixed
-    windows run the fused chooser. Each kernel wrapper runs its plain
-    version for CPU tensors, so on the CPU ``use_kernel=True`` exercises
-    the kernel pipelines' plain halves."""
+    kernels (``fused_chooser.ops``): pure-ADD windows through
+    ``run_window_adds_fused``, mixed ones through ``run_window_mixed_fused``.
+    Each kernel wrapper runs its plain version for CPU tensors, so on the
+    CPU ``use_kernel=True`` exercises the kernel pipelines' plain halves."""
     cfg = cfg or EngineConfig()
     geom = resolve_geometry(stream, cfg, geometry)
     state = init_state(geom.n, geom.max_deg, geom.k_max, cfg.k_init, seed,
                        device=device)
     dev = state.edge_load.device
     if use_kernel:
-        from repro_torch.kernels.fused_chooser.ops import run_window_mixed_fused
-        from repro_torch.kernels.partition_affinity.ops import scores_for_state
-        score_fn = scores_for_state
-        mixed_fn = run_window_mixed_fused
+        from repro_torch.kernels.fused_chooser.ops import (
+            run_window_adds_fused as adds_fn,
+            run_window_mixed_fused as mixed_fn,
+        )
     else:
-        score_fn = None
-        mixed_fn = run_window_mixed
+        adds_fn, mixed_fn = run_window_adds, run_window_mixed
+    knobs = tx.knob_tensor(cfg, geom.n, dev)
 
     et = np.asarray(stream.etype)
     et_d = torch.as_tensor(et, dtype=_I32).to(dev)
@@ -320,9 +417,10 @@ def run_stream_windowed(
         vs_w = _pad_to(vx[t:end], window, -1)
         rows_w = _pad_to(nb[t:end], window, -1)
         if np.all(et[t:end] == EVENT_ADD):
-            state = run_window_adds(state, vs_w, rows_w, t, policy=policy,
-                                    cfg=cfg, score_fn=score_fn)
+            state = adds_fn(state, vs_w, rows_w, t, policy=policy, cfg=cfg,
+                            knobs=knobs)
         else:
             state = mixed_fn(state, _pad_to(et_d[t:end], window, EVENT_PAD),
-                             vs_w, rows_w, t, policy=policy, cfg=cfg)
+                             vs_w, rows_w, t, policy=policy, cfg=cfg,
+                             knobs=knobs)
     return state

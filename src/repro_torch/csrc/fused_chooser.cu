@@ -5,7 +5,9 @@
 // labels of the next slots through the touch tables and histogram them.
 // Two kernels, chosen by K on the host: the lanes kernel (K <= 192, its
 // partitions on the decider's lanes, described here) and the large-K kernel
-// (any K whose vectors fit shared memory, described where it starts).
+// (any K whose vectors fit shared memory, described where it starts). A
+// third kernel, the pure-ADD window's fixup, reuses the large-K kernel's
+// decider code (described where it starts).
 //
 // Replaces the Pallas TPU kernel `fused_window_choose`
 // (src/repro/kernels/fused_chooser/fused_chooser.py:245), which kept the
@@ -1010,6 +1012,101 @@ __device__ int choose(const Wide& S, const int* sc, const Scalars& s, int deg,
   }
 }
 
+// transition.scale_out, in the decider warp: if MAXCAP <= |E| / |P|,
+// activate the first inactive partition (or count a denied scale-out when
+// none is free)
+__device__ __forceinline__ void scale_out(const Wide& S, Scalars& s,
+                                          const float (&kn)[KNOB_N]) {
+  const int lane = S.lane, k = S.k, nw = S.nw;
+  const float p = fmaxf(static_cast<float>(s.np), 1.0f);
+  const float thr = static_cast<float>(s.total) / p;
+  const bool want = kn[K_MAX_CAP] <= thr;
+  int slot = -1;
+  for (int t0 = 0; t0 < nw && slot < 0; t0 += 32) {
+    const int t = t0 + lane;
+    const int left = k - 32 * t;
+    const unsigned real = left >= 32 ? kAll : (left > 0 ? (1u << left) - 1u : 0u);
+    const unsigned free_ = t < nw ? ~S.act[t] & real : 0u;
+    const unsigned b = __ballot_sync(kAll, free_ != 0);
+    if (b) {
+      const int src = __ffs(b) - 1;
+      slot = 32 * (t0 + src) + __ffs(__shfl_sync(kAll, free_, src)) - 1;
+    }
+  }
+  if (want && slot >= 0) {
+    if (lane == 0) S.act[slot >> 5] |= 1u << (slot & 31);
+    s.np += 1;
+    s.scale += 1;
+  } else if (want) {
+    s.denied += 1;
+  }
+  __syncwarp();
+}
+
+// transition.merge_slot from the slot's histogram (sc, deg): a fresh ADD
+// commits to p, a DEL_VERTEX of a present vertex removes from p_dv, an
+// existing DEL_EDGE removes the (p_dv, pu) edge — the K-vectors and the
+// scalars, then the cut matrix in device memory. The caller syncs the warp
+// before it reads el, vc or cm again.
+__device__ __forceinline__ void merge_slot(const Wide& S, const int* sc,
+                                           Scalars& s, int* cm, int p,
+                                           int deg, int fresh, int was,
+                                           int exists, int p_dv, int pu) {
+  const int lane = S.lane, k = S.k;
+  int* el = S.el;
+  int* vc = S.vc;
+  const int d_add = fresh ? deg : 0;
+  const int d_dv = was ? deg : 0;
+  const int cutdec = (exists && p_dv != pu) ? 1 : 0;
+  const int sca_p = fresh ? sc[p] : 0;
+  const int scd_pdv = was ? sc[p_dv] : 0;
+  for (int j = lane; j < k; j += 32) {
+    int e_j = el[j] + (fresh ? sc[j] : 0) - (was ? sc[j] : 0);
+    if (j == p) e_j += d_add;
+    if (j == p_dv) e_j -= d_dv + exists;
+    if (j == pu) e_j -= exists;
+    el[j] = e_j;
+    if (j == p) vc[j] += fresh;
+    if (j == p_dv) vc[j] -= was;
+  }
+  s.total = s.total + d_add - d_dv - exists;
+  s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
+
+  // cut-matrix row/column adds in device memory: lane j % 32 owns [q][j]
+  // and [j][q]; a slot is one event type, so at most one update runs.
+  // kStrides strides' entries are read before any is written (no entry
+  // is touched twice in a pass), so their reads are in flight together.
+  if (fresh || was) {
+    const int q = fresh ? p : p_dv;
+    int* row_q = cm + static_cast<size_t>(q) * k;
+    for (int j0 = lane; j0 < k; j0 += 32 * kStrides) {
+      int add[kStrides], row[kStrides], col[kStrides];
+#pragma unroll
+      for (int u = 0; u < kStrides; ++u) {
+        const int j = j0 + 32 * u;
+        add[u] = j < k ? (fresh ? sc[j] : -sc[j]) : 0;
+        if (add[u]) {
+          row[u] = row_q[j];
+          col[u] = cm[static_cast<size_t>(j) * k + q];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStrides; ++u) {
+        const int j = j0 + 32 * u;
+        if (add[u] && j == q) {
+          row_q[q] = row[u] + 2 * add[u];
+        } else if (add[u]) {
+          row_q[j] = row[u] + add[u];
+          cm[static_cast<size_t>(j) * k + q] = col[u] + add[u];
+        }
+      }
+    }
+  } else if (exists && lane == 0) {
+    cm[static_cast<size_t>(p_dv) * k + pu] -= 1;
+    cm[static_cast<size_t>(pu) * k + p_dv] -= 1;
+  }
+}
+
 }  // namespace wide
 
 template <int POLICY, bool ALG1>
@@ -1106,31 +1203,7 @@ fused_chooser_large_kernel(
     in_src = -1;
     __syncwarp();
 
-    if (autoscaling && add_i) {                         // scale_out
-      const float p = fmaxf(static_cast<float>(s.np), 1.0f);
-      const float thr = static_cast<float>(s.total) / p;
-      const bool want = kn[K_MAX_CAP] <= thr;
-      int slot = -1;
-      for (int t0 = 0; t0 < nw && slot < 0; t0 += 32) {
-        const int t = t0 + lane;
-        const int left = k - 32 * t;
-        const unsigned real = left >= 32 ? kAll : (left > 0 ? (1u << left) - 1u : 0u);
-        const unsigned free_ = t < nw ? ~act[t] & real : 0u;
-        const unsigned b = __ballot_sync(kAll, free_ != 0);
-        if (b) {
-          const int src = __ffs(b) - 1;
-          slot = 32 * (t0 + src) + __ffs(__shfl_sync(kAll, free_, src)) - 1;
-        }
-      }
-      if (want && slot >= 0) {
-        if (lane == 0) act[slot >> 5] |= 1u << (slot & 31);
-        s.np += 1;
-        s.scale += 1;
-      } else if (want) {
-        s.denied += 1;
-      }
-      __syncwarp();
-    }
+    if (autoscaling && add_i) wide::scale_out(S, s, kn);
 
     // the DEL subjects' labels do not depend on this slot's choice
     const int vl = label_at(w_label, w, e[EV_VLBL], e[EV_VTOUCH]);
@@ -1138,58 +1211,8 @@ fused_chooser_large_kernel(
     const int ridx = s.np == np0 ? r_keep : r_grow;
     const int p = wide::choose<POLICY, ALG1>(S, sc, s, deg, v, ridx, kn);
 
-    const int p_dv = vl > 0 ? vl : 0;
-    const int pu = ul > 0 ? ul : 0;
-    const int d_add = fresh ? deg : 0;
-    const int d_dv = was ? deg : 0;
-    const int cutdec = (exists && p_dv != pu) ? 1 : 0;
-    const int sca_p = fresh ? sc[p] : 0;
-    const int scd_pdv = was ? sc[p_dv] : 0;
-    for (int j = lane; j < k; j += 32) {
-      int e_j = el[j] + (fresh ? sc[j] : 0) - (was ? sc[j] : 0);
-      if (j == p) e_j += d_add;
-      if (j == p_dv) e_j -= d_dv + exists;
-      if (j == pu) e_j -= exists;
-      el[j] = e_j;
-      if (j == p) vc[j] += fresh;
-      if (j == p_dv) vc[j] -= was;
-    }
-    s.total = s.total + d_add - d_dv - exists;
-    s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
-
-    // cut-matrix row/column adds in device memory: lane j % 32 owns [q][j]
-    // and [j][q]; a slot is one event type, so at most one update runs.
-    // kStrides strides' entries are read before any is written (no entry
-    // is touched twice in a pass), so their reads are in flight together.
-    if (fresh || was) {
-      const int q = fresh ? p : p_dv;
-      int* row_q = cm + static_cast<size_t>(q) * k;
-      for (int j0 = lane; j0 < k; j0 += 32 * kStrides) {
-        int add[kStrides], row[kStrides], col[kStrides];
-#pragma unroll
-        for (int u = 0; u < kStrides; ++u) {
-          const int j = j0 + 32 * u;
-          add[u] = j < k ? (fresh ? sc[j] : -sc[j]) : 0;
-          if (add[u]) {
-            row[u] = row_q[j];
-            col[u] = cm[static_cast<size_t>(j) * k + q];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kStrides; ++u) {
-          const int j = j0 + 32 * u;
-          if (add[u] && j == q) {
-            row_q[q] = row[u] + 2 * add[u];
-          } else if (add[u]) {
-            row_q[j] = row[u] + add[u];
-            cm[static_cast<size_t>(j) * k + q] = col[u] + add[u];
-          }
-        }
-      }
-    } else if (exists && lane == 0) {
-      cm[static_cast<size_t>(p_dv) * k + pu] -= 1;
-      cm[static_cast<size_t>(pu) * k + p_dv] -= 1;
-    }
+    wide::merge_slot(S, sc, s, cm, p, deg, fresh, was, exists,
+                     vl > 0 ? vl : 0, ul > 0 ? ul : 0);
 
     if (lane == 0) {
       const int new_lbl = add_i ? (fresh ? p : vl) : (dv_i ? -1 : vl);
@@ -1286,6 +1309,123 @@ fused_chooser_large_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pure-ADD window's fixup (add_window_launch): the slot loop of an
+// ADD-only window, the reference's lax.scan at src/repro/core/windowed.py:
+// 138-169 (no Pallas kernel; the port ran it as a Python loop of ~40 torch
+// ops a slot). partition_affinity has scored every slot against the
+// window-start state; slot i then adds its neighbours among the window's
+// earlier slots (win_pos[i, d] < i): each counts in its degree, and under
+// its label if its slot committed one. One decider warp walks the slots in
+// order with the large-K kernel's layout for every K — the K-vectors in
+// shared memory, the cut matrix in device memory (cm_out, copied from the
+// input by the launch) — and its device code: wide::scale_out before every
+// ADD, wide::choose and wide::merge_slot for a fresh one. No deletions and
+// no scale-in. A pad or a vertex present at the window's start commits
+// nothing, so it skips the histogram and the choice.
+//
+// Bound: a latency chain of W dependent slots (slot i reads the labels
+// earlier slots chose), each one row of win_pos and the choice; its bytes,
+// W (K + 2 D + 3) + K (K + 3) ints read and written once, are far below a
+// microsecond of HBM time. An estimate, not measured: a slot's chain is
+// the fused chooser's (~490 cycles: the slot's label, its histogram, the
+// choice, the merge; see the note at the top), so W = 256 slots ~125,000
+// cycles, ~0.063 ms at 1.98 GHz. Shared memory 4 (W + 4 K + ceil(K / 32))
+// bytes.
+// ---------------------------------------------------------------------------
+
+size_t add_smem_bytes(int w, int k) {
+  return sizeof(int) * (static_cast<size_t>(w) + 4 * static_cast<size_t>(k)
+                        + (k + 31) / 32);
+}
+
+template <int POLICY, bool ALG1>
+__global__ void __launch_bounds__(32)
+add_window_kernel(const int* __restrict__ scores_c, const int* __restrict__ deg_c,
+                  const int* __restrict__ win_pos,
+                  const unsigned char* __restrict__ fresh_c,
+                  const int* __restrict__ vs, const int* __restrict__ rand_tab,
+                  const int* __restrict__ active_in, const int* __restrict__ el_in,
+                  const int* __restrict__ vc_in, const int* __restrict__ scal_in,
+                  const float* __restrict__ knobs, int* __restrict__ w_assign_out,
+                  int* __restrict__ active_out, int* __restrict__ loads_out,
+                  int* cm, int* __restrict__ scal_out, int w, int d, int k,
+                  int autoscaling) {
+  const int lane = threadIdx.x;
+  const int nw = (k + 31) >> 5;
+  extern __shared__ int smem[];
+  int* w_assign = smem;                                   // [w]
+  int* sc = w_assign + w;                                 // [k] slot histogram
+  float* stage = reinterpret_cast<float*>(sc + k);        // [k]
+  int* el = sc + 2 * k;                                   // [k]
+  int* vc = el + k;                                       // [k]
+  unsigned* act = reinterpret_cast<unsigned*>(vc + k);    // [nw]
+  for (int j = lane; j < w; j += 32) w_assign[j] = -1;
+  for (int j = lane; j < k; j += 32) {
+    sc[j] = 0;
+    el[j] = el_in[j];
+    vc[j] = vc_in[j];
+  }
+  for (int t = lane; t < nw; t += 32) {
+    unsigned bits = 0;
+    for (int b = 0; b < 32 && 32 * t + b < k; ++b)
+      bits |= (active_in[32 * t + b] != 0 ? 1u : 0u) << b;
+    act[t] = bits;
+  }
+  __syncwarp();
+  const wide::Wide S{lane, k, nw, el, vc, act, stage};
+  wide::Scalars s{scal_in[S_NP], scal_in[S_TOTAL], scal_in[S_CUT],
+                  scal_in[S_DENIED], scal_in[S_SCALE]};
+  float kn[KNOB_N];
+#pragma unroll
+  for (int j = 0; j < KNOB_N; ++j) kn[j] = knobs[j];
+
+  for (int i = 0; i < w; ++i) {
+    const int vi = __ldg(vs + i);
+    // the reference scales out before every ADD (pads skip it)
+    if (autoscaling && vi >= 0) wide::scale_out(S, s, kn);
+    if (!__ldg(fresh_c + i)) continue;                // warp-uniform
+    const int* wp = win_pos + static_cast<size_t>(i) * d;
+    int intra = 0;
+    for (int j = lane; j < d; j += 32) {
+      const int pos = __ldg(wp + j);
+      if (pos >= 0 && pos < i) {
+        ++intra;
+        const int lab = w_assign[pos];
+        if (lab >= 0) atomicAdd(&sc[lab], 1);
+      }
+    }
+    const int deg = __ldg(deg_c + i) + __reduce_add_sync(kAll, intra);
+    __syncwarp();
+    const int* srow = scores_c + static_cast<size_t>(i) * k;
+    for (int j = lane; j < k; j += 32) sc[j] += __ldg(srow + j);
+    __syncwarp();
+    const int np1 = s.np > 1 ? s.np : 1;
+    const int ridx = __ldg(rand_tab + static_cast<size_t>(i) * k + np1 - 1);
+    const int p = wide::choose<POLICY, ALG1>(S, sc, s, deg, vi, ridx, kn);
+    wide::merge_slot(S, sc, s, cm, p, deg, 1, 0, 0, 0, 0);
+    if (lane == 0) w_assign[i] = p;
+    __syncwarp();                       // el, vc, cm and w_assign settled
+    for (int j = lane; j < k; j += 32) sc[j] = 0;
+    __syncwarp();
+  }
+
+  __syncwarp();
+  for (int j = lane; j < w; j += 32) w_assign_out[j] = w_assign[j];
+  for (int j = lane; j < k; j += 32) {
+    active_out[j] = S.active(j) ? 1 : 0;
+    loads_out[j] = el[j];
+    loads_out[k + j] = vc[j];
+  }
+  if (lane == 0) {
+    scal_out[S_NP] = s.np;
+    scal_out[S_TOTAL] = s.total;
+    scal_out[S_CUT] = s.cut;
+    scal_out[S_DENIED] = s.denied;
+    scal_out[S_SCALE] = s.scale;
+  }
+}
+
 size_t smem_bytes(int w, int k) {
   const size_t kk = static_cast<size_t>(k);
   return sizeof(int) * (8 + 2 * kEvPad + static_cast<size_t>(w) + 6 * kk
@@ -1362,34 +1502,64 @@ cudaError_t launch_large(const int* ev, const int* src_lbl, const int* touch,
   return cudaGetLastError();
 }
 
+template <int POLICY, bool ALG1>
+cudaError_t launch_add(const int* scores_c, const int* deg_c,
+                       const int* win_pos, const unsigned char* fresh_c,
+                       const int* vs, const int* rand_tab, const int* active,
+                       const int* el, const int* vc, const int* cm,
+                       const int* scal, const float* knobs, int* w_assign,
+                       int* active_out, int* loads, int* cm_out,
+                       int* scal_out, int w, int d, int k, int autoscaling,
+                       cudaStream_t stream) {
+  auto kernel = add_window_kernel<POLICY, ALG1>;
+  const size_t smem = add_smem_bytes(w, k);
+  if (w <= 0 || k <= 0 || smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // the kernel updates the cut matrix in place, in the output
+  const cudaError_t err = cudaMemcpyAsync(
+      cm_out, cm, sizeof(int) * static_cast<size_t>(k) * k,
+      cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, 32, smem, stream>>>(scores_c, deg_c, win_pos, fresh_c, vs,
+                                  rand_tab, active, el, vc, scal, knobs,
+                                  w_assign, active_out, loads, cm_out,
+                                  scal_out, w, d, k, autoscaling);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define FUSED_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, \
                    w_label, psel, remap, active_out, loads, cm_out, scal_out,     \
                    w, d, k, autoscaling, stream
 
-#define POLICY_SWITCH(LAUNCH)                                                  \
-  switch (policy * 2 + (alg1 ? 1 : 0)) {                                       \
-    case kSdp * 2: return static_cast<int>(LAUNCH<kSdp, false>(FUSED_ARGS));   \
-    case kSdp * 2 + 1: return static_cast<int>(LAUNCH<kSdp, true>(FUSED_ARGS));\
-    case kLdg * 2: return static_cast<int>(LAUNCH<kLdg, false>(FUSED_ARGS));   \
-    case kLdg * 2 + 1: return static_cast<int>(LAUNCH<kLdg, true>(FUSED_ARGS));\
-    case kFennel * 2:                                                          \
-      return static_cast<int>(LAUNCH<kFennel, false>(FUSED_ARGS));             \
-    case kFennel * 2 + 1:                                                      \
-      return static_cast<int>(LAUNCH<kFennel, true>(FUSED_ARGS));              \
-    case kHash * 2: return static_cast<int>(LAUNCH<kHash, false>(FUSED_ARGS)); \
-    case kHash * 2 + 1:                                                        \
-      return static_cast<int>(LAUNCH<kHash, true>(FUSED_ARGS));                \
-    case kRandom * 2:                                                          \
-      return static_cast<int>(LAUNCH<kRandom, false>(FUSED_ARGS));             \
-    case kRandom * 2 + 1:                                                      \
-      return static_cast<int>(LAUNCH<kRandom, true>(FUSED_ARGS));              \
-    case kGreedy * 2:                                                          \
-      return static_cast<int>(LAUNCH<kGreedy, false>(FUSED_ARGS));             \
-    case kGreedy * 2 + 1:                                                      \
-      return static_cast<int>(LAUNCH<kGreedy, true>(FUSED_ARGS));              \
-    default: return static_cast<int>(cudaErrorInvalidValue);                   \
+#define POLICY_SWITCH(LAUNCH, ARGS)                                           \
+  switch (policy * 2 + (alg1 ? 1 : 0)) {                                      \
+    case kSdp * 2: return static_cast<int>(LAUNCH<kSdp, false>(ARGS));        \
+    case kSdp * 2 + 1: return static_cast<int>(LAUNCH<kSdp, true>(ARGS));     \
+    case kLdg * 2: return static_cast<int>(LAUNCH<kLdg, false>(ARGS));        \
+    case kLdg * 2 + 1: return static_cast<int>(LAUNCH<kLdg, true>(ARGS));     \
+    case kFennel * 2:                                                         \
+      return static_cast<int>(LAUNCH<kFennel, false>(ARGS));                  \
+    case kFennel * 2 + 1:                                                     \
+      return static_cast<int>(LAUNCH<kFennel, true>(ARGS));                   \
+    case kHash * 2: return static_cast<int>(LAUNCH<kHash, false>(ARGS));      \
+    case kHash * 2 + 1:                                                       \
+      return static_cast<int>(LAUNCH<kHash, true>(ARGS));                     \
+    case kRandom * 2:                                                         \
+      return static_cast<int>(LAUNCH<kRandom, false>(ARGS));                  \
+    case kRandom * 2 + 1:                                                     \
+      return static_cast<int>(LAUNCH<kRandom, true>(ARGS));                   \
+    case kGreedy * 2:                                                         \
+      return static_cast<int>(LAUNCH<kGreedy, false>(ARGS));                  \
+    case kGreedy * 2 + 1:                                                     \
+      return static_cast<int>(LAUNCH<kGreedy, true>(ARGS));                   \
+    default: return static_cast<int>(cudaErrorInvalidValue);                  \
   }
 
 // The most partition slots the lanes kernel takes (K <= 192).
@@ -1411,7 +1581,7 @@ extern "C" int fused_chooser_launch(
     const int* scal, const float* knobs, int* w_label, int* psel, int* remap,
     int* active_out, int* loads, int* cm_out, int* scal_out, int w, int d,
     int k, int policy, int alg1, int autoscaling, cudaStream_t stream) {
-  POLICY_SWITCH(launch_k)
+  POLICY_SWITCH(launch_k, FUSED_ARGS)
 }
 
 // The window's slot loop in the large-K kernel (any K up to
@@ -1422,5 +1592,23 @@ extern "C" int fused_chooser_large_launch(
     const int* scal, const float* knobs, int* w_label, int* psel, int* remap,
     int* active_out, int* loads, int* cm_out, int* scal_out, int w, int d,
     int k, int policy, int alg1, int autoscaling, cudaStream_t stream) {
-  POLICY_SWITCH(launch_large)
+  POLICY_SWITCH(launch_large, FUSED_ARGS)
+}
+
+#define ADD_ARGS scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active, el, vc, \
+                 cm, scal, knobs, w_assign, active_out, loads, cm_out, scal_out, \
+                 w, d, k, autoscaling, stream
+
+// A pure-ADD window's fixup: committed scores (w, k) and degrees (w,), the
+// window positions of the rows' neighbours (w, d), the fresh flags and
+// subjects (w,), the random table (w, k), the window-start counters; out the
+// slots' labels (w,) and the new counters, as fused_chooser_launch's.
+extern "C" int add_window_launch(
+    const int* scores_c, const int* deg_c, const int* win_pos,
+    const unsigned char* fresh_c, const int* vs, const int* rand_tab,
+    const int* active, const int* el, const int* vc, const int* cm,
+    const int* scal, const float* knobs, int* w_assign, int* active_out,
+    int* loads, int* cm_out, int* scal_out, int w, int d, int k, int policy,
+    int alg1, int autoscaling, cudaStream_t stream) {
+  POLICY_SWITCH(launch_add, ADD_ARGS)
 }

@@ -5,7 +5,8 @@ its wrapper.
 Which labels a slot of a mixed window can observe does not depend on the
 partition choices — presence, adjacency, freshness, and "which earlier
 slot last touched this vertex" follow from the event structure alone. So
-a choice-independent prep pass (``ops._prepare_window``) reduces the O(n)
+a choice-independent prep pass (``ops._prepare_window``, the
+``window_prep`` kernel) reduces the O(n)
 label journal to window-local **touch tables**: ``src_lbl[i, d]``, the
 committed label of slot i's d-th score source, and ``touch[i, d]``, the
 last earlier slot that relabelled it (-1 if none), plus a per-slot scalar
@@ -33,6 +34,13 @@ kernel: the same slot loop with the decider's K-vectors in shared memory
 and the cut matrix in device memory, for any K up to ``large_max_k(W)``
 (9,587 at W = 256), where its 4·(32 + W + 6K + ⌈K/32⌉) bytes of shared
 memory reach the 232,448 a block can have.
+
+The source's third kernel, ``add_window_choose``, is a pure-ADD window's
+slot loop (the JAX package's ``lax.scan`` at
+``src/repro/core/windowed.py:167``; no Pallas kernel): one decider warp
+on the large-K kernel's decider code at every K, from
+``partition_affinity``'s committed scores and the window's neighbour
+positions; its plain version is ``windowed.add_window_fixup_ref``.
 """
 from __future__ import annotations
 
@@ -48,13 +56,14 @@ from repro_torch.kernels.common import (
     on_cuda, stream_ptr,
 )
 
-# per-slot scalar row layout (ops._prepare_window packs, the kernel unpacks)
+# per-slot scalar row layout (the prep scan packs, the kernel unpacks)
 EV_ET, EV_V, EV_FRESH, EV_WAS, EV_EXISTS = 0, 1, 2, 3, 4
 EV_VLBL, EV_VTOUCH, EV_ULBL, EV_UTOUCH = 5, 6, 7, 8
 EV_COLS = 9
 
-# scalar-counter vector layout (window in/out)
-SCAL_NP, SCAL_TOTAL, SCAL_CUT, SCAL_DENIED, SCAL_SCALE = 0, 1, 2, 3, 4
+# the scalar counters a window takes and returns, in ``windowed._SCALARS``
+# order (num_partitions, total_edges, cut_edges, denied_scaleout,
+# scale_events; the csrc's enum Scal)
 SCAL_N = 5
 
 _I32 = torch.int32
@@ -76,6 +85,18 @@ def large_max_k(w: int) -> int:
     the largest K whose ``large_smem_bytes`` fit SMEM_MAX."""
     return bisect.bisect_right(range(1, SMEM_MAX), SMEM_MAX,
                                key=lambda k: large_smem_bytes(w, k))
+
+
+def add_smem_bytes(w: int, k: int) -> int:
+    """Shared memory of the pure-ADD kernel (csrc's ``add_smem_bytes``):
+    ``w_assign``, four K-vectors and the active bits."""
+    return 4 * (w + 4 * k + -(-k // 32))
+
+
+def add_max_k(w: int) -> int:
+    """The most partitions the pure-ADD kernel takes at a window of ``w``."""
+    return bisect.bisect_right(range(1, SMEM_MAX), SMEM_MAX,
+                               key=lambda k: add_smem_bytes(w, k))
 
 
 def dispatch(w: int, k: int) -> str:
@@ -178,6 +199,8 @@ def _lib():
         lib.fused_chooser_max_k.restype = ctypes.c_int
         lib.fused_chooser_large_max_k.argtypes = [ctypes.c_int]
         lib.fused_chooser_large_max_k.restype = ctypes.c_int
+        add = lib.add_window_launch
+        add.argtypes, add.restype = fn.argtypes, fn.restype
     return lib
 
 
@@ -189,7 +212,7 @@ def fused_window_choose(ev, src_lbl, touch, rand_tab, active, edge_load,
     cut_matrix (K, K), scalars (5,)), all int32.
 
     Inputs are the prep tables (``ops._prepare_window``), the per-slot
-    random table (``transition.rand_index_table``), the O(K) counter slice
+    random table (``window_rng``), the O(K) counter slice
     and the (7,) f32 knobs. CUDA tensors launch the kernel that
     ``dispatch`` names (counted in ``fused_window_choose.launches`` and,
     by kernel, in ``fused_window_choose.kernel_launches``); CPU tensors run
@@ -260,3 +283,70 @@ def launch(kernel, ev, src_lbl, touch, rand_tab, active, edge_load,
 
 fused_window_choose.launches = 0
 fused_window_choose.kernel_launches = dict.fromkeys(KERNELS, 0)
+
+
+def add_window_choose(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
+                      edge_load, vertex_count, cut_matrix, scalars, knobs, *,
+                      n: int, policy: str, balance_guard: str,
+                      autoscaling: bool):
+    """The slot loop of one pure-ADD window: returns (w_assign (W,),
+    active (K,) int32, loads (2, K) [edge_load; vertex_count], cut_matrix
+    (K, K), scalars (5,)), all int32.
+
+    Inputs are the window's committed scores (W, K) and degrees (W,)
+    (``partition_affinity``), ``win_pos`` (W, D), the window slot of each
+    row entry's vertex (-1 for none), ``fresh_c`` (W,) bool, the subjects
+    ``vs`` (W,) (-1 pads), the random table (W, K)
+    (``window_rng``), the O(K) counter slice and the (7,) f32 knobs (see
+    ``windowed.prepare_add_window``). CUDA tensors launch the pure-ADD
+    kernel of ``csrc/fused_chooser.cu`` (counted in
+    ``add_window_choose.launches``); CPU tensors run the plain loop,
+    ``windowed.add_window_fixup_ref``."""
+    tensors = (scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
+               edge_load, vertex_count, cut_matrix, scalars, knobs)
+    if not on_cuda(*tensors):
+        from repro_torch.core.windowed import add_window_fixup_ref
+        return add_window_fixup_ref(
+            *tensors, n=n, policy=policy, balance_guard=balance_guard,
+            autoscaling=autoscaling)
+    w, d = win_pos.shape
+    k = rand_tab.shape[1]
+    for name, t, shape in (("scores_c", scores_c, (w, k)),
+                           ("deg_c", deg_c, (w,)), ("win_pos", win_pos, (w, d)),
+                           ("vs", vs, (w,)), ("rand_tab", rand_tab, (w, k)),
+                           ("edge_load", edge_load, (k,)),
+                           ("vertex_count", vertex_count, (k,)),
+                           ("cut_matrix", cut_matrix, (k, k)),
+                           ("scalars", scalars, (SCAL_N,))):
+        check_input(t, name, _I32, shape)
+    check_input(fresh_c, "fresh_c", torch.bool, (w,))
+    check_input(active, "active", torch.bool, (k,))
+    check_input(knobs, "knobs", torch.float32, (7,))
+    if balance_guard not in ("text", "alg1"):
+        raise ValueError(f"balance_guard={balance_guard!r} is unknown")
+    if not 1 <= k <= add_max_k(w):
+        raise ValueError(
+            f"k_max={k} is outside the 1..{add_max_k(w)} partitions the "
+            f"pure-ADD kernel takes at a window of {w}: its "
+            f"{add_smem_bytes(w, k)} bytes of shared memory pass the "
+            f"{SMEM_MAX} a block can have")
+    dev = win_pos.device
+    active_i = active.to(_I32)
+    out = (torch.empty((w,), dtype=_I32, device=dev),          # w_assign
+           torch.empty((k,), dtype=_I32, device=dev),          # active
+           torch.empty((2, k), dtype=_I32, device=dev),        # loads
+           torch.empty((k, k), dtype=_I32, device=dev),        # cut_matrix
+           torch.empty((SCAL_N,), dtype=_I32, device=dev))     # scalars
+    ptrs = [t.data_ptr() for t in (scores_c, deg_c, win_pos, fresh_c, vs,
+                                   rand_tab, active_i, edge_load,
+                                   vertex_count, cut_matrix, scalars, knobs)
+            + out]
+    err = _lib().add_window_launch(
+        *ptrs, w, d, k, tx.POLICY_INDEX[policy], int(balance_guard == "alg1"),
+        int(autoscaling), stream_ptr(dev))
+    check_launch(err, "fused_chooser (add_window)")
+    add_window_choose.launches += 1
+    return out
+
+
+add_window_choose.launches = 0

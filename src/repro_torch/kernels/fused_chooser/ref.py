@@ -1,14 +1,100 @@
-"""Plain PyTorch version of the fused window chooser: the slot step
-(``fused_chooser.make_slot_step``) driven by a Python loop."""
+"""Plain PyTorch versions of the mixed window's kernels: the prep scan
+(``prepare_window_ref``, a Python loop over the slots) and the fused
+window chooser (the slot step ``fused_chooser.make_slot_step`` driven by a
+Python loop)."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import transition as tx
-from repro_torch.core.windowed import SmallState
-from repro_torch.kernels.fused_chooser.fused_chooser import (
-    SCAL_CUT, SCAL_DENIED, SCAL_NP, SCAL_SCALE, SCAL_TOTAL, make_slot_step,
+from repro_torch.core.state import PartitionState
+from repro_torch.core.windowed import small_from_args, small_outputs
+from repro_torch.graph.stream import (
+    EVENT_ADD, EVENT_DEL_EDGE, EVENT_DEL_VERTEX, EVENT_PAD,
 )
+from repro_torch.kernels.fused_chooser.fused_chooser import (
+    EV_COLS, make_slot_step,
+)
+
+_I32 = torch.int32
+
+
+class WindowPrep(NamedTuple):
+    """Choice-independent window tables (``ops`` module docstring)."""
+    ev: torch.Tensor          # (W, EV_COLS) per-slot scalars
+    src_lbl: torch.Tensor     # (W, D) committed labels of score sources
+    touch: torch.Tensor       # (W, D) last label-touching slot (< i), -1 none
+    label0: torch.Tensor      # (n,) committed journal (present ? label : -1)
+    last_touch: torch.Tensor  # (n,) final label-touching slot per vertex
+    adj: torch.Tensor         # (n, D) post-window adjacency
+
+
+def prepare_window_ref(state: PartitionState, ets, vs, rows) -> WindowPrep:
+    """The prep loop. Presence, adjacency, freshness and touch indices
+    depend only on the event structure, so the kernel's slot loop needs no
+    O(n) state at all. The adjacency row writes replicate
+    ``windowed._window_mixed_lane`` op for op (including the self-loop
+    order of the two DEL_EDGE row writes); ``state.adj`` is updated in
+    place and becomes the post-window adjacency; ``state.present`` is not
+    written."""
+    n = state.assignment.shape[0]
+    w, d = rows.shape
+    dev = vs.device
+    ets = torch.where(vs >= 0, ets, EVENT_PAD)
+    is_add = ets == EVENT_ADD
+    is_dv = ets == EVENT_DEL_VERTEX
+    is_de = ets == EVENT_DEL_EDGE
+    safe_vs = torch.where(vs >= 0, vs, 0)
+    label0 = torch.where(state.present, state.assignment, -1)
+    rows_add = torch.where(is_add[:, None], rows, -1)
+    u_all = rows[:, 0]
+    safe_u_all = torch.clamp(u_all, min=0)
+
+    adj = state.adj
+    present = state.present.clone()
+    last_touch = torch.full((n,), -1, dtype=_I32, device=dev)
+    ev = torch.empty((w, EV_COLS), dtype=_I32, device=dev)
+    src_lbl = torch.empty((w, d), dtype=_I32, device=dev)
+    touch = torch.empty((w, d), dtype=_I32, device=dev)
+    for i in range(w):
+        v = safe_vs[i]
+        row = rows[i]
+        add_i, dv_i, de_i = is_add[i], is_dv[i], is_de[i]
+        own_row = adj[v.reshape(1)][0]
+        u, safe_u = u_all[i], safe_u_all[i]
+        pv = tx._take(present, v)
+
+        fresh = add_i & ~pv
+        was = dv_i & pv
+        in_adj = (own_row == u).any() & (u >= 0)
+        exists = de_i & pv & tx._take(present, safe_u) & in_adj
+
+        src_row = torch.where(add_i, rows_add[i],
+                              torch.where(dv_i, own_row, -1))
+        src_ok = src_row >= 0
+        src_safe = torch.clamp(src_row, min=0)
+        src_lbl[i] = torch.where(src_ok, label0[src_safe], -1)
+        touch[i] = torch.where(src_ok, last_touch[src_safe], -1)
+        vu = torch.stack([v, safe_u])
+        ev[i] = torch.stack([
+            ets[i], v, fresh.to(_I32), was.to(_I32), exists.to(_I32),
+            *torch.stack([label0[vu], last_touch[vu]], dim=1).reshape(4)])
+
+        # presence / touch updates (add and del_vertex touch the subject)
+        touched = add_i | dv_i
+        tx._write(present, v, touched, add_i)
+        tx._write(last_touch, v, touched, i)
+
+        # faithful adjacency row writes (windowed._window_mixed_lane)
+        hit = (own_row == u) & (u >= 0)
+        w1_val = torch.where(add_i, row, torch.where(de_i & hit, -1, own_row))
+        tx._write(adj, v, fresh | de_i, w1_val)
+        row_u = adj[safe_u.reshape(1)][0]          # after write 1 (self-loops)
+        tx._write(adj, safe_u, de_i,
+                  torch.where((row_u == v) & (u >= 0), -1, row_u))
+    return WindowPrep(ev, src_lbl, touch, label0, last_touch, adj)
 
 
 def fused_window_choose_ref(ev, src_lbl, touch, rand_tab, active, edge_load,
@@ -23,24 +109,16 @@ def fused_window_choose_ref(ev, src_lbl, touch, rand_tab, active, edge_load,
     slot_step = make_slot_step(
         k_max=k_max, n=n, autoscaling=autoscaling,
         choose=tx.make_table_chooser(balance_guard, policy))
-    small = SmallState(
-        active=active != 0, edge_load=edge_load, vertex_count=vertex_count,
-        num_partitions=scalars[SCAL_NP], total_edges=scalars[SCAL_TOTAL],
-        cut_edges=scalars[SCAL_CUT], denied_scaleout=scalars[SCAL_DENIED],
-        scale_events=scalars[SCAL_SCALE], cut_matrix=cut_matrix)
-    w_label = torch.full((w,), -1, dtype=torch.int32, device=ev.device)
-    remap = torch.arange(k_max, dtype=torch.int32, device=ev.device)
-    psel = torch.zeros((w,), dtype=torch.int32, device=ev.device)
+    small = small_from_args(active, edge_load, vertex_count, cut_matrix,
+                            scalars)
+    w_label = torch.full((w,), -1, dtype=_I32, device=ev.device)
+    remap = torch.arange(k_max, dtype=_I32, device=ev.device)
+    psel = torch.zeros((w,), dtype=_I32, device=ev.device)
     for i in range(w):
         small, w_label, remap, psel[i] = slot_step(
             small, w_label, remap, kn, i, ev[i], src_lbl[i], touch[i],
             rand_tab[i])
-    return (w_label, psel, remap, small.active.to(torch.int32),
-            torch.stack([small.edge_load, small.vertex_count]),
-            small.cut_matrix,
-            torch.stack([small.num_partitions, small.total_edges,
-                         small.cut_edges, small.denied_scaleout,
-                         small.scale_events]))
+    return (w_label, psel, remap, *small_outputs(small))
 
 
 # ---------------------------------------------------------------------------

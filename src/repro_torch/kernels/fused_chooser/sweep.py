@@ -11,7 +11,10 @@ kernel for every policy x guard x autoscale; then prints the card's name
 and power limit, and one JSON line: each kernel's device time per window
 (SDP, text guard, autoscale; CUDA-graph replay), the lanes kernel's once
 more after the large one's (the spread of the timing). A development
-tool: nothing in the package runs it. Needs one CUDA card.
+tool: nothing in the package runs it. Needs one CUDA card. Its window
+setups (``WINDOW_SETUPS``) and builders (``window_state``,
+``window_inputs``, ``crafted_window``, ``add_window_args``) also make the
+card tests' and ``chip_smoke.py``'s cases of the window kernels.
 """
 from __future__ import annotations
 
@@ -37,14 +40,23 @@ from repro_torch.kernels.sweep import card, graph_ms
 # events) of the streaming session's window, and its churn stream
 MAIN = ("twitter", 0.03, 192, 192, 16, 400, 256, 768)
 CHURN = dict(warmup_frac=0.2, del_every=3, edge_del_every=5, seed=0)
+# the window kernels' check setups, laid out as MAIN: the session's window,
+# grqc's 2,843-wide rows, a window and a row width off every multiple of 32,
+# and K = 1, 40, 200 and 1,000
+WINDOW_SETUPS = {
+    "session": MAIN,
+    "grqc_wide": ("grqc", 1.0, 0, 2843, 16, 1500, 256, 1024),
+    "odd": ("grqc", 0.05, 37, 37, 5, 60, 100, 200),
+    **{f"k{k}": MAIN[:4] + (k,) + MAIN[5:] for k in (1, 40, 200, 1000)},
+}
 
 
-def window_inputs(dev, name, scale, cap, width, k_max, max_cap, window,
-                  warm, churn):
-    """``fused_window_choose``'s ten tensor arguments for the window after
-    ``warm`` events of ``name``'s churn stream run through the plain window
-    engines on ``dev`` (SDP, autoscale), with the config's n and the
-    window's event types: a real stream's mid-session shapes."""
+def window_state(dev, name, scale, cap, width, k_max, max_cap, window,
+                 warm, churn):
+    """The state after ``warm`` events of ``name``'s churn stream run
+    through the port's plain window engines on ``dev`` (SDP, autoscale),
+    its config, and the stream's (etype, vertex, rows) on ``dev``: a real
+    stream's mid-session state."""
     g = load_dataset(name, scale=scale)
     if cap:
         g = cap_degree(g, cap)
@@ -62,20 +74,112 @@ def window_inputs(dev, name, scale, cap, width, k_max, max_cap, window,
         else:
             state = wnd.run_window_mixed(state, et[sl], vx[sl], nb[sl], t,
                                          policy="sdp", cfg=cfg)
+    return state, cfg, (et, vx, nb)
+
+
+def window_inputs(dev, name, scale, cap, width, k_max, max_cap, window,
+                  warm, churn):
+    """``fused_window_choose``'s ten tensor arguments for the window after
+    ``warm`` events of ``name``'s churn stream (``window_state``), with the
+    config's n and the window's event types."""
+    state, cfg, (et, vx, nb) = window_state(
+        dev, name, scale, cap, width, k_max, max_cap, window, warm, churn)
     sl = slice(warm, warm + window)
     n = state.assignment.shape[0]
-    prep = fops._prepare_window(type(state)(*(t.clone() for t in state)),
-                                et[sl], vx[sl], nb[sl])
-    scalars = torch.stack([state.num_partitions, state.total_edges,
-                           state.cut_edges, state.denied_scaleout,
-                           state.scale_events])
-    knobs = torch.tensor(tx.knob_values(cfg, n), dtype=torch.float32,
-                         device=dev)
-    args = (prep.ev, prep.src_lbl, prep.touch,
-            tx.rand_index_table(state.key, warm, window, k_max), state.active,
-            state.edge_load, state.vertex_count, state.cut_matrix, scalars,
-            knobs)
+    prep = fops._prepare_window(clone_state(state), et[sl], vx[sl], nb[sl])
+    rand_tab = tx.rand_index_table(state.key, warm, window, k_max)
+    args = (prep.ev, prep.src_lbl, prep.touch, rand_tab,
+            *wnd.small_args(state), tx.knob_tensor(cfg, n, dev))
     return args, n, et[sl]
+
+
+def clone_state(state):
+    """A copy of every leaf (the window engines update O(n) leaves in
+    place)."""
+    return type(state)(*(t.clone() for t in state))
+
+
+def crafted_window(state, window: int, seed: int, adds_only: bool = False):
+    """A window of (ets, vs, rows) over ``state`` (on its device) that
+    holds the cases whose order the window scans must keep: pads; ADDs of
+    absent and of present vertices whose rows name the subject itself;
+    a vertex added twice; a DEL_VERTEX then a re-ADD of the vertex; an
+    existing edge deleted from both endpoints; self-loop DEL_EDGEs, of an
+    edge the window added and of a present vertex; DEL_EDGEs of missing
+    edges and of no neighbour (-1). ``adds_only`` keeps the pads and the
+    ADDs: a pure-ADD window."""
+    n, d = state.adj.shape
+    rng = np.random.default_rng(seed)
+    adj = state.adj.cpu().numpy()
+    present = state.present.cpu().numpy()
+    pres, absent = np.flatnonzero(present), np.flatnonzero(~present)
+    pick = (lambda pool: int(rng.choice(pool)) if len(pool)
+            else int(rng.integers(n)))
+    slots = []
+
+    def row_of(v):
+        r = np.full(d, -1, np.int32)
+        k = int(rng.integers(1, d + 1))
+        r[:k] = rng.integers(0, n, size=k)
+        if rng.random() < 0.3:
+            r[int(rng.integers(k))] = v
+        return r
+
+    def edge(v, u):
+        r = np.full(d, -1, np.int32)
+        r[0] = u
+        slots.append((2, v, r))
+
+    kinds = 2 if adds_only else 6
+    while len(slots) < window:
+        kind = int(rng.integers(kinds))
+        if kind == 0:                                   # a pad
+            slots.append((int(rng.integers(3)), -1, row_of(0)))
+        elif kind == 1:                                 # ADDs, one twice
+            v = pick(absent) if rng.random() < 0.7 else pick(pres)
+            slots.append((0, v, row_of(v)))
+            if rng.random() < 0.3:
+                slots.append((0, v, row_of(v)))
+        elif kind == 2:                                 # DEL_VERTEX, re-ADD
+            v = pick(pres) if rng.random() < 0.8 else pick(absent)
+            slots.append((1, v, row_of(v)))
+            if rng.random() < 0.5:
+                slots.append((0, v, row_of(v)))
+        elif kind == 3:                                 # both endpoints
+            v = pick(pres)
+            nbrs = adj[v][adj[v] >= 0]
+            u = int(rng.choice(nbrs)) if len(nbrs) else pick(pres)
+            edge(v, u)
+            edge(u, v)
+        elif kind == 4:                                 # self-loops
+            x = pick(absent)
+            r = row_of(x)
+            r[0] = x
+            slots.append((0, x, r))
+            edge(x, x)
+            v = pick(pres)
+            edge(v, v)
+        else:                                           # missing edges
+            edge(pick(pres), int(rng.integers(n)))
+            edge(pick(pres), -1)
+    slots = slots[:window]
+    dev = state.adj.device
+    ets = torch.tensor([e for e, _, _ in slots], dtype=torch.int32, device=dev)
+    vs = torch.tensor([v for _, v, _ in slots], dtype=torch.int32, device=dev)
+    rows = torch.from_numpy(np.stack([r for _, _, r in slots])).to(dev)
+    return ets, vs, rows
+
+
+def add_window_args(state, cfg, vs, rows, t0: int, score_fn=None):
+    """``add_window_choose``'s twelve tensor arguments for the pure-ADD
+    window (vs, rows) at event t0 over ``state`` (which it does not
+    change)."""
+    n = state.assignment.shape[0]
+    k_max = state.edge_load.shape[0]
+    prep = wnd.prepare_add_window(state, vs, rows, score_fn)
+    rand_tab = tx.rand_index_table(state.key, t0, vs.shape[0], k_max)
+    return (*prep, vs, rand_tab, *wnd.small_args(state),
+            tx.knob_tensor(cfg, n, vs.device))
 
 
 def main() -> int:

@@ -1,0 +1,75 @@
+"""The mixed window's prep scan as one CUDA kernel (``csrc/window_prep.cu``)
+and its wrapper.
+
+Which labels a slot of a mixed window can observe does not depend on the
+partition choices (``fused_chooser`` module docstring), so a prep scan
+turns the window's events into the fused chooser's touch tables — per
+slot the scalar row, the (D,) committed labels of its score sources and
+the last earlier slot that relabelled each — and makes the window's
+adjacency row writes. The JAX package runs it as a ``lax.scan`` inside the
+jitted window program (``src/repro/kernels/fused_chooser/ops.py:113``); its
+plain version here is ``ref.prepare_window_ref``, a Python loop. The kernel
+walks the W slots in one block, its threads across D; see the source for
+why one barrier a slot is enough. Like the plain version it updates
+``state.adj`` in place and leaves ``state.present`` unwritten.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.state import PartitionState
+from repro_torch.kernels.common import (
+    check_input, check_launch, load_kernel, on_cuda, stream_ptr,
+)
+from repro_torch.kernels.fused_chooser.fused_chooser import EV_COLS
+from repro_torch.kernels.fused_chooser.ref import WindowPrep, prepare_window_ref
+
+_I32 = torch.int32
+
+
+def _lib():
+    fn = load_kernel("window_prep").window_prep_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def window_prep(state: PartitionState, ets, vs, rows) -> WindowPrep:
+    """The prep tables of one mixed window of ``ets``, ``vs`` (W,) and
+    ``rows`` (W, D) against ``state``, whose adjacency becomes the
+    post-window one in place. CUDA tensors launch the kernel (counted in
+    ``window_prep.launches``); CPU tensors run the plain loop."""
+    if not on_cuda(state.adj, state.present, ets, vs, rows):
+        return prepare_window_ref(state, ets, vs, rows)
+    w, d = rows.shape
+    n = state.assignment.shape[0]
+    for name, t, shape in (("ets", ets, (w,)), ("vs", vs, (w,)),
+                           ("rows", rows, (w, d)),
+                           ("assignment", state.assignment, (n,)),
+                           ("adj", state.adj, (n, d))):
+        check_input(t, name, _I32, shape)
+    check_input(state.present, "present", torch.bool, (n,))
+    if w < 1 or d < 1:
+        raise ValueError(f"window_prep needs a window of at least one slot "
+                         f"and one column, got rows of shape {(w, d)}")
+    dev = vs.device
+    label0 = torch.where(state.present, state.assignment, -1)
+    last_touch = torch.full((n,), -1, dtype=_I32, device=dev)
+    ev = torch.empty((w, EV_COLS), dtype=_I32, device=dev)
+    src_lbl = torch.empty((w, d), dtype=_I32, device=dev)
+    touch = torch.empty((w, d), dtype=_I32, device=dev)
+    err = _lib()(
+        ets.data_ptr(), vs.data_ptr(), rows.data_ptr(), label0.data_ptr(),
+        state.present.data_ptr(), state.adj.data_ptr(), last_touch.data_ptr(),
+        ev.data_ptr(), src_lbl.data_ptr(), touch.data_ptr(), w, d,
+        stream_ptr(dev))
+    check_launch(err, "window_prep")
+    window_prep.launches += 1
+    return WindowPrep(ev, src_lbl, touch, label0, last_touch, state.adj)
+
+
+window_prep.launches = 0

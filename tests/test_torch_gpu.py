@@ -39,6 +39,17 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref, attention_split_ref,
 )
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+from repro_torch.core.rng import prng_key
+from repro_torch.graph.csr import cap_degree
+from repro_torch.graph.stream import VertexStream
+from repro_torch.kernels.fused_chooser import ops as fops
+from repro_torch.kernels.fused_chooser import sweep as fsweep
+from repro_torch.kernels.fused_chooser.sweep import WINDOW_SETUPS
+from repro_torch.kernels.fused_chooser.ref import prepare_window_ref
+from repro_torch.kernels.fused_chooser.window_prep import window_prep
+from repro_torch.kernels.partition_affinity.ops import scores_for_state
+from repro_torch.kernels.window_rng.ops import window_rng
+from repro_torch.kernels.window_rng.ref import window_rng_ref
 from repro_torch.kernels.segment_spmm.segment_spmm import segment_spmm
 from repro_torch.configs import get_arch
 from repro_torch.models import transformer as T
@@ -577,3 +588,162 @@ def test_lm_layers_launch_the_attention_kernel(cuda):
     want, _, _ = T.decode_step_inplace(params, nxt, ck, cv, 12, cfg,
                                        use_kernel=False)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the window loops: window_rng, window_prep, the pure-ADD fixup
+# ---------------------------------------------------------------------------
+
+# the session's first window, its 450th (t0 = 114,958 - 94), the uint32
+# wrap of the event index, and K from 1 to 1,000
+@pytest.mark.parametrize("k", [1, 16, 1000])
+@pytest.mark.parametrize("t0", [0, 114_958, 2**32 - 100])
+def test_window_rng_kernel_matches_plain(cuda, t0, k):
+    for seed in (0, 2**40 + 5):
+        key = prng_key(seed, device=cuda)
+        for w in (1, 256):
+            before = window_rng.launches
+            got = window_rng(key, t0, w, k)
+            assert window_rng.launches == before + 1
+            assert torch.equal(got, window_rng_ref(key, t0, w, k))
+
+
+_STATES = {}
+
+
+def _setup(cuda, name, warm=None):
+    """(state, cfg, (etype, vertex, rows)) after ``warm`` events (the
+    setup's own by default) of the setup's churn stream on the card."""
+    spec = WINDOW_SETUPS[name]
+    spec = spec[:7] + (spec[7] if warm is None else warm,)
+    if spec not in _STATES:
+        _STATES[spec] = fsweep.window_state(cuda, *spec, fsweep.CHURN)
+    return _STATES[spec]
+
+
+def _assert_prep_matches(state, ets, vs, rows):
+    got_state, want_state = (fsweep.clone_state(state) for _ in range(2))
+    before = window_prep.launches
+    got = window_prep(got_state, ets, vs, rows)
+    assert window_prep.launches == before + 1
+    want = prepare_window_ref(want_state, ets, vs, rows)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got_state.adj, want_state.adj)
+    assert torch.equal(got_state.present, state.present)   # never written
+
+
+@pytest.mark.parametrize("window", ["stream", 0, 1, 2])
+@pytest.mark.parametrize("setup", ["session", "grqc_wide", "odd"])
+def test_window_prep_kernel_matches_plain(cuda, setup, window):
+    """The stream's own mixed window, and crafted ones (pads, self-loops,
+    an edge deleted from both endpoints, a vertex added twice, a deleted
+    vertex added again: ``sweep.crafted_window``)."""
+    state, _, (et, vx, nb) = _setup(cuda, setup)
+    w, warm = WINDOW_SETUPS[setup][6:]
+    if window == "stream":
+        sl = slice(warm, warm + w)
+        ets, vs, rows = et[sl], vx[sl], nb[sl]
+    else:
+        ets, vs, rows = fsweep.crafted_window(state, w, window)
+    _assert_prep_matches(state, ets, vs, rows)
+
+
+def _assert_add_matches(n, args, policy, autos):
+    for guard in ("text", "alg1"):
+        for auto in autos:
+            kw = dict(n=n, policy=policy, balance_guard=guard,
+                      autoscaling=auto)
+            before = fk.add_window_choose.launches
+            got = fk.add_window_choose(*args, **kw)
+            assert fk.add_window_choose.launches == before + 1
+            want = wnd.add_window_fixup_ref(*args, **kw)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (policy, guard, auto)
+
+
+@pytest.mark.parametrize("window", ["first", "crafted"])
+@pytest.mark.parametrize("setup", list(WINDOW_SETUPS))
+@pytest.mark.parametrize("policy", POLICIES)
+def test_add_window_kernel_matches_plain(cuda, policy, setup, window):
+    """A pure-ADD window: the stream's first events, from the empty state,
+    or a crafted window mid-stream (pads, a vertex added twice, ADDs of present
+    vertices, rows naming their subject), scored by partition_affinity."""
+    w, warm = WINDOW_SETUPS[setup][6:]
+    if window == "first":
+        # the stream's first w events, any deletion among them a pad
+        state, cfg, (et, vx, nb) = _setup(cuda, setup, warm=0)
+        vs = torch.where(et[:w] == EVENT_ADD, vx[:w], -1)
+        rows, t0 = nb[:w], 0
+    else:
+        state, cfg, _ = _setup(cuda, setup)
+        _, vs, rows = fsweep.crafted_window(state, w, 3, adds_only=True)
+        t0 = warm
+    args = fsweep.add_window_args(state, cfg, vs, rows, t0, scores_for_state)
+    autos = (True, False) if setup == "session" else (True,)
+    _assert_add_matches(state.assignment.shape[0], args, policy, autos)
+
+
+def test_partitioner_twitter_prefix_kernels_match_plain(cuda):
+    """The twitter session (scale 1.0, degree cap 192) over its first 66
+    windows — 63 pure-ADD, 3 mixed — with use_kernel=True, leaf for leaf
+    equal to use_kernel=False on the card; every window went through its
+    kernels."""
+    g = cap_degree(load_dataset("twitter"), 192)
+    s = interleaved_churn(g, warmup_frac=0.2, del_every=3, edge_del_every=5,
+                          seed=0)
+    T = 66 * 256
+    sub = VertexStream(s.etype[:T], s.vertex[:T], s.nbrs[:T], n=s.n)
+    cfg = EngineConfig(k_max=16, k_init=1, max_cap=40000, autoscale=True)
+    counters = (window_prep, window_rng, fk.add_window_choose,
+                fk.fused_window_choose, partition_affinity)
+    before = [c.launches for c in counters]
+    kernel = Partitioner.from_stream(sub, cfg, policy="sdp", seed=0,
+                                     use_kernel=True, device=cuda).feed(sub)
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == [3, 66, 63, 3, 63]
+    m = kernel.metrics()
+    assert (m["add_windows"], m["mixed_windows"]) == (63, 3)
+    plain = Partitioner.from_stream(sub, cfg, policy="sdp", seed=0,
+                                    use_kernel=False, device=cuda).feed(sub)
+    assert [c.launches for c in counters] == [
+        b + n for b, n in zip(before, launched)]
+    for f in kernel.state._fields:
+        assert torch.equal(getattr(kernel.state, f),
+                           getattr(plain.state, f)), f
+
+
+def test_window_pipelines_read_nothing_back_to_the_host(cuda):
+    """A pure-ADD and a mixed window through the kernels, each captured in
+    a CUDA graph (a read back to the host inside a window breaks the
+    capture), then replayed on a copy of the same state: leaf for leaf the
+    eager result."""
+    state, cfg, (et, vx, nb) = _setup(cuda, "session")
+    knobs = tx.knob_tensor(cfg, state.assignment.shape[0], cuda)
+    _, vs_add, rows_add = fsweep.crafted_window(state, 256, 3, adds_only=True)
+    sl = slice(768, 1024)
+    calls = {
+        "add": lambda st: fops.run_window_adds_fused(
+            st, vs_add, rows_add, 768, policy="sdp", cfg=cfg, knobs=knobs),
+        "mixed": lambda st: fops.run_window_mixed_fused(
+            st, et[sl], vx[sl], nb[sl], 768, policy="sdp", cfg=cfg,
+            knobs=knobs)}
+    for kind, call in calls.items():
+        want = call(fsweep.clone_state(state))
+        st = fsweep.clone_state(state)
+        warm = fsweep.clone_state(state)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(warm)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call(st)
+        for dst, src in zip(st, state):             # the key is never written
+            if dst.dtype != torch.uint32:
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (kind, f)
