@@ -486,32 +486,39 @@ def check_window_rng(dev) -> dict:
 
 def _prep_bytes(prep, state, rows) -> int:
     """Bytes one window_prep call must move: the events in, the scalar
-    rows and both tables out, the committed labels and presence (n) in,
-    last_touch (n) out, and the adjacency rows the window reads (one a
-    slot) and writes (one a fresh ADD or DEL_EDGE, one more a DEL_EDGE)."""
+    rows and both tables out, the assignment and presence (n) in, label0
+    and last_touch (n) out, and each adjacency row the window reads (the
+    subjects of fresh ADDs, DEL_VERTEXes and DEL_EDGEs, and the DEL_EDGEs'
+    other ends) once, and once more if it writes it (all but those only
+    DEL_VERTEXes name)."""
     w, d = rows.shape
     n = state.assignment.shape[0]
-    ev = prep.ev
-    writes = int((ev[:, fk.EV_FRESH] != 0).sum()) + 2 * int(
-        (ev[:, fk.EV_ET] == 2).sum())
+    et, v = prep.ev[:, fk.EV_ET], prep.ev[:, fk.EV_V]
+    u = rows[:, 0]
+    de = (et == 2) & (u >= 0)
+    wrote = (prep.ev[:, fk.EV_FRESH] != 0) | de
+    read = torch.unique(torch.cat([v[wrote | (et == 1)], u[de]])).numel()
+    written = torch.unique(torch.cat([v[wrote], u[de]])).numel()
     return (4 * (2 * w + w * d) + 4 * w * fk.EV_COLS + 8 * w * d + 5 * n
-            + 4 * n + 4 * d * (w + writes))
+            + 8 * n + 4 * d * (read + written))
 
 
 def check_window_prep(dev, cases) -> dict:
     """Bit-equal to the plain loop (every output, the adjacency after it,
-    presence unwritten) on each setup's own window and two crafted ones
+    presence unwritten) on each setup's own window, four crafted ones
     (pads, self-loops, an edge deleted from both endpoints, a vertex added
-    twice, a deleted vertex added again); timed on the session's window
-    and grqc's wide one."""
+    twice, a deleted vertex added again) and one over four hot vertices,
+    whose rows carry long chains of slots; timed on each setup's own
+    window."""
     out = {"name": "window_prep", "cases": []}
     for name in ("session", "grqc_wide", "odd"):
         state, _, (et, vx, nb) = cases[name]
         w, warm = fsweep.WINDOW_SETUPS[name][6:]
         sl = slice(warm, warm + w)
         windows = {"stream": (et[sl], vx[sl], nb[sl])}
-        for seed in (0, 1):
+        for seed in range(4):
             windows[f"crafted{seed}"] = fsweep.crafted_window(state, w, seed)
+        windows["chain0"] = fsweep.chain_window(state, w, 0)
         for label, (ets, vs, rows) in windows.items():
             a, b = fsweep.clone_state(state), fsweep.clone_state(state)
             got = window_prep(a, ets, vs, rows)
@@ -523,7 +530,7 @@ def check_window_prep(dev, cases) -> dict:
                     "shape": list(rows.shape), "max_abs_err": err,
                     "del_edges": int((ets == 2).sum()),
                     "exists": int(got.ev[:, fk.EV_EXISTS].sum())}
-            if label == "stream" and name in ("session", "grqc_wide"):
+            if label == "stream":
                 c = fsweep.clone_state(state)
                 case["ms"] = graph_ms(lambda: window_prep(c, ets, vs, rows),
                                       20)
@@ -559,8 +566,12 @@ def check_add_window_choose(dev, cases) -> dict:
     mid-stream (pads, a vertex added twice, ADDs of present vertices, rows
     naming their subject); timed (SDP) on both windows at the session's
     shape (the first window, all of whose 256 slots commit, is the session's
-    own), and on the crafted ones at grqc's rows, K = 200 and 1,000."""
-    out = {"name": "add_window_choose", "cases": []}
+    own), and on the crafted ones at grqc's rows, K = 200 and 1,000. Each
+    call takes the kernel ``add_dispatch`` names (lanes to K = 192, large
+    above), counted by kernel; where it is the lanes kernel, the large one
+    is also timed on the same inputs (uncounted)."""
+    out = {"name": "add_window_choose", "cases": [],
+           "launches_by_kernel": dict.fromkeys(fk.KERNELS, 0)}
     for name, (state, cfg, (et, vx, nb)) in cases.items():
         w, warm = fsweep.WINDOW_SETUPS[name][6:]
         first = init_state(state.assignment.shape[0], state.adj.shape[1],
@@ -574,19 +585,29 @@ def check_add_window_choose(dev, cases) -> dict:
             args = fsweep.add_window_args(st, cfg, vs, rows, t0,
                                           pops.scores_for_state)
             n = st.assignment.shape[0]
+            variant = fk.add_dispatch(w, st.edge_load.shape[0])
             for policy in POLICIES:
                 for guard in ("text", "alg1"):
                     for auto in ((True, False) if name == "session"
                                  else (True,)):
                         kw = dict(n=n, policy=policy, balance_guard=guard,
                                   autoscaling=auto)
+                        by = dict(fk.add_window_choose.kernel_launches)
                         got = fk.add_window_choose(*args, **kw)
+                        if fk.add_window_choose.kernel_launches != {
+                                k: c + (k == variant) for k, c in by.items()}:
+                            raise AssertionError(
+                                f"add_window_choose {name}/{label} did not "
+                                f"take the {variant} kernel: "
+                                f"{fk.add_window_choose.kernel_launches}")
+                        out["launches_by_kernel"][variant] += 1
                         want = wnd.add_window_fixup_ref(*args, **kw)
                         torch.cuda.synchronize()
                         err = max_abs_diff(got, want)
                         case = {"case": name, "window": label,
                                 "shape": [w, rows.shape[1],
                                           st.edge_load.shape[0]],
+                                "kernel": variant,
                                 "policy": policy, "guard": guard,
                                 "autoscale": auto, "max_abs_err": err,
                                 "fresh": int(args[3].sum()),
@@ -605,6 +626,15 @@ def check_add_window_choose(dev, cases) -> dict:
                             d, k = rows.shape[1], st.edge_load.shape[0]
                             case["ms"] = graph_ms(kernel, 20)
                             case["eager_ms"] = eager_ms(kernel, 20)
+                            if variant == "lanes":
+                                # the large kernel on the same inputs,
+                                # uncounted: the layout the lanes one
+                                # replaced at K <= 192
+                                case["large_ms"] = graph_ms(
+                                    lambda: fk.add_launch(
+                                        "large", *args, policy=policy,
+                                        balance_guard=guard,
+                                        autoscaling=auto), 20)
                             case["plain_ms"] = graph_ms(plain, 1, replays=2)
                             case["plain_eager_ms"] = eager_ms(plain, 1)
                             case.update(_bound(_add_bytes(w, d, k), 0))
@@ -856,6 +886,7 @@ def _reset_launches():
     ss.segment_spmm.kernel_launches = dict.fromkeys(ss.KERNELS, 0)
     eb.embedding_bag.kernel_launches = dict.fromkeys(eb.KERNELS, 0)
     fk.fused_window_choose.kernel_launches = dict.fromkeys(fk.KERNELS, 0)
+    fk.add_window_choose.kernel_launches = dict.fromkeys(fk.KERNELS, 0)
 
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
@@ -925,6 +956,7 @@ def _session_k200(s, dev) -> dict:
     t_part = time.perf_counter() - t
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
+    add_by_kernel = dict(fk.add_window_choose.kernel_launches)
     plain = Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=256,
                                     device=dev).feed(s)
     plain.sync()
@@ -932,12 +964,15 @@ def _session_k200(s, dev) -> dict:
                         "grqc k_max=200 session vs the plain session")
     _check_session_launches(launches, _window_kinds(part),
                             "grqc k_max=200 session")
-    if by_kernel["large"] != launches["fused_chooser"]:
+    if (by_kernel["large"] != launches["fused_chooser"]
+            or add_by_kernel["large"] != launches["add_window_choose"]):
         raise AssertionError(f"grqc k_max=200 session missed the large "
-                             f"kernel: {by_kernel}")
+                             f"kernels: {by_kernel}, add {add_by_kernel}")
     return {"k_max": cfg.k_max, "max_cap": cfg.max_cap, "bit_equal": True,
             **_scaling(part.state, cfg.k_init), "launches": launches,
-            "launches_by_kernel": by_kernel, "session_s": round(t_part, 3)}
+            "launches_by_kernel": by_kernel,
+            "add_launches_by_kernel": add_by_kernel,
+            "session_s": round(t_part, 3)}
 
 
 class _Split:
@@ -989,11 +1024,13 @@ def phase_twitter(dev) -> dict:
     run_s = time.perf_counter() - t
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
+    add_by_kernel = dict(fk.add_window_choose.kernel_launches)
     windows = _window_kinds(part)
     _check_session_launches(launches, windows, "twitter session")
-    if by_kernel["lanes"] != launches["fused_chooser"]:
-        raise AssertionError(f"twitter session left the lanes kernel: "
-                             f"{by_kernel}")
+    if (by_kernel["lanes"] != launches["fused_chooser"]
+            or add_by_kernel["lanes"] != launches["add_window_choose"]):
+        raise AssertionError(f"twitter session left the lanes kernels: "
+                             f"{by_kernel}, add {add_by_kernel}")
     shape = (WINDOW, part.max_deg, cfg.k_max)
     if shape != SESSION_SHAPE:
         raise AssertionError(f"twitter session ran its kernels at (W, D, K) = "
@@ -1052,6 +1089,10 @@ def phase_twitter(dev) -> dict:
                     - sec["partition_affinity"]),
         "mixed_window_total_s": sec["mixed_window_total"],
         "add_window_total_s": sec["add_window_total"],
+        # the session's own host time: feed's chunking and padding, the
+        # window dispatch, the engines' set-up
+        "outside_windows_s": (split_total - sec["mixed_window_total"]
+                              - sec["add_window_total"] - sec["scan_tail"]),
     }
     out = {"phase": "twitter", "scale": 1.0, "n": s.n,
            "edges_capped": g.num_edges, "events": s.num_events, **counts,
@@ -1060,6 +1101,7 @@ def phase_twitter(dev) -> dict:
            "setup_s": round(setup_s, 3), "run_s": run_s,
            "events_per_s": s.num_events / run_s,
            "launches": launches, "launches_by_kernel": by_kernel,
+           "add_launches_by_kernel": add_by_kernel,
            "windows": windows, "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"],
            "metrics": {k: m[k] for k in ("edge_cut", "total_edges",
@@ -2021,11 +2063,13 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                         **{k: eb_bulk[k] for k in timed + (
                             "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
-    timed_scan = timed + ("eager_ms", "plain_eager_ms", "bound_by")
+    timed_scan = timed + ("eager_ms", "plain_eager_ms", "bound_by", "kernel",
+                          "large_ms")
     for name, source, replaces, main, others in (
             ("window_prep", "src/repro_torch/csrc/window_prep.cu",
              "src/repro/kernels/fused_chooser/ops.py:113",
-             ("session", "stream"), (("grqc_wide", "stream"),)),
+             ("session", "stream"), (("grqc_wide", "stream"),
+                                     ("odd", "stream"))),
             ("window_rng", "src/repro_torch/csrc/window_rng.cu",
              "src/repro/core/transition.py:374", None, ()),
             ("add_window_choose", "src/repro_torch/csrc/fused_chooser.cu",
@@ -2049,7 +2093,10 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              "ms": case["ms"], "plain_ms": case["plain_ms"],
              "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
              "library_ms": None,
-             **{k: case[k] for k in ("eager_ms", "plain_eager_ms")},
+             **{k: case[k] for k in ("eager_ms", "plain_eager_ms", "kernel",
+                                     "large_ms") if k in case},
+             **({"launches_by_kernel": twitter["add_launches_by_kernel"]}
+                if name == "add_window_choose" else {}),
              **{"_".join(o): {k: timed_cases[o][k] for k in
                               ("shape",) + timed_scan if k in timed_cases[o]}
                 for o in others}})

@@ -67,17 +67,26 @@ def _with_small(state: PartitionState, small: SmallState, **kw
     return state._replace(**small._asdict(), **kw)
 
 
-def _scatter_last(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
-                  mask: torch.Tensor) -> None:
-    """In place: ``dst[idx[j]] = vals[j]`` for every slot j with
-    ``mask[j]``; of several masked slots naming one index the last wins
-    (the order of XLA's CPU scatter), and unmasked slots write nothing.
-    Every slot naming an index writes that index's one final value, so
-    duplicate indices cannot race on the device."""
+def _last_writers(idx: torch.Tensor, mask: torch.Tensor):
+    """The plan of a last-wins scatter to ``idx`` (W,): for each slot j,
+    whether a masked slot names ``idx[j]`` and the last such slot."""
     w = idx.shape[0]
     same = (idx[:, None] == idx[None, :]) & mask[None, :]
     has = same.any(dim=1)
     last = (w - 1) - torch.argmax(same.flip(1).to(_I32), dim=1)
+    return has, last
+
+
+def _scatter_last(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                  mask: torch.Tensor, plan=None) -> None:
+    """In place: ``dst[idx[j]] = vals[j]`` for every slot j with
+    ``mask[j]``; of several masked slots naming one index the last wins
+    (the order of XLA's CPU scatter), and unmasked slots write nothing.
+    Every slot naming an index writes that index's one final value, so
+    duplicate indices cannot race on the device. ``plan`` is
+    ``_last_writers(idx, mask)``, made here when not given."""
+    w = idx.shape[0]
+    has, last = _last_writers(idx, mask) if plan is None else plan
     cur = dst[idx]
     has = has.reshape((w,) + (1,) * (cur.dim() - 1))
     dst[idx] = torch.where(has, vals[last], cur)
@@ -209,9 +218,10 @@ def commit_add_window(state: PartitionState, vs, rows, w_assign, *small_out
     is_add = vs >= 0
     safe_vs = torch.where(is_add, vs, 0)
     fresh = is_add & (w_assign >= 0)
-    _scatter_last(state.assignment, safe_vs, w_assign, fresh)
-    _scatter_last(state.present, safe_vs, fresh, fresh)
-    _scatter_last(state.adj, safe_vs, rows, fresh)
+    plan = _last_writers(safe_vs, fresh)          # one plan, three leaves
+    _scatter_last(state.assignment, safe_vs, w_assign, fresh, plan)
+    _scatter_last(state.present, safe_vs, fresh, fresh, plan)
+    _scatter_last(state.adj, safe_vs, rows, fresh, plan)
     return with_small_outputs(state, *small_out)
 
 

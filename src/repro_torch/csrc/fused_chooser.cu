@@ -5,9 +5,9 @@
 // labels of the next slots through the touch tables and histogram them.
 // Two kernels, chosen by K on the host: the lanes kernel (K <= 192, its
 // partitions on the decider's lanes, described here) and the large-K kernel
-// (any K whose vectors fit shared memory, described where it starts). A
-// third kernel, the pure-ADD window's fixup, reuses the large-K kernel's
-// decider code (described where it starts).
+// (any K whose vectors fit shared memory, described where it starts). The
+// pure-ADD window's fixup runs on the same two layouts, with their decider
+// code (its two kernels are described where they start).
 //
 // Replaces the Pallas TPU kernel `fused_window_choose`
 // (src/repro/kernels/fused_chooser/fused_chooser.py:245), which kept the
@@ -380,6 +380,141 @@ __device__ __forceinline__ void publish(int* f, int v) {
   if ((threadIdx.x & 31) == 0) *static_cast<volatile int*>(f) = v;
 }
 
+// The decider's state from the window-start counters: the K-vectors on the
+// lanes, the active set as ballots, the scalars in every lane.
+template <int KT>
+__device__ __forceinline__ void load_state(const Lanes<KT>& L, State<KT>& s,
+                                           const int* __restrict__ active_in,
+                                           const int* __restrict__ el_in,
+                                           const int* __restrict__ vc_in,
+                                           const int* __restrict__ scal_in) {
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = L.lane + 32 * t;
+    const bool real = j < L.k;
+    s.act[t] = __ballot_sync(kAll, real && active_in[j] != 0);
+    s.el[t] = real ? el_in[j] : 0;
+    s.vc[t] = real ? vc_in[j] : 0;
+    s.sc[t] = 0;
+  }
+  s.np = scal_in[S_NP];
+  s.total = scal_in[S_TOTAL];
+  s.cut = scal_in[S_CUT];
+  s.denied = scal_in[S_DENIED];
+  s.scale = scal_in[S_SCALE];
+}
+
+// The window's counters out: the K-vectors, the cut matrix from shared
+// memory (row stride ks) and the scalars.
+template <int KT>
+__device__ __forceinline__ void store_state(const Lanes<KT>& L,
+                                            const State<KT>& s, const int* cm,
+                                            int ks, int* __restrict__ active_out,
+                                            int* __restrict__ loads_out,
+                                            int* __restrict__ cm_out,
+                                            int* __restrict__ scal_out) {
+  const int lane = L.lane, k = L.k;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    if (L.real(t)) {
+      active_out[j] = L.active(s.act, t) ? 1 : 0;
+      loads_out[j] = s.el[t];
+      loads_out[k + j] = s.vc[t];
+    }
+  }
+  for (int j = lane; j < k * k; j += 32) {
+    const int r = j / k;
+    cm_out[j] = cm[r * ks + (j - r * k)];
+  }
+  if (lane == 0) {
+    scal_out[S_NP] = s.np;
+    scal_out[S_TOTAL] = s.total;
+    scal_out[S_CUT] = s.cut;
+    scal_out[S_DENIED] = s.denied;
+    scal_out[S_SCALE] = s.scale;
+  }
+}
+
+// transition.scale_out in the decider warp: if MAXCAP <= |E| / |P|,
+// activate the first inactive partition (or count a denied scale-out when
+// none is free)
+template <int KT>
+__device__ __forceinline__ void scale_out(const Lanes<KT>& L, State<KT>& s,
+                                          const float (&kn)[KNOB_N]) {
+  const float p = fmaxf(static_cast<float>(s.np), 1.0f);
+  const float thr = static_cast<float>(s.total) / p;
+  const bool want = kn[K_MAX_CAP] <= thr;
+  int slot = -1;
+#pragma unroll
+  for (int t = KT - 1; t >= 0; --t) {
+    const unsigned b = __ballot_sync(kAll, L.real(t) && !L.active(s.act, t));
+    if (b) slot = 32 * t + __ffs(b) - 1;
+  }
+  if (want && slot >= 0) {
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if ((slot >> 5) == t) s.act[t] |= 1u << (slot & 31);
+    s.np += 1;
+    s.scale += 1;
+  } else if (want) {
+    s.denied += 1;
+  }
+}
+
+// transition.merge_slot from the slot's histogram s.sc: a fresh ADD commits
+// to p, a DEL_VERTEX of a present vertex removes from p_dv, an existing
+// DEL_EDGE removes the (p_dv, pu) edge — the K-vectors and the scalars in
+// registers, then the cut matrix in shared memory (row stride ks). The next
+// reader of the cut matrix syncs the warp first.
+template <int KT>
+__device__ __forceinline__ void merge_slot(const Lanes<KT>& L, State<KT>& s,
+                                           int* cm, int ks, int p, int deg,
+                                           int fresh, int was, int exists,
+                                           int p_dv, int pu) {
+  const int lane = L.lane;
+  const int d_add = fresh ? deg : 0;
+  const int d_dv = was ? deg : 0;
+  const int cutdec = (exists && p_dv != pu) ? 1 : 0;
+  const int sca_p = fresh ? L.pick(s.sc, p) : 0;
+  const int scd_pdv = was ? L.pick(s.sc, p_dv) : 0;
+#pragma unroll
+  for (int t = 0; t < KT; ++t) {
+    const int j = lane + 32 * t;
+    int e_j = s.el[t] + (fresh ? s.sc[t] : 0) - (was ? s.sc[t] : 0);
+    if (j == p) e_j += d_add;
+    if (j == p_dv) e_j -= d_dv + exists;
+    if (j == pu) e_j -= exists;
+    s.el[t] = e_j;
+    if (j == p) s.vc[t] += fresh;
+    if (j == p_dv) s.vc[t] -= was;
+  }
+  s.total = s.total + d_add - d_dv - exists;
+  s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
+
+  // cut-matrix row/column adds: lane j owns [q][j] and [j][q]; a slot is
+  // one event type, so at most one of the three updates runs
+  if (fresh || was) {
+    const int q = fresh ? p : p_dv;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int j = lane + 32 * t;
+      const int add = fresh ? s.sc[t] : -s.sc[t];
+      if (L.real(t) && add) {
+        if (j == q) {
+          cm[q * ks + q] += 2 * add;
+        } else {
+          cm[q * ks + j] += add;
+          cm[j * ks + q] += add;
+        }
+      }
+    }
+  } else if (exists && lane == 0) {
+    cm[p_dv * ks + pu] -= 1;
+    cm[pu * ks + p_dv] -= 1;
+  }
+}
+
 template <int POLICY, bool ALG1, int KT>
 __global__ void __launch_bounds__(kThreads)
 fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl,
@@ -486,20 +621,7 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
   // The decider warp.
   const Lanes<KT> L{lane, k};
   State<KT> s;
-#pragma unroll
-  for (int t = 0; t < KT; ++t) {
-    const int j = lane + 32 * t;
-    const bool real = j < k;
-    s.act[t] = __ballot_sync(kAll, real && active_in[j] != 0);
-    s.el[t] = real ? el_in[j] : 0;
-    s.vc[t] = real ? vc_in[j] : 0;
-    s.sc[t] = 0;
-  }
-  s.np = scal_in[S_NP];
-  s.total = scal_in[S_TOTAL];
-  s.cut = scal_in[S_CUT];
-  s.denied = scal_in[S_DENIED];
-  s.scale = scal_in[S_SCALE];
+  load_state(L, s, active_in, el_in, vc_in, scal_in);
   float kn[KNOB_N];
 #pragma unroll
   for (int j = 0; j < KNOB_N; ++j) kn[j] = knobs[j];
@@ -548,27 +670,7 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
     }
     in_src = -1;
 
-    if (autoscaling && add_i) {                         // scale_out
-      const float p = fmaxf(static_cast<float>(s.np), 1.0f);
-      const float thr = static_cast<float>(s.total) / p;
-      const bool want = kn[K_MAX_CAP] <= thr;
-      int slot = -1;
-#pragma unroll
-      for (int t = KT - 1; t >= 0; --t) {
-        const unsigned b =
-            __ballot_sync(kAll, L.real(t) && !L.active(s.act, t));
-        if (b) slot = 32 * t + __ffs(b) - 1;
-      }
-      if (want && slot >= 0) {
-#pragma unroll
-        for (int t = 0; t < KT; ++t)
-          if ((slot >> 5) == t) s.act[t] |= 1u << (slot & 31);
-        s.np += 1;
-        s.scale += 1;
-      } else if (want) {
-        s.denied += 1;
-      }
-    }
+    if (autoscaling && add_i) scale_out(L, s, kn);
 
     // the DEL subjects' labels do not depend on this slot's choice
     const int vl = label_at(e[EV_VLBL], e[EV_VTOUCH]);
@@ -577,48 +679,8 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
     const int ridx = rand_s[buf * k + np1 - 1];
     const int p = choose<POLICY, ALG1, KT>(L, s, stage, deg, v, ridx, kn);
 
-    const int p_dv = vl > 0 ? vl : 0;
-    const int pu = ul > 0 ? ul : 0;
-    const int d_add = fresh ? deg : 0;
-    const int d_dv = was ? deg : 0;
-    const int cutdec = (exists && p_dv != pu) ? 1 : 0;
-    const int sca_p = fresh ? L.pick(s.sc, p) : 0;
-    const int scd_pdv = was ? L.pick(s.sc, p_dv) : 0;
-#pragma unroll
-    for (int t = 0; t < KT; ++t) {
-      const int j = lane + 32 * t;
-      int e_j = s.el[t] + (fresh ? s.sc[t] : 0) - (was ? s.sc[t] : 0);
-      if (j == p) e_j += d_add;
-      if (j == p_dv) e_j -= d_dv + exists;
-      if (j == pu) e_j -= exists;
-      s.el[t] = e_j;
-      if (j == p) s.vc[t] += fresh;
-      if (j == p_dv) s.vc[t] -= was;
-    }
-    s.total = s.total + d_add - d_dv - exists;
-    s.cut = s.cut + (d_add - sca_p) - (d_dv - scd_pdv) - cutdec;
-
-    // cut-matrix row/column adds: lane j owns [q][j] and [j][q]; a slot is
-    // one event type, so at most one of the three updates runs
-    if (fresh || was) {
-      const int q = fresh ? p : p_dv;
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int j = lane + 32 * t;
-        const int add = fresh ? s.sc[t] : -s.sc[t];
-        if (L.real(t) && add) {
-          if (j == q) {
-            cm[q * ks + q] += 2 * add;
-          } else {
-            cm[q * ks + j] += add;
-            cm[j * ks + q] += add;
-          }
-        }
-      }
-    } else if (exists && lane == 0) {
-      cm[p_dv * ks + pu] -= 1;
-      cm[pu * ks + p_dv] -= 1;
-    }
+    merge_slot(L, s, cm, ks, p, deg, fresh, was, exists, vl > 0 ? vl : 0,
+               ul > 0 ? ul : 0);
 
     if (lane == 0) {
       const int new_lbl = add_i ? (fresh ? p : vl) : (dv_i ? -1 : vl);
@@ -709,27 +771,8 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
   }
 
   for (int j = lane; j < w; j += 32) w_label_out[j] = w_label[j];
-#pragma unroll
-  for (int t = 0; t < KT; ++t) {
-    const int j = lane + 32 * t;
-    if (L.real(t)) {
-      remap_out[j] = remap[j];
-      active_out[j] = L.active(s.act, t) ? 1 : 0;
-      loads_out[j] = s.el[t];
-      loads_out[k + j] = s.vc[t];
-    }
-  }
-  for (int j = lane; j < k * k; j += 32) {
-    const int r = j / k;
-    cm_out[j] = cm[r * ks + (j - r * k)];
-  }
-  if (lane == 0) {
-    scal_out[S_NP] = s.np;
-    scal_out[S_TOTAL] = s.total;
-    scal_out[S_CUT] = s.cut;
-    scal_out[S_DENIED] = s.denied;
-    scal_out[S_SCALE] = s.scale;
-  }
+  for (int j = lane; j < k; j += 32) remap_out[j] = remap[j];
+  store_state(L, s, cm, ks, active_out, loads_out, cm_out, scal_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -1310,28 +1353,43 @@ fused_chooser_large_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The pure-ADD window's fixup (add_window_launch): the slot loop of an
-// ADD-only window, the reference's lax.scan at src/repro/core/windowed.py:
-// 138-169 (no Pallas kernel; the port ran it as a Python loop of ~40 torch
-// ops a slot). partition_affinity has scored every slot against the
-// window-start state; slot i then adds its neighbours among the window's
-// earlier slots (win_pos[i, d] < i): each counts in its degree, and under
-// its label if its slot committed one. One decider warp walks the slots in
-// order with the large-K kernel's layout for every K — the K-vectors in
-// shared memory, the cut matrix in device memory (cm_out, copied from the
-// input by the launch) — and its device code: wide::scale_out before every
-// ADD, wide::choose and wide::merge_slot for a fresh one. No deletions and
-// no scale-in. A pad or a vertex present at the window's start commits
-// nothing, so it skips the histogram and the choice.
+// The pure-ADD window's fixup: the slot loop of an ADD-only window, the
+// reference's lax.scan at src/repro/core/windowed.py:138-169 (no Pallas
+// kernel; the port ran it as a Python loop of ~40 torch ops a slot).
+// partition_affinity has scored every slot against the window-start state;
+// slot i then adds its neighbours among the window's earlier slots
+// (win_pos[i, d] < i): each counts in its degree, and under its label if its
+// slot committed one. Scale-out before every ADD (pads skip it), the policy
+// and the merge for a fresh one; no deletions and no scale-in. A pad or a
+// vertex present at the window's start commits nothing, so the decider
+// skips its histogram and choice. Two kernels, chosen by K on the host
+// (fused_chooser.add_dispatch):
+//
+// * add_lanes_kernel (add_window_lanes_launch, K <= 192): the lanes
+//   kernel's structure and device code — the decider warp's K-vectors on
+//   its lanes (load_state, scale_out, choose, merge_slot), the cut matrix
+//   in shared memory — fed by the two producer warps of produce_adds: one
+//   loads slot s's win_pos row, score row, random row and scalars while the
+//   decider decides s - 1, then, once slots <= s - 2 are final, stores the
+//   score row into the slot's buffer and counts the earlier slots' labels
+//   from w_assign into it, leaving out the entries at position s - 1 — the
+//   decider adds those under slot s - 1's label, if it committed one. The
+//   degree needs no label, so the producer counts it whole.
+// * add_window_kernel (add_window_launch, any K whose vectors fit): one
+//   decider warp on the large-K kernel's layout — the K-vectors in shared
+//   memory, the cut matrix in device memory (cm_out, copied from the input
+//   by the launch) — and its device code (wide::scale_out, wide::choose,
+//   wide::merge_slot); it counts each slot's row itself.
 //
 // Bound: a latency chain of W dependent slots (slot i reads the labels
-// earlier slots chose), each one row of win_pos and the choice; its bytes,
-// W (K + 2 D + 3) + K (K + 3) ints read and written once, are far below a
-// microsecond of HBM time. An estimate, not measured: a slot's chain is
-// the fused chooser's (~490 cycles: the slot's label, its histogram, the
-// choice, the merge; see the note at the top), so W = 256 slots ~125,000
-// cycles, ~0.063 ms at 1.98 GHz. Shared memory 4 (W + 4 K + ceil(K / 32))
-// bytes.
+// earlier slots chose); its bytes, W (K + 2 D + 3) + K (K + 3) ints read and
+// written once, are far below a microsecond of HBM time. An estimate, not
+// measured: the lanes kernel's chain a committing slot is the fused
+// chooser's (~490 cycles: the slot's flag, its histogram, the choice, the
+// merge; see the note at the top), ~125,000 cycles = 0.063 ms a window of
+// 256 at 1.98 GHz; a slot that commits nothing costs its flag's round trip
+// (~100 cycles). Shared memory: the lanes kernel 4 (32 + W + 5 K + K (K +
+// 1)) bytes, the large one 4 (W + 4 K + ceil(K / 32)).
 // ---------------------------------------------------------------------------
 
 size_t add_smem_bytes(int w, int k) {
@@ -1424,6 +1482,158 @@ add_window_kernel(const int* __restrict__ scores_c, const int* __restrict__ deg_
     scal_out[S_DENIED] = s.denied;
     scal_out[S_SCALE] = s.scale;
   }
+}
+
+// The pure-ADD lanes kernel's producer warps (threads 32..95): producer p
+// takes slots p, p + 2, ... Slot s's scalars, score row, random row and
+// first kBatch rounds of win_pos are loaded before it waits for slots up to
+// s - 2 to be final; then, for a fresh slot, the score row goes into the
+// slot's buffer and the labels of its neighbours at positions < s - 1 are
+// counted into it (shared atomics), the neighbours at s - 1 only counted.
+template <int KT>
+__device__ __forceinline__ void produce_adds(
+    const int* __restrict__ scores_c, const int* __restrict__ deg_c,
+    const int* __restrict__ win_pos, const unsigned char* __restrict__ fresh_c,
+    const int* __restrict__ vs, const int* __restrict__ rand_tab, int* flags,
+    int* ev_s, const int* w_assign, int* hist, int* rand_s, int w, int d,
+    int k) {
+  const int lane = threadIdx.x & 31;
+  const int producer = (threadIdx.x >> 5) - 1;    // 0 or 1
+  int* decided = flags;
+  int* ready = flags + 1;
+  for (int sl = producer; sl < w; sl += 2) {
+    const int buf = sl & 1;
+    int* h = hist + buf * k;
+    const size_t rk = static_cast<size_t>(sl) * k;
+    const int* wp = win_pos + static_cast<size_t>(sl) * d;
+    const int fresh = __ldg(fresh_c + sl);
+    const int vv = __ldg(vs + sl);
+    const int dg = __ldg(deg_c + sl);
+    int rv[KT], sv[KT];
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int j = lane + 32 * t;
+      rv[t] = j < k ? __ldg(rand_tab + rk + j) : 0;
+      sv[t] = j < k ? __ldg(scores_c + rk + j) : 0;
+    }
+    int intra = 0, pend = 0;
+    for (int j0 = 0; j0 < d; j0 += 32 * kBatch) {
+      int pos[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        pos[b] = __ldg(wp + min(j0 + 32 * b + lane, d - 1));
+      if (j0 == 0) {
+        wait_flag(decided, sl - 1);               // slots <= sl - 2 final
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+          if (fresh && lane + 32 * t < k) h[lane + 32 * t] = sv[t];
+        __syncwarp();
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const bool in = j0 + 32 * b + lane < d && pos[b] >= 0 && pos[b] < sl;
+        intra += in;
+        if (in && fresh && pos[b] == sl - 1) {
+          ++pend;
+        } else if (in && fresh) {
+          const int lab = w_assign[pos[b]];
+          if (lab >= 0) atomicAdd(&h[lab], 1);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+      if (lane + 32 * t < k) rand_s[buf * k + lane + 32 * t] = rv[t];
+    intra = __reduce_add_sync(kAll, intra);
+    pend = __reduce_add_sync(kAll, pend);
+    if (lane == 0) {
+      int* e = ev_s + buf * kEvPad;
+      e[0] = vv;
+      e[1] = fresh;
+      e[2] = dg + intra;
+      e[3] = pend;
+    }
+    publish(ready + buf, sl + 1);
+  }
+}
+
+template <int POLICY, bool ALG1, int KT>
+__global__ void __launch_bounds__(kThreads)
+add_lanes_kernel(const int* __restrict__ scores_c, const int* __restrict__ deg_c,
+                 const int* __restrict__ win_pos,
+                 const unsigned char* __restrict__ fresh_c,
+                 const int* __restrict__ vs, const int* __restrict__ rand_tab,
+                 const int* __restrict__ active_in, const int* __restrict__ el_in,
+                 const int* __restrict__ vc_in, const int* __restrict__ cm_in,
+                 const int* __restrict__ scal_in, const float* __restrict__ knobs,
+                 int* __restrict__ w_assign_out, int* __restrict__ active_out,
+                 int* __restrict__ loads_out, int* __restrict__ cm_out,
+                 int* __restrict__ scal_out, int w, int d, int k,
+                 int autoscaling) {
+  const int lane = threadIdx.x & 31;
+  const int ks = k + 1;                   // cut-matrix row stride (banks)
+  extern __shared__ int smem[];
+  int* flags = smem;                      // [decided, ready x2, -]
+  int* ev_s = smem + 8;                   // [2][kEvPad] vs, fresh, deg, pend
+  int* w_assign = ev_s + 2 * kEvPad;      // [w]
+  int* hist = w_assign + w;               // [2][k] two slots' score rows
+  int* rand_s = hist + 2 * k;             // [2][k] two slots' random rows
+  float* stage = reinterpret_cast<float*>(rand_s + 2 * k);   // [k]
+  int* cm = rand_s + 3 * k;               // [k][ks]
+  for (int j = threadIdx.x; j < w; j += kThreads) w_assign[j] = -1;
+  for (int j = threadIdx.x; j < k * k; j += kThreads) {
+    const int r = j / k;
+    cm[r * ks + (j - r * k)] = cm_in[j];
+  }
+  if (threadIdx.x < 8) flags[threadIdx.x] = 0;
+  __syncthreads();                        // the only block barrier
+
+  if (threadIdx.x >= 32) {
+    produce_adds<KT>(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, flags,
+                     ev_s, w_assign, hist, rand_s, w, d, k);
+    return;
+  }
+
+  // The decider warp.
+  const Lanes<KT> L{lane, k};
+  State<KT> s;
+  load_state(L, s, active_in, el_in, vc_in, scal_in);
+  float kn[KNOB_N];
+#pragma unroll
+  for (int j = 0; j < KNOB_N; ++j) kn[j] = knobs[j];
+  int* decided = flags;
+  int* ready = flags + 1;
+
+  for (int i = 0; i < w; ++i) {
+    const int buf = i & 1;
+    wait_flag(ready + buf, i + 1);
+    const int* e = ev_s + buf * kEvPad;
+    const int vi = e[0];
+    // the reference scales out before every ADD (pads skip it)
+    if (autoscaling && vi >= 0) scale_out(L, s, kn);
+    if (e[1]) {                                        // a fresh ADD
+      const int deg = e[2];
+      const int n_pend = e[3];
+      const int* h = hist + buf * k;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) s.sc[t] = L.real(t) ? h[lane + 32 * t] : 0;
+      if (n_pend) {            // the neighbours at slot i - 1, under its label
+        const int lab = w_assign[i - 1];
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+          if (lane + 32 * t == lab) s.sc[t] += n_pend;
+      }
+      const int np1 = s.np > 1 ? s.np : 1;
+      const int ridx = rand_s[buf * k + np1 - 1];
+      const int p = choose<POLICY, ALG1, KT>(L, s, stage, deg, vi, ridx, kn);
+      merge_slot(L, s, cm, ks, p, deg, 1, 0, 0, 0, 0);
+      if (lane == 0) w_assign[i] = p;
+    }
+    publish(decided, i + 1);              // w_assign, cut matrix settled
+  }
+
+  for (int j = lane; j < w; j += 32) w_assign_out[j] = w_assign[j];
+  store_state(L, s, cm, ks, active_out, loads_out, cm_out, scal_out);
 }
 
 size_t smem_bytes(int w, int k) {
@@ -1532,6 +1742,58 @@ cudaError_t launch_add(const int* scores_c, const int* deg_c,
   return cudaGetLastError();
 }
 
+size_t add_lanes_smem_bytes(int w, int k) {
+  const size_t kk = static_cast<size_t>(k);
+  return sizeof(int) * (8 + 2 * kEvPad + static_cast<size_t>(w) + 5 * kk
+                        + kk * (kk + 1));
+}
+
+template <int POLICY, bool ALG1, int KT>
+cudaError_t launch_add_lanes_kt(const int* scores_c, const int* deg_c,
+                                const int* win_pos,
+                                const unsigned char* fresh_c, const int* vs,
+                                const int* rand_tab, const int* active,
+                                const int* el, const int* vc, const int* cm,
+                                const int* scal, const float* knobs,
+                                int* w_assign, int* active_out, int* loads,
+                                int* cm_out, int* scal_out, int w, int d,
+                                int k, int autoscaling, cudaStream_t stream) {
+  auto kernel = add_lanes_kernel<POLICY, ALG1, KT>;
+  const size_t smem = add_lanes_smem_bytes(w, k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<1, kThreads, smem, stream>>>(scores_c, deg_c, win_pos, fresh_c, vs,
+                                        rand_tab, active, el, vc, cm, scal,
+                                        knobs, w_assign, active_out, loads,
+                                        cm_out, scal_out, w, d, k,
+                                        autoscaling);
+  return cudaGetLastError();
+}
+
+template <int POLICY, bool ALG1>
+cudaError_t launch_add_lanes(const int* scores_c, const int* deg_c,
+                             const int* win_pos, const unsigned char* fresh_c,
+                             const int* vs, const int* rand_tab,
+                             const int* active, const int* el, const int* vc,
+                             const int* cm, const int* scal,
+                             const float* knobs, int* w_assign,
+                             int* active_out, int* loads, int* cm_out,
+                             int* scal_out, int w, int d, int k,
+                             int autoscaling, cudaStream_t stream) {
+  if (w <= 0 || d <= 0 || k <= 0 || k > 32 * kMaxKt
+      || add_lanes_smem_bytes(w, k) > kSmemMax)
+    return cudaErrorInvalidValue;
+  return (k <= 32 ? launch_add_lanes_kt<POLICY, ALG1, 1>
+                  : launch_add_lanes_kt<POLICY, ALG1, kMaxKt>)(
+      scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active, el, vc, cm,
+      scal, knobs, w_assign, active_out, loads, cm_out, scal_out, w, d, k,
+      autoscaling, stream);
+}
+
 }  // namespace
 
 #define FUSED_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, \
@@ -1602,7 +1864,8 @@ extern "C" int fused_chooser_large_launch(
 // A pure-ADD window's fixup: committed scores (w, k) and degrees (w,), the
 // window positions of the rows' neighbours (w, d), the fresh flags and
 // subjects (w,), the random table (w, k), the window-start counters; out the
-// slots' labels (w,) and the new counters, as fused_chooser_launch's.
+// slots' labels (w,) and the new counters, as fused_chooser_launch's. The
+// large kernel, any K whose vectors fit its shared memory.
 extern "C" int add_window_launch(
     const int* scores_c, const int* deg_c, const int* win_pos,
     const unsigned char* fresh_c, const int* vs, const int* rand_tab,
@@ -1611,4 +1874,15 @@ extern "C" int add_window_launch(
     int* loads, int* cm_out, int* scal_out, int w, int d, int k, int policy,
     int alg1, int autoscaling, cudaStream_t stream) {
   POLICY_SWITCH(launch_add, ADD_ARGS)
+}
+
+// The same fixup in the lanes kernel (K <= 192).
+extern "C" int add_window_lanes_launch(
+    const int* scores_c, const int* deg_c, const int* win_pos,
+    const unsigned char* fresh_c, const int* vs, const int* rand_tab,
+    const int* active, const int* el, const int* vc, const int* cm,
+    const int* scal, const float* knobs, int* w_assign, int* active_out,
+    int* loads, int* cm_out, int* scal_out, int w, int d, int k, int policy,
+    int alg1, int autoscaling, cudaStream_t stream) {
+  POLICY_SWITCH(launch_add_lanes, ADD_ARGS)
 }

@@ -35,12 +35,15 @@ and the cut matrix in device memory, for any K up to ``large_max_k(W)``
 (9,587 at W = 256), where its 4·(32 + W + 6K + ⌈K/32⌉) bytes of shared
 memory reach the 232,448 a block can have.
 
-The source's third kernel, ``add_window_choose``, is a pure-ADD window's
-slot loop (the JAX package's ``lax.scan`` at
-``src/repro/core/windowed.py:167``; no Pallas kernel): one decider warp
-on the large-K kernel's decider code at every K, from
-``partition_affinity``'s committed scores and the window's neighbour
-positions; its plain version is ``windowed.add_window_fixup_ref``.
+``add_window_choose`` runs a pure-ADD window's slot loop (the JAX
+package's ``lax.scan`` at ``src/repro/core/windowed.py:167``; no Pallas
+kernel) from ``partition_affinity``'s committed scores and the window's
+neighbour positions, on the same two layouts (``add_dispatch``): the
+lanes kernel up to K = 192 — the decider's code, two producer warps that
+load slot s and count its earlier neighbours' labels while the decider
+decides s − 1 — and above it one decider warp on the large kernel's
+layout, up to ``add_max_k(W)``. Its plain version is
+``windowed.add_window_fixup_ref``.
 """
 from __future__ import annotations
 
@@ -88,15 +91,42 @@ def large_max_k(w: int) -> int:
 
 
 def add_smem_bytes(w: int, k: int) -> int:
-    """Shared memory of the pure-ADD kernel (csrc's ``add_smem_bytes``):
-    ``w_assign``, four K-vectors and the active bits."""
+    """Shared memory of the large pure-ADD kernel (csrc's
+    ``add_smem_bytes``): ``w_assign``, four K-vectors and the active
+    bits."""
     return 4 * (w + 4 * k + -(-k // 32))
 
 
+def add_lanes_smem_bytes(w: int, k: int) -> int:
+    """Shared memory of the lanes pure-ADD kernel (csrc's
+    ``add_lanes_smem_bytes``): 8 flags, two scalar rows, ``w_assign``, two
+    score and two random rows, the f32 stage and the padded cut matrix."""
+    return 4 * (8 + 2 * EV_PAD + w + 5 * k + k * (k + 1))
+
+
 def add_max_k(w: int) -> int:
-    """The most partitions the pure-ADD kernel takes at a window of ``w``."""
+    """The most partitions the large pure-ADD kernel takes at a window of
+    ``w``."""
     return bisect.bisect_right(range(1, SMEM_MAX), SMEM_MAX,
                                key=lambda k: add_smem_bytes(w, k))
+
+
+def add_dispatch(w: int, k: int) -> str:
+    """Which kernel the pure-ADD window of ``w`` slots over ``k``
+    partitions takes: ``lanes`` up to LANES_MAX_K (where its shared memory
+    fits), ``large`` above — by shape, never on failure. Raises where
+    neither takes it."""
+    if k < 1:
+        raise ValueError(f"k_max must be >= 1, got {k}")
+    if k <= LANES_MAX_K and add_lanes_smem_bytes(w, k) <= SMEM_MAX:
+        return "lanes"
+    if k > add_max_k(w):
+        raise ValueError(
+            f"k_max={k} is above the {add_max_k(w)} partitions the large "
+            f"pure-ADD kernel takes at a window of {w}: its "
+            f"{add_smem_bytes(w, k)} bytes of shared memory pass the "
+            f"{SMEM_MAX} a block can have")
+    return "large"
 
 
 def dispatch(w: int, k: int) -> str:
@@ -199,8 +229,8 @@ def _lib():
         lib.fused_chooser_max_k.restype = ctypes.c_int
         lib.fused_chooser_large_max_k.argtypes = [ctypes.c_int]
         lib.fused_chooser_large_max_k.restype = ctypes.c_int
-        add = lib.add_window_launch
-        add.argtypes, add.restype = fn.argtypes, fn.restype
+        for add in (lib.add_window_launch, lib.add_window_lanes_launch):
+            add.argtypes, add.restype = fn.argtypes, fn.restype
     return lib
 
 
@@ -299,8 +329,9 @@ def add_window_choose(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
     ``vs`` (W,) (-1 pads), the random table (W, K)
     (``window_rng``), the O(K) counter slice and the (7,) f32 knobs (see
     ``windowed.prepare_add_window``). CUDA tensors launch the pure-ADD
-    kernel of ``csrc/fused_chooser.cu`` (counted in
-    ``add_window_choose.launches``); CPU tensors run the plain loop,
+    kernel that ``add_dispatch`` names (counted in
+    ``add_window_choose.launches`` and, by kernel, in
+    ``add_window_choose.kernel_launches``); CPU tensors run the plain loop,
     ``windowed.add_window_fixup_ref``."""
     tensors = (scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
                edge_load, vertex_count, cut_matrix, scalars, knobs)
@@ -324,13 +355,35 @@ def add_window_choose(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
     check_input(knobs, "knobs", torch.float32, (7,))
     if balance_guard not in ("text", "alg1"):
         raise ValueError(f"balance_guard={balance_guard!r} is unknown")
-    if not 1 <= k <= add_max_k(w):
-        raise ValueError(
-            f"k_max={k} is outside the 1..{add_max_k(w)} partitions the "
-            f"pure-ADD kernel takes at a window of {w}: its "
-            f"{add_smem_bytes(w, k)} bytes of shared memory pass the "
-            f"{SMEM_MAX} a block can have")
+    if w < 1 or d < 1:
+        raise ValueError(f"add_window_choose needs a window of at least one "
+                         f"slot and one column, got win_pos of shape "
+                         f"{(w, d)}")
+    kernel = add_dispatch(w, k)
+    out = add_launch(kernel, *tensors, policy=policy,
+                     balance_guard=balance_guard, autoscaling=autoscaling)
+    add_window_choose.launches += 1
+    add_window_choose.kernel_launches[kernel] += 1
+    return out
+
+
+def add_launch(kernel, scores_c, deg_c, win_pos, fresh_c, vs, rand_tab,
+               active, edge_load, vertex_count, cut_matrix, scalars, knobs, *,
+               policy: str, balance_guard: str, autoscaling: bool):
+    """Launches the pure-ADD ``kernel`` (one of KERNELS) on checked CUDA
+    inputs and returns ``add_window_choose``'s outputs, uncounted: the
+    wrapper's launch, and the sweep's and the card tests', which launch the
+    large kernel at shapes the wrapper sends to the lanes kernel."""
+    tensors = (scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
+               edge_load, vertex_count, cut_matrix, scalars, knobs)
+    if not on_cuda(*tensors):
+        raise ValueError("add_launch takes CUDA tensors")
+    w, d = win_pos.shape
+    k = rand_tab.shape[1]
     dev = win_pos.device
+    lib = _lib()
+    fn = (lib.add_window_lanes_launch if kernel == "lanes"
+          else lib.add_window_launch)
     active_i = active.to(_I32)
     out = (torch.empty((w,), dtype=_I32, device=dev),          # w_assign
            torch.empty((k,), dtype=_I32, device=dev),          # active
@@ -341,12 +394,11 @@ def add_window_choose(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,
                                    rand_tab, active_i, edge_load,
                                    vertex_count, cut_matrix, scalars, knobs)
             + out]
-    err = _lib().add_window_launch(
-        *ptrs, w, d, k, tx.POLICY_INDEX[policy], int(balance_guard == "alg1"),
-        int(autoscaling), stream_ptr(dev))
-    check_launch(err, "fused_chooser (add_window)")
-    add_window_choose.launches += 1
+    err = fn(*ptrs, w, d, k, tx.POLICY_INDEX[policy],
+             int(balance_guard == "alg1"), int(autoscaling), stream_ptr(dev))
+    check_launch(err, f"fused_chooser (add_window, {kernel})")
     return out
 
 
 add_window_choose.launches = 0
+add_window_choose.kernel_launches = dict.fromkeys(KERNELS, 0)

@@ -13,10 +13,11 @@ Mixed window (``run_window_mixed_fused``; see fused_chooser.py for the
 design):
 
   1. ``_prepare_window`` — choice-independent prep: one ``window_prep``
-     launch walks the W slots carrying (adj, presence, last_touch), emits
+     launch derives presence and touch indices from the event list, emits
      the per-slot scalar rows and the (W, D) committed-label / touch-index
-     tables, and performs the faithful adjacency row writes (adjacency
-     never depends on partition choices);
+     tables, and performs the faithful adjacency row writes, each touched
+     row through its own chain of slots (adjacency never depends on
+     partition choices);
   2. ``window_rng`` — the per-slot random draw for every possible
      partition count, one launch;
   3. ONE ``fused_window_choose`` launch for all W slots;

@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the mixed window's kernels: the prep scan
 (``prepare_window_ref``, a Python loop over the slots) and the fused
 window chooser (the slot step ``fused_chooser.make_slot_step`` driven by a
-Python loop)."""
+Python loop); and CPU models of how their CUDA kernels split the work, for
+the tests (``prepare_window_chains``, the ``warp_*`` reductions)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import transition as tx
@@ -15,7 +17,7 @@ from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_DEL_EDGE, EVENT_DEL_VERTEX, EVENT_PAD,
 )
 from repro_torch.kernels.fused_chooser.fused_chooser import (
-    EV_COLS, make_slot_step,
+    EV_COLS, EV_EXISTS, make_slot_step,
 )
 
 _I32 = torch.int32
@@ -95,6 +97,96 @@ def prepare_window_ref(state: PartitionState, ets, vs, rows) -> WindowPrep:
         tx._write(adj, safe_u, de_i,
                   torch.where((row_u == v) & (u >= 0), -1, row_u))
     return WindowPrep(ev, src_lbl, touch, label0, last_touch, adj)
+
+
+def prepare_window_chains(state: PartitionState, ets, vs, rows
+                          ) -> WindowPrep:
+    """A CPU model of the ``window_prep`` kernel's decomposition (tests
+    only; same arguments, outputs and in-place adjacency update as
+    ``prepare_window_ref``). First, from the event list alone, each slot's
+    previous toucher of a vertex (``touch_before``: the kernel's (first,
+    last, count) shortcut, else a scan down to the first touch), presence
+    and freshness; then each adjacency row the window touches walked
+    through its own chain of slots, from its pre-window value, on its own
+    — the order of the rows is free."""
+    et = np.where(vs.numpy() >= 0, ets.numpy(), EVENT_PAD)
+    v = np.maximum(vs.numpy(), 0)
+    rows_n = rows.numpy()
+    u = rows_n[:, 0]
+    w, d = rows_n.shape
+    present0 = state.present.numpy()
+    label0 = np.where(present0, state.assignment.numpy(), -1).astype(np.int32)
+    adj = state.adj.numpy()          # a view: the row writes land in place
+
+    touches: dict[int, list[int]] = {}
+    for j in range(w):
+        if et[j] in (EVENT_ADD, EVENT_DEL_VERTEX):
+            touches.setdefault(int(v[j]), []).append(j)
+
+    def touch_before(x: int, i: int) -> int:
+        ts = touches.get(x)
+        if not ts or ts[0] >= i:
+            return -1
+        if ts[-1] < i:
+            return ts[-1]
+        if len(ts) == 2:
+            return ts[0]
+        for j in range(i - 1, ts[0], -1):
+            if et[j] in (EVENT_ADD, EVENT_DEL_VERTEX) and v[j] == x:
+                return j
+        return ts[0]
+
+    def present_at(x: int, i: int) -> bool:
+        lt = touch_before(x, i)
+        return bool(et[lt] == EVENT_ADD) if lt >= 0 else bool(present0[x])
+
+    ev = np.zeros((w, EV_COLS), np.int32)
+    src_lbl = np.full((w, d), -1, np.int32)
+    touch = np.full((w, d), -1, np.int32)
+    chains: dict[int, list[int]] = {}
+    for i in range(w):
+        vi, su = int(v[i]), max(int(u[i]), 0)
+        pv, pu = present_at(vi, i), present_at(su, i)
+        fresh = et[i] == EVENT_ADD and not pv
+        ev[i, :5] = (et[i], vi, fresh, et[i] == EVENT_DEL_VERTEX and pv,
+                     0)
+        ev[i, 5:] = (label0[vi], touch_before(vi, i), label0[su],
+                     touch_before(su, i))
+        if et[i] == EVENT_ADD:
+            r = rows_n[i]
+            src_lbl[i] = np.where(r >= 0, label0[np.maximum(r, 0)], -1)
+            touch[i] = [touch_before(int(x), i) if x >= 0 else -1
+                        for x in r]
+        de = et[i] == EVENT_DEL_EDGE and u[i] >= 0
+        if fresh or et[i] == EVENT_DEL_VERTEX or de:
+            chains.setdefault(vi, []).append(i)
+        if de and u[i] != vi:
+            chains.setdefault(int(u[i]), []).append(i)
+
+    for x, slots in chains.items():
+        row = adj[x].copy()
+        for s in slots:
+            if et[s] == EVENT_ADD:                      # a fresh ADD
+                row = rows_n[s].copy()
+            elif et[s] == EVENT_DEL_VERTEX:             # scores its row
+                src_lbl[s] = np.where(row >= 0, label0[np.maximum(row, 0)],
+                                      -1)
+                touch[s] = [touch_before(int(r), s) if r >= 0 else -1
+                            for r in row]
+            elif v[s] == x:                             # write 1
+                hit = row == u[s]
+                ev[s, EV_EXISTS] = bool(hit.any()) and present_at(x, s) \
+                    and present_at(int(u[s]), s)
+                row[hit] = -1
+            else:                                       # write 2
+                row[row == v[s]] = -1
+        adj[x] = row
+
+    last_touch = np.full(label0.shape, -1, np.int32)
+    for x, ts in touches.items():
+        last_touch[x] = ts[-1]
+    return WindowPrep(*(torch.from_numpy(a) for a in (
+        ev, src_lbl, touch, label0, last_touch)), state.adj)
 
 
 def fused_window_choose_ref(ev, src_lbl, touch, rand_tab, active, edge_load,

@@ -1,4 +1,4 @@
-"""Timing of ``csrc/fused_chooser.cu``'s two kernels at one shape on the card.
+"""Timing of ``csrc/fused_chooser.cu``'s kernels at one shape on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.fused_chooser.sweep
 
@@ -6,15 +6,17 @@ Takes the streaming session's window at (W, D, K) = (256, 192, 16) —
 twitter at scale 0.03 degree-capped to 192, its churn stream, 768 events
 through the port's plain window engines — and launches both kernels on
 it: the lanes kernel, which ``dispatch`` picks there, and the large-K
-kernel, which takes any K. Checks the large kernel bit-equal to the lanes
-kernel for every policy x guard x autoscale; then prints the card's name
-and power limit, and one JSON line: each kernel's device time per window
-(SDP, text guard, autoscale; CUDA-graph replay), the lanes kernel's once
-more after the large one's (the spread of the timing). A development
-tool: nothing in the package runs it. Needs one CUDA card. Its window
-setups (``WINDOW_SETUPS``) and builders (``window_state``,
-``window_inputs``, ``crafted_window``, ``add_window_args``) also make the
-card tests' and ``chip_smoke.py``'s cases of the window kernels.
+kernel, which takes any K; and both pure-ADD kernels (``add_dispatch``)
+on the stream's first window, all of whose slots commit. Checks each
+large kernel bit-equal to its lanes kernel for every policy x guard x
+autoscale; then prints the card's name and power limit, and one JSON
+line: each kernel's device time per window (SDP, text guard, autoscale;
+CUDA-graph replay), each lanes kernel's once more after the large one's
+(the spread of the timing). A development tool: nothing in the package
+runs it. Needs one CUDA card. Its window setups (``WINDOW_SETUPS``) and
+builders (``window_state``, ``window_inputs``, ``crafted_window``,
+``chain_window``, ``add_window_args``) also make the card tests' and
+``chip_smoke.py``'s cases of the window kernels.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.graph.stream import (
 )
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
 from repro_torch.kernels.fused_chooser import ops as fops
+from repro_torch.kernels.partition_affinity.ops import scores_for_state
 from repro_torch.kernels.sweep import card, graph_ms
 
 # (dataset, scale, degree cap, row width, k_max, max_cap, window, warm
@@ -170,6 +173,41 @@ def crafted_window(state, window: int, seed: int, adds_only: bool = False):
     return ets, vs, rows
 
 
+def chain_window(state, window: int, seed: int, hot: int = 4):
+    """A window of (ets, vs, rows) over ``state`` (on its device) whose
+    events name only ``hot`` vertices, some present at its start, so each
+    of their rows carries a long chain of slots: ADDs whose rows name the
+    hot vertices, DEL_VERTEXes, DEL_EDGEs from either end, self-loop
+    DEL_EDGEs, DEL_EDGEs of no neighbour (u = -1), and pads."""
+    n, d = state.adj.shape
+    rng = np.random.default_rng(seed)
+    present = state.present.cpu().numpy()
+    pres, absent = np.flatnonzero(present), np.flatnonzero(~present)
+    pool = [int(rng.choice(p)) if len(p) else int(rng.integers(n))
+            for p in (pres, absent) for _ in range(-(-hot // 2))][:hot]
+    ets, vs, rows = [], [], []
+    for _ in range(window):
+        kind = int(rng.integers(6))
+        v = pool[int(rng.integers(len(pool)))]
+        r = np.full(d, -1, np.int32)
+        if kind == 0:                                   # ADD, hot row
+            k = int(rng.integers(1, d + 1))
+            r[:k] = np.where(rng.random(k) < 0.5,
+                             rng.choice(pool, size=k),
+                             rng.integers(0, n, size=k))
+        elif kind == 2:                                 # DEL_EDGE, hot u
+            r[0] = pool[int(rng.integers(len(pool)))]
+        elif kind == 3:                                 # self-loop
+            r[0] = v
+        ets.append(2 if kind in (2, 3, 4) else min(kind, 1))
+        vs.append(-1 if kind == 5 else v)
+        rows.append(r)
+    dev = state.adj.device
+    return (torch.tensor(ets, dtype=torch.int32, device=dev),
+            torch.tensor(vs, dtype=torch.int32, device=dev),
+            torch.from_numpy(np.stack(rows)).to(dev))
+
+
 def add_window_args(state, cfg, vs, rows, t0: int, score_fn=None):
     """``add_window_choose``'s twelve tensor arguments for the pure-ADD
     window (vs, rows) at event t0 over ``state`` (which it does not
@@ -204,11 +242,42 @@ def main() -> int:
         kernel, *args, **kw), 20) for kernel in fk.KERNELS}
     times["lanes_again"] = graph_ms(lambda: fk.launch("lanes", *args, **kw),
                                     20)
+    add_args, add_checked = add_window_first(dev), 0
+    for policy in POLICIES:
+        for guard in ("text", "alg1"):
+            for auto in (True, False):
+                akw = dict(policy=policy, balance_guard=guard,
+                           autoscaling=auto)
+                want = fk.add_launch("lanes", *add_args, **akw)
+                got = fk.add_launch("large", *add_args, **akw)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"the large pure-ADD kernel differs "
+                                         f"from the lanes one at {akw}")
+                add_checked += 1
+    add_times = {kernel: graph_ms(lambda kernel=kernel: fk.add_launch(
+        kernel, *add_args, **kw), 20) for kernel in fk.KERNELS}
+    add_times["lanes_again"] = graph_ms(
+        lambda: fk.add_launch("lanes", *add_args, **kw), 20)
     w, d = args[1].shape
     print(card())
     print(json.dumps({"shape": [w, d, args[3].shape[1]], "n": n,
-                      "bit_equal_cases": checked, "ms": times}), flush=True)
+                      "bit_equal_cases": checked, "ms": times,
+                      "add_window_choose": {
+                          "window": "first", "fresh": int(add_args[3].sum()),
+                          "bit_equal_cases": add_checked,
+                          "ms": add_times}}), flush=True)
     return 0
+
+
+def add_window_first(dev):
+    """``add_window_choose``'s arguments for the session's first window
+    (MAIN's stream from the empty state; its deletions, none in the
+    warm-up, as pads): every one of its 256 slots commits."""
+    name, scale, cap, width, k_max, max_cap, window, _ = MAIN
+    state, cfg, (et, vx, nb) = window_state(
+        dev, name, scale, cap, width, k_max, max_cap, window, 0, CHURN)
+    vs = torch.where(et[:window] == EVENT_ADD, vx[:window], -1)
+    return add_window_args(state, cfg, vs, nb[:window], 0, scores_for_state)
 
 
 if __name__ == "__main__":

@@ -9,19 +9,24 @@ the last earlier slot that relabelled each — and makes the window's
 adjacency row writes. The JAX package runs it as a ``lax.scan`` inside the
 jitted window program (``src/repro/kernels/fused_chooser/ops.py:113``); its
 plain version here is ``ref.prepare_window_ref``, a Python loop. The kernel
-walks the W slots in one block, its threads across D; see the source for
-why one barrier a slot is enough. Like the plain version it updates
+runs a block a slot: presence and touch indices come from the event list
+alone, and each adjacency row touched by the window is walked through its
+own chain of slots by the block of the first of them (see the source for
+why that equals the serial scan; ``ref.prepare_window_chains`` is a CPU
+model of the same decomposition). It also writes the committed journal
+``label0`` and the final ``last_touch``. Like the plain version it updates
 ``state.adj`` in place and leaves ``state.present`` unwritten.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.state import PartitionState
 from repro_torch.kernels.common import (
-    check_input, check_launch, load_kernel, on_cuda, stream_ptr,
+    SMEM_MAX, check_input, check_launch, load_kernel, on_cuda, stream_ptr,
 )
 from repro_torch.kernels.fused_chooser.fused_chooser import EV_COLS
 from repro_torch.kernels.fused_chooser.ref import WindowPrep, prepare_window_ref
@@ -29,10 +34,26 @@ from repro_torch.kernels.fused_chooser.ref import WindowPrep, prepare_window_ref
 _I32 = torch.int32
 
 
+def prep_smem_bytes(w: int) -> int:
+    """Shared memory of the kernel at a window of ``w`` slots (csrc's
+    ``smem_bytes``): five (W,) slot arrays and a five-array hash table of
+    the least power of two >= 4 W entries."""
+    return 4 * (5 * w + 5 * (1 << max(2, (4 * w - 1).bit_length())))
+
+
+@functools.cache
+def prep_max_w() -> int:
+    """The longest window the kernel takes (2,048 slots)."""
+    w = 1
+    while prep_smem_bytes(w + 1) <= SMEM_MAX:
+        w += 1
+    return w
+
+
 def _lib():
     fn = load_kernel("window_prep").window_prep_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -53,19 +74,26 @@ def window_prep(state: PartitionState, ets, vs, rows) -> WindowPrep:
                            ("adj", state.adj, (n, d))):
         check_input(t, name, _I32, shape)
     check_input(state.present, "present", torch.bool, (n,))
-    if w < 1 or d < 1:
-        raise ValueError(f"window_prep needs a window of at least one slot "
-                         f"and one column, got rows of shape {(w, d)}")
+    if w < 1 or d < 1 or n < 1:
+        raise ValueError(f"window_prep needs a window of at least one slot, "
+                         f"one column and one vertex, got rows of shape "
+                         f"{(w, d)} over {n} vertices")
+    if w > prep_max_w():
+        raise ValueError(
+            f"window_prep takes windows of up to {prep_max_w()} slots: at "
+            f"{w} its {prep_smem_bytes(w)} bytes of shared memory pass the "
+            f"{SMEM_MAX} a block can have")
     dev = vs.device
-    label0 = torch.where(state.present, state.assignment, -1)
-    last_touch = torch.full((n,), -1, dtype=_I32, device=dev)
+    label0 = torch.empty((n,), dtype=_I32, device=dev)
+    last_touch = torch.empty((n,), dtype=_I32, device=dev)
     ev = torch.empty((w, EV_COLS), dtype=_I32, device=dev)
     src_lbl = torch.empty((w, d), dtype=_I32, device=dev)
     touch = torch.empty((w, d), dtype=_I32, device=dev)
     err = _lib()(
-        ets.data_ptr(), vs.data_ptr(), rows.data_ptr(), label0.data_ptr(),
-        state.present.data_ptr(), state.adj.data_ptr(), last_touch.data_ptr(),
-        ev.data_ptr(), src_lbl.data_ptr(), touch.data_ptr(), w, d,
+        ets.data_ptr(), vs.data_ptr(), rows.data_ptr(),
+        state.assignment.data_ptr(), state.present.data_ptr(),
+        state.adj.data_ptr(), label0.data_ptr(), last_touch.data_ptr(),
+        ev.data_ptr(), src_lbl.data_ptr(), touch.data_ptr(), w, d, n,
         stream_ptr(dev))
     check_launch(err, "window_prep")
     window_prep.launches += 1

@@ -22,6 +22,9 @@ from repro_torch.kernels.embedding_bag.embedding_bag import (
 )
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
+from repro_torch.kernels.fused_chooser.window_prep import (
+    prep_max_w, prep_smem_bytes,
+)
 from repro_torch.kernels.partition_affinity import partition_affinity as pa
 
 from test_torch_engine import assert_same, churn_pair
@@ -81,6 +84,48 @@ def test_fused_chooser_launch_takes_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fk.launch("lanes", *([t] * 10), policy="sdp", balance_guard="text",
                   autoscaling=True)
+
+
+# the pure-ADD fixup: the lanes kernel to K = 192 while its shared memory,
+# 4 (32 + W + 5 K + K (K + 1)) bytes, fits (W <= 20,064 at K = 192), the
+# large kernel above
+@pytest.mark.parametrize("w,k,kernel", [
+    (256, 1, "lanes"), (256, 16, "lanes"), (256, 40, "lanes"),
+    (256, 192, "lanes"), (1, 192, "lanes"), (20064, 192, "lanes"),
+    (20065, 192, "large"), (256, 193, "large"), (256, 200, "large"),
+    (256, 1000, "large"), (4096, 4096, "large")])
+def test_add_window_dispatch(w, k, kernel):
+    assert fk.add_dispatch(w, k) == kernel
+
+
+def test_add_window_limits_are_shared_memory():
+    for w in (1, 256, 4096, 20064):
+        k = fk.add_max_k(w)
+        assert fk.add_smem_bytes(w, k) <= fk.SMEM_MAX \
+            < fk.add_smem_bytes(w, k + 1)
+        assert fk.add_lanes_smem_bytes(w, fk.LANES_MAX_K) <= fk.SMEM_MAX
+    assert fk.add_lanes_smem_bytes(20065, fk.LANES_MAX_K) > fk.SMEM_MAX
+    with pytest.raises(ValueError, match=f"above the {fk.add_max_k(256)} "
+                                         f"partitions"):
+        fk.add_dispatch(256, fk.add_max_k(256) + 1)
+    with pytest.raises(ValueError, match=">= 1"):
+        fk.add_dispatch(256, 0)
+
+
+def test_add_launch_takes_cuda_tensors():
+    t = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fk.add_launch("lanes", *([t] * 12), policy="sdp",
+                      balance_guard="text", autoscaling=True)
+
+
+def test_window_prep_limit_is_shared_memory():
+    """window_prep's tables — five (W,) arrays and a hash table of the
+    least power of two >= 4 W entries, five arrays — fit to W = 2,048."""
+    w = prep_max_w()
+    assert w == 2048
+    assert prep_smem_bytes(w) <= fk.SMEM_MAX < prep_smem_bytes(w + 1)
+    assert prep_smem_bytes(256) == 4 * (5 * 256 + 5 * 1024)
 
 
 def test_partition_affinity_limit():

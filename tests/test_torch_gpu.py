@@ -8,6 +8,8 @@ order) and at one bf16 ulp for its bf16 prefill and split kernels. Marked
 
 This file imports no JAX, so it runs on a machine that has only the port.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -46,7 +48,9 @@ from repro_torch.kernels.fused_chooser import ops as fops
 from repro_torch.kernels.fused_chooser import sweep as fsweep
 from repro_torch.kernels.fused_chooser.sweep import WINDOW_SETUPS
 from repro_torch.kernels.fused_chooser.ref import prepare_window_ref
-from repro_torch.kernels.fused_chooser.window_prep import window_prep
+from repro_torch.kernels.fused_chooser.window_prep import (
+    prep_max_w, window_prep,
+)
 from repro_torch.kernels.partition_affinity.ops import scores_for_state
 from repro_torch.kernels.window_rng.ops import window_rng
 from repro_torch.kernels.window_rng.ref import window_rng_ref
@@ -633,20 +637,42 @@ def _assert_prep_matches(state, ets, vs, rows):
     assert torch.equal(got_state.present, state.present)   # never written
 
 
-@pytest.mark.parametrize("window", ["stream", 0, 1, 2])
-@pytest.mark.parametrize("setup", ["session", "grqc_wide", "odd"])
+@pytest.mark.parametrize("window", ["stream", 0, 1, 2, 3, 4, 5,
+                                    "chain0", "chain1", "chain2"])
+@pytest.mark.parametrize("setup", ["session", "grqc_wide", "odd", "k1",
+                                   "k40", "k200", "k1000"])
 def test_window_prep_kernel_matches_plain(cuda, setup, window):
-    """The stream's own mixed window, and crafted ones (pads, self-loops,
-    an edge deleted from both endpoints, a vertex added twice, a deleted
-    vertex added again: ``sweep.crafted_window``)."""
+    """The stream's own mixed window, crafted ones (pads, self-loops, an
+    edge deleted from both endpoints, a vertex added twice, a deleted
+    vertex added again: ``sweep.crafted_window``) and windows over four hot
+    vertices, whose rows carry long chains of slots
+    (``sweep.chain_window``)."""
     state, _, (et, vx, nb) = _setup(cuda, setup)
     w, warm = WINDOW_SETUPS[setup][6:]
     if window == "stream":
         sl = slice(warm, warm + w)
         ets, vs, rows = et[sl], vx[sl], nb[sl]
+    elif isinstance(window, str):
+        ets, vs, rows = fsweep.chain_window(state, w, int(window[5:]))
     else:
         ets, vs, rows = fsweep.crafted_window(state, w, window)
     _assert_prep_matches(state, ets, vs, rows)
+
+
+def test_window_prep_limit_matches_the_build(cuda):
+    """The longest window the kernel takes is the wrapper's limit, and a
+    longer one raises before any launch."""
+    lib = common.load_kernel("window_prep")
+    lib.window_prep_max_w.restype = ctypes.c_int
+    assert lib.window_prep_max_w() == prep_max_w() == 2048
+    state = init_state(10, 3, 4, 1, seed=0, device=cuda)
+    w = prep_max_w() + 1
+    ets = torch.zeros(w, dtype=torch.int32, device=cuda)
+    rows = torch.full((w, 3), -1, dtype=torch.int32, device=cuda)
+    before = window_prep.launches
+    with pytest.raises(ValueError, match="up to 2048 slots"):
+        window_prep(state, ets, ets, rows)
+    assert window_prep.launches == before
 
 
 def _assert_add_matches(n, args, policy, autos):
@@ -684,11 +710,60 @@ def test_add_window_kernel_matches_plain(cuda, policy, setup, window):
     _assert_add_matches(state.assignment.shape[0], args, policy, autos)
 
 
+def _add_case(cuda, k_max, window):
+    """``add_window_choose``'s arguments and n on the session's stream at
+    ``k_max`` partitions: its first 256 events from the empty state (any
+    deletion a pad), or a crafted pure-ADD window after 768 events."""
+    spec = fsweep.MAIN[:4] + (k_max,) + fsweep.MAIN[5:]
+    w, warm = spec[6:]
+    if window == "first":
+        spec = spec[:7] + (0,)
+    if spec not in _STATES:
+        _STATES[spec] = fsweep.window_state(cuda, *spec, fsweep.CHURN)
+    state, cfg, (et, vx, nb) = _STATES[spec]
+    if window == "first":
+        vs, rows, t0 = torch.where(et[:w] == EVENT_ADD, vx[:w], -1), nb[:w], 0
+    else:
+        _, vs, rows = fsweep.crafted_window(state, w, 3, adds_only=True)
+        t0 = warm
+    return (fsweep.add_window_args(state, cfg, vs, rows, t0,
+                                   scores_for_state),
+            state.assignment.shape[0])
+
+
+@pytest.mark.parametrize("window", ["first", "crafted"])
+@pytest.mark.parametrize("k_max", [1, 16, 40, 192])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_add_window_lanes_kernel_matches_plain_and_large(cuda, policy, k_max,
+                                                         window):
+    """The lanes pure-ADD kernel, which the wrapper takes up to K = 192,
+    bit-equal to the plain loop and to the large kernel (launched
+    uncounted) for every guard and autoscale; the wrapper's launches
+    counted by kernel."""
+    args, n = _add_case(cuda, k_max, window)
+    assert fk.add_dispatch(256, k_max) == "lanes"
+    for guard in ("text", "alg1"):
+        for auto in (True, False):
+            kw = dict(policy=policy, balance_guard=guard, autoscaling=auto)
+            before = fk.add_window_choose.launches
+            by = dict(fk.add_window_choose.kernel_launches)
+            got = fk.add_window_choose(*args, n=n, **kw)
+            assert fk.add_window_choose.launches == before + 1
+            assert fk.add_window_choose.kernel_launches == {
+                k: c + (k == "lanes") for k, c in by.items()}
+            large = fk.add_launch("large", *args, **kw)
+            assert fk.add_window_choose.launches == before + 1
+            want = wnd.add_window_fixup_ref(*args, n=n, **kw)
+            for x, y, z in zip(got, want, large):
+                assert torch.equal(x, y), (guard, auto)
+                assert torch.equal(z, y), (guard, auto)
+
+
 def test_partitioner_twitter_prefix_kernels_match_plain(cuda):
     """The twitter session (scale 1.0, degree cap 192) over its first 66
     windows — 63 pure-ADD, 3 mixed — with use_kernel=True, leaf for leaf
     equal to use_kernel=False on the card; every window went through its
-    kernels."""
+    kernels, every pure-ADD one through the lanes add kernel."""
     g = cap_degree(load_dataset("twitter"), 192)
     s = interleaved_churn(g, warmup_frac=0.2, del_every=3, edge_del_every=5,
                           seed=0)
@@ -698,10 +773,13 @@ def test_partitioner_twitter_prefix_kernels_match_plain(cuda):
     counters = (window_prep, window_rng, fk.add_window_choose,
                 fk.fused_window_choose, partition_affinity)
     before = [c.launches for c in counters]
+    by = dict(fk.add_window_choose.kernel_launches)
     kernel = Partitioner.from_stream(sub, cfg, policy="sdp", seed=0,
                                      use_kernel=True, device=cuda).feed(sub)
     launched = [c.launches - b for c, b in zip(counters, before)]
     assert launched == [3, 66, 63, 3, 63]
+    assert fk.add_window_choose.kernel_launches == {
+        "lanes": by["lanes"] + 63, "large": by["large"]}
     m = kernel.metrics()
     assert (m["add_windows"], m["mixed_windows"]) == (63, 3)
     plain = Partitioner.from_stream(sub, cfg, policy="sdp", seed=0,
