@@ -17,7 +17,14 @@ paper's largest dataset, twitter at scale 1.0 — through
 ``partition_affinity``, ``window_rng``, the pure-ADD fixup
 ``add_window_choose``; mixed ones: ``window_prep``, ``window_rng``,
 ``fused_chooser``), times its window pipelines against the host loops
-they replace on the same card, and serves
+they replace on the same card, rebalances the twitter session's final
+state (``Partitioner.rebalance``, its label histograms on
+``partition_affinity`` over all n rows) against the plain histograms and
+runs fig16's three streams at full scale against the JAX package's
+pinned digests, drives the long-lived session's lifecycle — bulk deletes
+with ``auto_shrink``, ``compact()``, ``snapshot()``, ``restore()`` on the
+card, the same tail to both sessions — on twitter and on grqc (against
+its pinned JAX digest), and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -35,11 +42,11 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import functools
-import hashlib
 import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -50,18 +57,25 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.api import scenarios as sc  # noqa: E402
+from repro_torch.api.scenarios import state_digest  # noqa: E402
 from repro_torch.api.partitioner import Partitioner  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import engine, windowed as wnd  # noqa: E402
 from repro_torch.core.rng import prng_key  # noqa: E402
-from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.core.state import PartitionState, init_state  # noqa: E402
 from repro_torch.core.transition import knob_tensor  # noqa: E402
 from repro_torch.core.config import EngineConfig, POLICIES  # noqa: E402
-from repro_torch.core.metrics import recompute_counters  # noqa: E402
+from repro_torch.core.metrics import (  # noqa: E402
+    normalized_load_imbalance, recompute_counters,
+)
+from repro_torch.core.offline import cut_of, offline_partition  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
 from repro_torch.graph.datasets import load_dataset  # noqa: E402
-from repro_torch.graph.stream import VertexStream, interleaved_churn  # noqa: E402
+from repro_torch.graph.stream import (  # noqa: E402
+    VertexStream, interleaved_churn, materialize_graph,
+)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
@@ -86,6 +100,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.rebalance import passes as rpasses  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 (NVIDIA data sheet)
@@ -146,6 +161,13 @@ LOGIT_REL = 2.0 ** -4
 # boost clock of the H100 SXM data sheet (its 67 TFLOP/s f32 is 132 x 128
 # lanes x 2 (an FMA) x that clock)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# the rebalance phase: fig16's full-scale budget (m = 128 greedy commits,
+# two LPA iterations) on the twitter session's final state; every rebalance
+# takes its histograms from partition_affinity once for the migration's
+# ranking and twice an LPA iteration
+REBALANCE_M, REBALANCE_PASSES = 128, 2
+REBALANCE_HISTOGRAMS = 1 + 2 * REBALANCE_PASSES
+CKPT_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_ckpt")
 # segment_spmm: the twitter session's ELL (degree cap 192) at MeshGraphNet's
 # hidden width and at full_graph_sm's d_feat, and grqc's uncapped rows
 SPMM_WIDTHS = (128, 1433)
@@ -236,15 +258,6 @@ def bag_case(dev, v, d, b, l, dtype, seed, low=-1, off=0):
     return table, idx
 
 
-def state_digest(state) -> str:
-    """SHA-256 over every leaf's bytes in field order — comparable with a
-    digest of the same state from the JAX package (numpy leaves)."""
-    h = hashlib.sha256()
-    for t in state:
-        h.update(t.cpu().numpy().tobytes())
-    return h.hexdigest()
-
-
 def assert_states_equal(a, b, what: str) -> None:
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
@@ -252,6 +265,26 @@ def assert_states_equal(a, b, what: str) -> None:
             x, y = x.view(torch.int32), y.view(torch.int32)
         if x.shape != y.shape or not torch.equal(x, y):
             raise AssertionError(f"{what}: leaf {f!r} differs")
+
+
+def check_recount(st, what: str) -> None:
+    """Every counter of ``st`` equals a from-scratch recount of its
+    (assignment, present, adjacency)."""
+    rec = recompute_counters(st.assignment.cpu().numpy(),
+                             st.present.cpu().numpy(), st.adj.cpu().numpy(),
+                             st.edge_load.shape[0])
+    for key in ("edge_load", "vertex_count", "cut_matrix"):
+        if not np.array_equal(rec[key], getattr(st, key).cpu().numpy()):
+            raise AssertionError(f"{what}: {key} disagrees with the "
+                                 "from-scratch recount")
+    for key in ("total_edges", "cut_edges"):
+        if rec[key] != int(getattr(st, key)):
+            raise AssertionError(f"{what}: {key} disagrees with the "
+                                 "from-scratch recount")
+
+
+def clone_state(st) -> PartitionState:
+    return PartitionState(*(t.clone() for t in st))
 
 
 # ---------------------------------------------------------------------------
@@ -893,16 +926,20 @@ def _read_launches(names=SESSION_KERNELS) -> dict:
     return {name: _WRAPPERS[name].launches for name in names}
 
 
-def _check_session_launches(launches: dict, windows: dict, what: str):
+def _check_session_launches(launches: dict, windows: dict, what: str,
+                            histograms: int = 0, every: bool = True):
     """Every session kernel launched, once a window of its kind: the prep
     scan and the fused chooser per mixed window, partition_affinity and
-    the pure-ADD fixup per pure-ADD window, the RNG per window."""
+    the pure-ADD fixup per pure-ADD window, the RNG per window — and
+    partition_affinity once more for each of the session's ``histograms``
+    rebalance histograms. ``every``: each kernel at least once."""
     want = {"window_prep": windows["mixed"],
             "fused_chooser": windows["mixed"],
-            "partition_affinity": windows["add"],
+            "partition_affinity": windows["add"] + histograms,
             "add_window_choose": windows["add"],
             "window_rng": windows["mixed"] + windows["add"]}
-    if min(launches.values()) < 1 or launches != want:
+    if (every and min(launches.values()) < 1) or launches != want \
+            or launches["partition_affinity"] < 1:
         raise AssertionError(f"{what} missed a kernel: launched {launches}, "
                              f"windows {windows}")
 
@@ -981,6 +1018,7 @@ class _Split:
 
     def __init__(self):
         self.seconds: dict[str, float] = {}
+        self.calls: dict[str, list] = {}
         self._undo = []
 
     def wrap(self, module, attr, label):
@@ -992,8 +1030,9 @@ class _Split:
             t = time.perf_counter()
             r = fn(*a, **kw)
             torch.cuda.synchronize()
-            self.seconds[label] = (self.seconds.get(label, 0.0)
-                                   + time.perf_counter() - t)
+            dt = time.perf_counter() - t
+            self.seconds[label] = self.seconds.get(label, 0.0) + dt
+            self.calls.setdefault(label, []).append(dt)
             return r
 
         setattr(module, attr, timed)
@@ -1037,18 +1076,7 @@ def phase_twitter(dev) -> dict:
                              f"{shape}, phase kernels timed {SESSION_SHAPE}")
     peak = torch.cuda.max_memory_allocated(dev)
     st = part.state
-    k_max = st.edge_load.shape[0]
-    rec = recompute_counters(st.assignment.cpu().numpy(),
-                             st.present.cpu().numpy(), st.adj.cpu().numpy(),
-                             k_max)
-    for key in ("edge_load", "vertex_count", "cut_matrix"):
-        if not np.array_equal(rec[key], getattr(st, key).cpu().numpy()):
-            raise AssertionError(f"twitter: {key} disagrees with the "
-                                 "from-scratch recount")
-    for key in ("total_edges", "cut_edges"):
-        if rec[key] != int(getattr(st, key)):
-            raise AssertionError(f"twitter: {key} disagrees with the "
-                                 "from-scratch recount")
+    check_recount(st, "twitter")
     m = part.metrics()
 
     # wall-time split over a prefix of the same stream, every stage timed
@@ -1112,6 +1140,351 @@ def phase_twitter(dev) -> dict:
            "recount_ok": True, "max_memory_allocated": peak,
            "split": split_out,
            "loops": _window_loops(s, cfg, dev, prefix)}
+    emit(out)
+    return out, part, g, s
+
+
+def _rebalance_labels(st) -> torch.Tensor:
+    """The (n, D) labels tile the rebalance's histograms read (rows of
+    absent vertices -1), built as ``rebalance.passes._histograms`` does."""
+    labels = pops.gather_labels(st.assignment, st.present, st.adj)
+    return torch.where(st.present[:, None], labels, -1)
+
+
+def _affinity_at_n(st, dev) -> dict:
+    """partition_affinity on the rebalance's own (n, D, K) labels: checked
+    bit-equal to the plain version, timed against its bound and against
+    the same histogram as one scatter_add_."""
+    labels = _rebalance_labels(st)
+    w, d = labels.shape
+    k = st.edge_load.shape[0]
+    err = max_abs_diff(pa.partition_affinity(labels, k_max=k),
+                       partition_affinity_ref(labels, k_max=k))
+    if err:
+        raise AssertionError(f"partition_affinity at ({w}, {d}, {k}) "
+                             f"differs from the plain version by {err}")
+    ones = torch.ones((w, d), dtype=torch.int32, device=dev)
+    bins = (labels + 1).to(torch.int64)
+
+    def library():
+        torch.zeros((w, k + 1), dtype=torch.int32, device=dev) \
+            .scatter_add_(1, bins, ones)[:, 1:]
+
+    return {"shape": [w, d, k], "max_abs_err": err,
+            "ms": graph_ms(lambda: pa.partition_affinity(labels, k_max=k),
+                           20),
+            "eager_ms": eager_ms(
+                lambda: pa.partition_affinity(labels, k_max=k), 20),
+            "plain_ms": graph_ms(
+                lambda: partition_affinity_ref(labels, k_max=k), 3),
+            "library_ms": graph_ms(library, 10),
+            "bound_ms": (w * d + w * k + w) * 4 / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+
+
+def _rebalance_trace(st, cursor, slack, cap) -> dict:
+    """One rebalance (kernel histograms) traced by torch.profiler on a copy
+    of ``st``: the CUDA kernels it launches and their device time, and the
+    device's idle share of the traced wall time."""
+    work = clone_state(st)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        rpasses.rebalance_state(work, cursor, slack, cap, m=REBALANCE_M,
+                                passes=REBALANCE_PASSES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e3
+    return {"device_ops": sum(r[2] for r in rows),
+            "traced_wall_ms": wall * 1e3, "traced_kernel_ms": busy,
+            "device_idle_share": 1 - busy / (wall * 1e3) if rows else None,
+            "top_kernels": [{"name": k[:100], "count": c, "ms": us / 1e3}
+                            for us, k, c in rows[:8]]}
+
+
+def _rebalance_split(st, cursor, slack, cap) -> dict:
+    """Where one rebalance's wall time goes, every stage synchronized on
+    both sides (so the sum is slower than an untimed run): the label
+    histograms (partition_affinity plus the gather), the migration's
+    ranking, its greedy commits, the LPA iterations' own work, and the
+    counters' recount after each iteration."""
+    split = _Split()
+    split.wrap(rpasses, "_histograms", "histograms")
+    split.wrap(rpasses, "_commit", "commits")
+    split.wrap(rpasses, "_recount", "recount")
+    split.wrap(rpasses, "_lpa_sweep", "lpa_sweeps")
+    split.wrap(rpasses, "migration_pass", "migration")
+    try:
+        t = time.perf_counter()
+        rpasses.rebalance_state(clone_state(st), cursor, slack, cap,
+                                m=REBALANCE_M, passes=REBALANCE_PASSES)
+        total = time.perf_counter() - t
+    finally:
+        split.restore()
+    c = split.calls
+    hist_first = c["histograms"][0]
+    hist_lpa = sum(c["histograms"][1:])
+    commits = sum(c["commits"])
+    ms = 1e3
+    return {"total_ms": total * ms,
+            "histograms_ms": sum(c["histograms"]) * ms,
+            "histogram_calls": len(c["histograms"]),
+            "migration_rank_ms": (c["migration"][0] - hist_first
+                                  - commits) * ms,
+            "commits_ms": commits * ms,
+            "commit_ms_each": commits * ms / len(c["commits"]),
+            "lpa_ms": (sum(c["lpa_sweeps"]) - hist_lpa
+                       - sum(c["recount"])) * ms,
+            "recount_ms": sum(c["recount"]) * ms}
+
+
+def phase_rebalance(dev, twitter_part) -> dict:
+    """The rebalance on the card: fig16's full-scale budget on the twitter
+    session's final state (81,306 x 192, k_max = 16) through
+    ``Partitioner.rebalance`` — its histograms on partition_affinity at W =
+    n — held leaf for leaf to the same rebalance with the plain histograms
+    on the same state, both to a recount, and the state before and after
+    to the JAX package's pinned digests; then fig16's three streams at
+    full scale, with and without a rebalance after every interval, each
+    lane's final state held to the JAX package's pinned digest."""
+    part = twitter_part
+    if state_digest(part.state) != sc.TWITTER_SESSION_DIGEST:
+        raise AssertionError("twitter session: state differs from the JAX "
+                             "package's")
+    st0 = clone_state(part.state)
+    cursor = part.cursor
+    slack = torch.tensor(part.rebalance_slack, dtype=torch.float32,
+                         device=dev)
+    cap = torch.tensor(part.cfg.max_cap, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t = time.perf_counter()
+    ev = part.rebalance(m=REBALANCE_M, passes=REBALANCE_PASSES)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t
+    launches = _read_launches()
+    want = dict.fromkeys(SESSION_KERNELS, 0)
+    want["partition_affinity"] = REBALANCE_HISTOGRAMS
+    if launches != want:
+        raise AssertionError(f"twitter rebalance launched {launches}, "
+                             f"expected {want}")
+    t = time.perf_counter()
+    plain, pstats = rpasses.rebalance_state(
+        clone_state(st0), cursor, slack, cap, m=REBALANCE_M,
+        passes=REBALANCE_PASSES, use_kernel=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    assert_states_equal(part.state, plain,
+                        "twitter rebalance: kernel vs plain histograms")
+    if state_digest(part.state) != sc.TWITTER_REBALANCE_DIGEST:
+        raise AssertionError("twitter rebalance: state differs from the JAX "
+                             "package's")
+    if (ev["moved"], ev["cut_after"]) != (int(pstats.moved),
+                                          int(pstats.cut_after)):
+        raise AssertionError("twitter rebalance: stats differ")
+    check_recount(part.state, "twitter rebalance (kernel)")
+    check_recount(plain, "twitter rebalance (plain)")
+    del plain
+
+    # timing runs on copies of the same input, after the counted run
+    def once(use_kernel):
+        work = clone_state(st0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rpasses.rebalance_state(work, cursor, slack, cap, m=REBALANCE_M,
+                                passes=REBALANCE_PASSES,
+                                use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    eager = [once(True) for _ in range(3)]
+    plain_eager = [once(False) for _ in range(2)]
+    # the passes' device work alone (rebalance_state less its host-side
+    # exactness check) from a CUDA graph: the rebalance with no host issue
+    graph_work = clone_state(st0)
+
+    def passes():
+        st, _ = rpasses.migration_pass(graph_work, m=REBALANCE_M,
+                                       slack=slack, max_cap=cap)
+        rpasses.lpa_pass(st, cursor, passes=REBALANCE_PASSES, slack=slack,
+                         max_cap=cap)
+
+    graph = graph_ms(passes, 1, replays=3)
+    out = {"phase": "rebalance", "state": [part.n, part.max_deg,
+                                           part.cfg.k_max],
+           "m": REBALANCE_M, "passes": REBALANCE_PASSES,
+           "moved": ev["moved"], "cut_before": ev["cut_before"],
+           "cut_after": ev["cut_after"],
+           "imbalance_before": ev["imbalance_before"],
+           "imbalance_after": ev["imbalance_after"],
+           "bit_equal_plain": True, "recount_ok": True,
+           "jax_digests_ok": True,
+           "launches": launches, "session_call_ms": session_s * 1e3,
+           "plain_call_ms": plain_s * 1e3,
+           "eager_ms": float(np.median(eager)), "eager_ms_all": eager,
+           "plain_eager_ms": float(np.median(plain_eager)),
+           "graph_ms": graph,
+           "split": _rebalance_split(st0, cursor, slack, cap),
+           "trace": _rebalance_trace(st0, cursor, slack, cap),
+           "partition_affinity": _affinity_at_n(st0, dev),
+           "fig16": _fig16_full(dev)}
+    emit(out)
+    return out
+
+
+def _fig16_full(dev) -> dict:
+    """fig16 at full scale on the card (the port's own streams and
+    offline stand-in): every lane's final state equals the JAX package's
+    pinned digest, its kernels launched once a window of their kind and
+    partition_affinity five times a rebalance; the rebalanced lanes pass
+    the recount. Cut ratio and normalized imbalance of each lane's final
+    state, and of the offline partition of the graph the stream leaves."""
+    cfg = sc.fig16_cfg()
+    m = sc.FIG16_M[False]
+    t0 = time.perf_counter()
+    lanes = []
+    for name, s in sc.fig16_streams(False):
+        row = {"stream": name, "events": s.num_events}
+        for rebalance in (False, True):
+            _reset_launches()
+            t = time.perf_counter()
+            part, _ = sc.quality_lane(Partitioner, s, cfg,
+                                      rebalance=rebalance, m=m, device=dev,
+                                      use_kernel=True, window=WINDOW)
+            secs = time.perf_counter() - t
+            launches = _read_launches()
+            rebalances = part.metrics()["rebalances"]
+            _check_session_launches(
+                launches, _window_kinds(part), f"fig16 {name}",
+                histograms=REBALANCE_HISTOGRAMS * rebalances, every=False)
+            digest = state_digest(part.state)
+            if digest != sc.FIG16_FULL_DIGESTS[(name, rebalance)]:
+                raise AssertionError(f"fig16 {name} (rebalance="
+                                     f"{rebalance}): state differs from "
+                                     "the JAX package's")
+            if rebalance:
+                check_recount(part.state, f"fig16 {name}")
+            st = part.state
+            mm = part.metrics()
+            row["sdp+rebalance" if rebalance else "sdp"] = {
+                "edge_cut_ratio": mm["edge_cut_ratio"],
+                "imbalance": normalized_load_imbalance(
+                    st.edge_load.cpu().numpy(), st.active.cpu().numpy()),
+                "rebalances": rebalances,
+                "moved": mm["rebalance_moves"], "seconds": secs,
+                "launches": launches, "digest_ok": True}
+        gm = materialize_graph(s)
+        t = time.perf_counter()
+        a = offline_partition(gm, sc.FIG16_K)
+        deg = np.diff(gm.indptr)
+        load = np.bincount(np.asarray(a), weights=deg, minlength=sc.FIG16_K)
+        row["offline"] = {
+            "edge_cut_ratio": cut_of(gm, a) / max(gm.num_edges, 1),
+            "imbalance": float(load.std() / max(load.mean(), 1e-9)),
+            "seconds": time.perf_counter() - t}
+        lanes.append(row)
+    return {"lanes": lanes, "m": m, "passes": sc.FIG16_PASSES,
+            "seconds": time.perf_counter() - t0}
+
+
+def _ckpt_bytes(directory: str) -> int:
+    return sum(os.path.getsize(os.path.join(directory, f))
+               for f in os.listdir(directory) if f.startswith("ckpt_"))
+
+
+def _lifecycle(name, g, s, dev) -> dict:
+    """``scenarios.run_lifecycle`` on the card, timed stage by stage; the
+    restored session equals the original after the same tail, both pass
+    the recount, and every session kernel launched once a window."""
+    cfg = EngineConfig(**sc.LIFECYCLE_CFG[name])
+    directory = os.path.join(CKPT_DIR, name)
+    shutil.rmtree(directory, ignore_errors=True)
+    marks, info = {}, {}
+
+    def probe(stage, session):
+        torch.cuda.synchronize()
+        marks[stage] = time.perf_counter()
+        if stage == "fed":
+            info["peak_state_bytes"] = session.metrics()["state_bytes"]
+            info["peak_geometry"] = list(session.geometry)
+        elif stage == "deleted":
+            mm = session.metrics()
+            info["present_after_deletes"] = int(session.state.present.sum())
+            info["auto_shrinks"] = mm["shrinks"]
+            info["geometry_before_compact"] = list(session.geometry)
+            info["allocated_before_compact"] = torch.cuda.memory_allocated(
+                dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            marks["compact_start"] = time.perf_counter()
+        elif stage == "compacted":
+            info["max_memory_allocated_compact"] = \
+                torch.cuda.max_memory_allocated(dev)
+            info["allocated_after_compact"] = torch.cuda.memory_allocated(
+                dev)
+            info["compacted_state_bytes"] = session.metrics()["state_bytes"]
+            info["compacted_geometry"] = list(session.geometry)
+            info["relabelled"] = session._ext2int is not None
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    part, restored, survivors = sc.run_lifecycle(
+        Partitioner, g, s, cfg, directory, probe=probe, device=dev,
+        use_kernel=True, window=WINDOW)
+    total = time.perf_counter() - t0
+    launches = _read_launches()
+    windows = {k: a + b for (k, a), b in zip(
+        _window_kinds(part).items(), _window_kinds(restored).values())}
+    _check_session_launches(launches, windows, f"{name} lifecycle")
+    assert_states_equal(part.state, restored.state,
+                        f"{name} lifecycle: restored vs original")
+    check_recount(part.state, f"{name} lifecycle (original)")
+    check_recount(restored.state, f"{name} lifecycle (restored)")
+    ckpt = _ckpt_bytes(directory)
+    shutil.rmtree(directory, ignore_errors=True)
+    mm = part.metrics()
+    return {"n": s.n, "events": s.num_events, "survivors": len(survivors),
+            **info, "checkpoint_bytes": ckpt,
+            "final_geometry": list(part.geometry),
+            "shrinks": mm["shrinks"], "compactions": mm["compactions"],
+            "regeometries": mm["regeometries"],
+            "geometry_events": [
+                {"cursor": e["cursor"], "kind": e["kind"],
+                 "from": list(e["from"]), "to": list(e["to"])}
+                for e in part.geometry_events],
+            "compact_s": marks["compacted"] - marks["compact_start"],
+            "snapshot_s": marks["snapshotted"] - marks["checked"],
+            "restore_s": marks["restored"] - marks["snapshotted"],
+            "tail_s": marks["done"] - marks["restored"],
+            "total_s": total, "launches": launches, "windows": windows,
+            "restored_equal": True, "recount_ok": True,
+            "state_sha256": state_digest(part.state)}
+
+
+def phase_lifecycle(dev, g, s) -> dict:
+    """The long-lived session on the card: the twitter session (scale 1.0)
+    bulk-deleted to an eighth of its vertices with auto_shrink on,
+    compacted (the id map checked on every survivor), snapshotted without
+    blocking, restored into a second card session, and fed the same tail
+    as the original; then the same on grqc, whose final state must equal
+    the JAX package's pinned digest."""
+    out = {"phase": "lifecycle", "twitter": _lifecycle("twitter", g, s, dev)}
+    gg, gs = sc.lifecycle_stream("grqc")
+    grqc = _lifecycle("grqc", gg, gs, dev)
+    if grqc["state_sha256"] != sc.GRQC_LIFECYCLE_DIGEST:
+        raise AssertionError("grqc lifecycle: state differs from the JAX "
+                             "package's")
+    out["grqc"] = {**grqc, "digest_ok": True}
     emit(out)
     return out
 
@@ -1995,7 +2368,7 @@ def phase_lm(dev) -> dict:
 
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
-                lm: dict) -> dict:
+                lm: dict, rebalance: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -2024,7 +2397,10 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "launch_floor_ms": pa_case["launch_floor_ms"],
          "k200": {k: pa_timed[200][k] for k in (
              "shape", "ms", "plain_ms", "bound_ms", "library_ms",
-             "launch_floor_ms")}},
+             "launch_floor_ms")},
+         # the rebalance's histograms at W = n, launched from its own run
+         "rebalance": {"launches": rebalance["launches"][
+             "partition_affinity"], **rebalance["partition_affinity"]}},
         {"name": "fused_chooser", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_chooser.cu",
          "replaces": "src/repro/kernels/fused_chooser/fused_chooser.py:245",
@@ -2159,10 +2535,14 @@ def main() -> int:
     spmm = phase_spmm(dev, graphs)
     del graphs
     phase_grqc(dev)
-    twitter = phase_twitter(dev)
+    twitter, twitter_part, twitter_g, twitter_s = phase_twitter(dev)
+    rebalance = phase_rebalance(dev, twitter_part)
+    del twitter_part
+    phase_lifecycle(dev, twitter_g, twitter_s)
+    del twitter_g, twitter_s
     recsys = phase_recsys(dev)
     lm = phase_lm(dev)
-    emit(kernel_line(kernels, twitter, recsys, spmm, lm))
+    emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,12 +28,37 @@ card by default) and a global event cursor.
   and the window engines' ``add_windows`` vs ``mixed_windows``.
   A window reads nothing back from the card: the only host decision, the
   pure-ADD test, reads the host's copy of the event types.
-* **Elastic geometry.** ``feed()`` grows ``(n, max_deg)`` along
-  power-of-two tiers whenever an event needs more — a semantics no-op.
+* **Elastic geometry, both directions.** ``feed()`` grows ``(n,
+  max_deg)`` along power-of-two tiers whenever an event needs more — a
+  semantics no-op. ``compact()`` densely re-packs the live vertices to the
+  smallest tier, ``shrink_to()`` targets an exact geometry, and
+  ``maybe_shrink()`` (or ``auto_shrink=True``) applies the hysteretic
+  ``shrink_tier`` policy, so a session that bulk-deleted most of its graph
+  stops paying for its peak tier. Every change is in ``geometry_events``.
+* **Rebalancing.** ``rebalance()`` runs greedy migration and LPA
+  refinement between feeds (``repro_torch.rebalance``), its label
+  histograms on the ``partition_affinity`` kernel when ``use_kernel=True``;
+  ``auto_rebalance`` fires it every ``rebalance_every`` events and
+  ``rebalance_drift`` when the cut or the imbalance drifts. A pass never
+  advances ``state.key`` or the cursor.
+* **Resumability.** ``snapshot()`` / ``Partitioner.restore()`` write and
+  read the JAX package's checkpoint format (``repro_torch.checkpoint``):
+  a checkpoint either package wrote, the other restores.
 
-Snapshot/restore, compact/shrink, the external-id map, rebalancing and
-vertex-sharded sessions are later slices of the port (ROADMAP A9, A10,
-A12, A16): their arguments raise ``NotImplementedError`` when set.
+External vs internal vertex ids
+-------------------------------
+A compaction may *relabel* vertices. The session hides that: callers keep
+using their original ("external") ids in events and queries, and the
+session keeps the external→internal map (persisted by ``snapshot()``),
+exposed as ``to_internal`` / ``to_external``. Until the first relabelling
+compaction the map is the identity and costs nothing; id-preserving
+shrinks never create one. Relabelling is a semantics no-op for every
+policy except ``hash`` (which assigns by raw id — relabelling compaction
+refuses it) and LDG's allocated-``n`` capacity knob, as in the JAX
+package.
+
+Vertex-sharded sessions are a later slice of the port (ROADMAP A16):
+their arguments raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -42,31 +67,31 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import engine as eng
 from repro_torch.core import windowed as wnd
 from repro_torch.core.config import EngineConfig, POLICIES
-from repro_torch.core.geometry import Geometry, geometry_of, grow_tier
+from repro_torch.core.geometry import (
+    Geometry, geometry_of, grow_tier, next_pow2, shrink_tier,
+)
+from repro_torch.core.metrics import (
+    load_imbalance, normalized_load_imbalance,
+)
 from repro_torch.core.state import (
-    PartitionState, grow_state, init_state, resolve_device, state_bytes,
+    PartitionState, compact_state, grow_state, init_state, live_extent,
+    recount_cut_matrix, resolve_device, shrink_state, state_bytes,
     state_metrics,
 )
 from repro_torch.core.transition import EventTrace, knob_tensor
 from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_PAD, VertexStream, normalize_rows, required_geometry_of,
 )
+from repro_torch.rebalance import rebalance_state
 
 _ENGINES = ("auto", "scan", "windowed")
 
 # constructor arguments of later slices: name -> (default, ROADMAP item)
 _DEFERRED = {
-    "auto_shrink": (False, "A10 (compact/shrink)"),
-    "shrink_every": (4096, "A10 (compact/shrink)"),
-    "auto_rebalance": (False, "A12 (rebalancing)"),
-    "rebalance_every": (2048, "A12 (rebalancing)"),
-    "rebalance_m": (32, "A12 (rebalancing)"),
-    "rebalance_passes": (0, "A12 (rebalancing)"),
-    "rebalance_slack": (0.25, "A12 (rebalancing)"),
-    "rebalance_drift": (None, "A12 (rebalancing)"),
     "sharded": (False, "A16 (vertex-sharded sessions)"),
     "shard_devices": (None, "A16 (vertex-sharded sessions)"),
 }
@@ -110,8 +135,22 @@ class Partitioner:
         versions when the session lives on the CPU).
       device: where the state lives; ``None`` is the CUDA card, and a
         machine without one raises. Pass ``"cpu"`` for the plain versions.
+      auto_shrink: run ``maybe_shrink()`` every ``shrink_every`` ingested
+        events (checked at feed boundaries).
+      shrink_every: event spacing of the ``auto_shrink`` checks.
+      auto_rebalance: run ``rebalance()`` every ``rebalance_every`` ingested
+        events (checked at feed boundaries, before the shrink check).
+      rebalance_every: event spacing of the ``auto_rebalance`` checks.
+      rebalance_m: default migration budget of ``rebalance()``.
+      rebalance_passes: default LPA iterations of ``rebalance()``.
+      rebalance_slack: Eq. 10 capacity slack — no rebalance move may push a
+        destination beyond mean active load × (1 + slack).
+      rebalance_drift: after each feed, fire ``rebalance()`` when the cut
+        ratio or the normalized imbalance has risen more than this since
+        the last pass (the baseline re-bases after every pass and rides
+        checkpoint extras).
 
-    The remaining keyword arguments belong to later slices and raise
+    ``sharded`` / ``shard_devices`` belong to a later slice and raise
     ``NotImplementedError`` at any value but their default.
     """
 
@@ -120,6 +159,11 @@ class Partitioner:
                  policy: str = "sdp", seed: int = 0,
                  engine: str = "auto", window: int = 256,
                  collect_trace: bool = False, use_kernel: bool = False,
+                 auto_shrink: bool = False, shrink_every: int = 4096,
+                 auto_rebalance: bool = False, rebalance_every: int = 2048,
+                 rebalance_m: int = 32, rebalance_passes: int = 0,
+                 rebalance_slack: float = 0.25,
+                 rebalance_drift: float | None = None,
                  device=None, **later):
         for name, value in later.items():
             if name not in _DEFERRED:
@@ -152,6 +196,37 @@ class Partitioner:
                 "collect_trace=True needs the per-event loop (the window "
                 "engines do not produce traces) — use engine='scan' or "
                 "'auto'")
+        if shrink_every <= 0:
+            raise ValueError(
+                f"shrink_every={shrink_every} must be > 0: it is the "
+                "event spacing of the auto_shrink checks")
+        if rebalance_every <= 0:
+            raise ValueError(
+                f"rebalance_every={rebalance_every} must be > 0: it is "
+                "the event spacing of the auto_rebalance checks")
+        if rebalance_m < 0 or rebalance_passes < 0 or rebalance_slack < 0:
+            raise ValueError(
+                f"rebalance_m={rebalance_m}, rebalance_passes="
+                f"{rebalance_passes} and rebalance_slack={rebalance_slack} "
+                "must all be >= 0 (m is a move budget, passes an iteration "
+                "count, slack a capacity fraction)")
+        if auto_rebalance and rebalance_m == 0 and rebalance_passes == 0:
+            raise ValueError(
+                "auto_rebalance=True with rebalance_m=0 and "
+                "rebalance_passes=0 would run empty passes forever — give "
+                "it a migration budget (rebalance_m) and/or LPA "
+                "iterations (rebalance_passes)")
+        if rebalance_drift is not None:
+            if rebalance_drift <= 0:
+                raise ValueError(
+                    f"rebalance_drift={rebalance_drift} must be > 0: it "
+                    "is the cut-ratio / imbalance increase (since the "
+                    "last pass) that triggers an adaptive rebalance")
+            if rebalance_m == 0 and rebalance_passes == 0:
+                raise ValueError(
+                    "rebalance_drift with rebalance_m=0 and "
+                    "rebalance_passes=0 would fire empty passes — give "
+                    "it a migration budget and/or LPA iterations")
         self.cfg = cfg
         self.policy = policy
         self.engine = engine
@@ -166,6 +241,21 @@ class Partitioner:
         else:
             self._adds_fn = wnd.run_window_adds
             self._mixed_fn = wnd.run_window_mixed
+        self.auto_shrink = bool(auto_shrink)
+        self.shrink_every = int(shrink_every)
+        self.auto_rebalance = bool(auto_rebalance)
+        self.rebalance_every = int(rebalance_every)
+        self.rebalance_m = int(rebalance_m)
+        self.rebalance_passes = int(rebalance_passes)
+        self.rebalance_slack = float(rebalance_slack)
+        self.rebalance_drift = (None if rebalance_drift is None
+                                else float(rebalance_drift))
+        self._drift_base: tuple[float, float] | None = None
+        self._drift_fires = 0
+        self._last_rebalance = 0
+        self._rebalances = 0
+        self._rebalance_moves = 0
+        self._rebalance_events: list[dict] = []
         self._kernel_windows = 0
         self._fallback_windows = 0
         self._add_windows = 0
@@ -174,9 +264,17 @@ class Partitioner:
                                  cfg.k_init, seed, device=self.device)
         self._knobs = knob_tensor(cfg, self.n, self.device)
         self._regeometries = 0
+        self._shrinks = 0
+        self._compactions = 0
+        self._last_shrink_check = 0
         self._cursor = 0
+        # external→internal vertex-id map (None = identity: no relabelling
+        # compaction yet) and its dense inverse
+        self._ext2int: np.ndarray | None = None
+        self._int2ext: np.ndarray | None = None
         self._geometry_events: list[dict] = []
         self._traces: list[EventTrace] = []
+        self._managers: dict[str, CheckpointManager] = {}
 
     @classmethod
     def from_stream(cls, stream: VertexStream,
@@ -196,12 +294,16 @@ class Partitioner:
 
     @property
     def n(self) -> int:
-        """Current vertex-universe allocation (grows on demand)."""
+        """Current vertex-universe allocation (grows on demand, shrinks via
+        ``compact`` / ``shrink_to`` / ``maybe_shrink``). Internal slots:
+        after a relabelling compaction it is smaller than the external id
+        space (see ``to_internal``)."""
         return int(self._state.assignment.shape[0])
 
     @property
     def max_deg(self) -> int:
-        """Current neighbour-row width (grows on demand)."""
+        """Current neighbour-row width (grows on demand, shrinks with
+        ``n``)."""
         return int(self._state.adj.shape[1])
 
     @property
@@ -211,13 +313,23 @@ class Partitioner:
 
     @property
     def regeometries(self) -> int:
-        """How many times the state geometry grew."""
+        """How many times the state geometry changed (grow, shrink or a
+        tier-changing compact)."""
         return self._regeometries
 
     @property
     def geometry_events(self) -> list[dict]:
-        """One ``{"cursor", "kind", "from", "to"}`` dict per growth."""
+        """One ``{"cursor", "kind", "from", "to"}`` dict per change, ``kind``
+        in ``{"grow", "shrink", "compact", "restore"}`` (``compact`` is a
+        same-tier re-pack; a tier-dropping one records ``shrink``)."""
         return list(self._geometry_events)
+
+    @property
+    def rebalance_events(self) -> list[dict]:
+        """One ``{"cursor", "m", "passes", "moved", "cut_before",
+        "cut_after", "imbalance_before", "imbalance_after"}`` dict per
+        executed ``rebalance()``."""
+        return list(self._rebalance_events)
 
     @property
     def cursor(self) -> int:
@@ -241,13 +353,21 @@ class Partitioner:
             self._grow(cur, target)
         return self
 
-    def _grow(self, cur: Geometry, target: Geometry) -> None:
-        self._state = grow_state(self._state, target)
-        self._knobs = knob_tensor(self.cfg, self.n, self.device)
-        self._regeometries += 1
+    def _record_geometry(self, kind: str, before: Geometry,
+                         after: Geometry) -> None:
         self._geometry_events.append(
-            {"cursor": self._cursor, "kind": "grow", "from": cur,
-             "to": target})
+            {"cursor": self._cursor, "kind": kind, "from": before,
+             "to": after})
+
+    def _set_state(self, state: PartitionState) -> None:
+        """Adopt a state of another geometry (the LDG knob reads ``n``)."""
+        self._state = state
+        self._knobs = knob_tensor(self.cfg, self.n, self.device)
+
+    def _grow(self, cur: Geometry, target: Geometry) -> None:
+        self._set_state(grow_state(self._state, target))
+        self._regeometries += 1
+        self._record_geometry("grow", cur, target)
 
     def _ensure_geometry(self, required: Geometry) -> None:
         """Grow along power-of-two tiers until the state covers
@@ -255,6 +375,171 @@ class Partitioner:
         cur = geometry_of(self._state)
         if not cur.covers(required):
             self._grow(cur, grow_tier(cur, required))
+
+    def _repack_to(self, target: Geometry, kind: str) -> None:
+        """Move the state to ``target``: the id-preserving truncation
+        (``shrink_state``) when the live slots fit below ``target.n``, else
+        the relabelling re-pack (``compact_state``), folding its
+        permutation into the id maps. Callers guarantee that ``target``
+        covers the packed extent."""
+        cur = geometry_of(self._state)
+        if target == cur:
+            return
+        _, prefix = live_extent(self._state)
+        if prefix.n <= target.n and prefix.max_deg <= target.max_deg:
+            self._set_state(shrink_state(self._state, target))
+        else:
+            if self.policy == "hash":
+                raise ValueError(
+                    "the 'hash' policy assigns by raw vertex id, so a "
+                    "relabeling compaction would change every future "
+                    "decision — only id-preserving shrinks are legal "
+                    "(shrink_to a geometry the current slot ids fit, or "
+                    "accept the current tier)")
+            state, perm = compact_state(self._state, target)
+            self._set_state(state)
+            self._apply_perm(perm)
+        self._regeometries += 1
+        if kind == "shrink":
+            self._shrinks += 1
+        self._record_geometry(kind, cur, target)
+
+    def _apply_perm(self, perm: np.ndarray) -> None:
+        """Fold a relabelling permutation (old slot → new slot, -1 =
+        dropped) into the external→internal maps. On the first relabel the
+        external ids are the old slots, so the map starts as ``perm``."""
+        keep_idx = np.flatnonzero(perm >= 0).astype(np.int32)
+        if len(keep_idx) == len(perm):
+            return  # nothing moved or dropped — still the identity
+        if self._ext2int is None:
+            self._ext2int = perm.astype(np.int32).copy()
+            self._int2ext = keep_idx
+        else:
+            self._int2ext = self._int2ext[keep_idx]
+            m = self._ext2int
+            valid = m >= 0
+            m[valid] = perm[m[valid]]
+            self._ext2int = m
+
+    def compact(self) -> "Partitioner":
+        """Densely re-pack the live vertices and drop to the smallest
+        power-of-two tier that holds them (no hysteresis: the caller has
+        decided). Prefers the id-preserving truncation; otherwise relabels
+        and keeps the external-id map, so ``feed`` and ``to_internal`` go
+        on speaking original ids. Counters are untouched. Syncs."""
+        self.sync()
+        cur = geometry_of(self._state)
+        packed, _ = live_extent(self._state)
+        target = Geometry(min(next_pow2(packed.n), cur.n),
+                          min(next_pow2(packed.max_deg), cur.max_deg),
+                          cur.k_max)
+        self._compactions += 1
+        self._repack_to(target, "shrink" if (target.n < cur.n
+                        or target.max_deg < cur.max_deg) else "compact")
+        return self
+
+    def shrink_to(self, n: int | None = None,
+                  max_deg: int | None = None) -> "Partitioner":
+        """Shrink the session to exactly ``(n, max_deg)`` (an omitted
+        dimension keeps its size) — the counterpart of ``grow_to``.
+        Truncates when the live slot ids fit, else re-packs (relabelling,
+        see ``compact``). Raises if the live content cannot fit even
+        packed, or if a dimension would grow."""
+        self.sync()
+        cur = geometry_of(self._state)
+        target = Geometry(int(n if n is not None else cur.n),
+                          int(max_deg if max_deg is not None
+                              else cur.max_deg), cur.k_max)
+        if target.n > cur.n or target.max_deg > cur.max_deg:
+            raise ValueError(
+                f"shrink_to target (n={target.n}, max_deg={target.max_deg})"
+                f" exceeds the current geometry (n={cur.n}, "
+                f"max_deg={cur.max_deg}) — growing is grow_to's job")
+        packed, _ = live_extent(self._state)
+        if not Geometry(target.n, target.max_deg).covers(
+                Geometry(packed.n, packed.max_deg)):
+            raise ValueError(
+                f"live content needs (n={packed.n}, "
+                f"max_deg={packed.max_deg}) even densely packed — "
+                f"(n={target.n}, max_deg={target.max_deg}) cannot hold "
+                "this session")
+        self._repack_to(target, "shrink")
+        return self
+
+    def maybe_shrink(self, *, hysteresis: int = 4) -> bool:
+        """The auto-shrink check: apply ``shrink_tier`` (shrink a dimension
+        only when live content fills at most ``1 / (2 * hysteresis)`` of
+        it) and re-pack if any dimension qualifies. Returns True iff the
+        geometry changed. A one-scalar device read (the present count)
+        gates the scan of the live content."""
+        cur = geometry_of(self._state)
+        n_present = int(self._state.present.sum())
+        if (n_present + 1) * 2 * hysteresis > cur.n:
+            return False
+        self.sync()
+        packed, _ = live_extent(self._state)
+        target = shrink_tier(cur, packed, hysteresis=hysteresis)
+        if target == cur:
+            return False
+        self._repack_to(target, "shrink")
+        return True
+
+    # -- external ids -------------------------------------------------------
+
+    def to_internal(self, ids) -> np.ndarray:
+        """External (caller-facing, original) vertex ids → the session's
+        internal slots; the identity until a relabelling compaction.
+        Unknown or negative ids map to -1."""
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if self._ext2int is None:
+            return ids.astype(np.int32)
+        m = self._ext2int
+        out = np.full(ids.shape, -1, np.int32)
+        ok = (ids >= 0) & (ids < len(m))
+        out[ok] = m[ids[ok]]
+        return out
+
+    def to_external(self, ids) -> np.ndarray:
+        """Inverse of ``to_internal``: internal slots → external ids.
+        Out-of-range slots map to -1."""
+        ids = np.atleast_1d(np.asarray(ids, np.int64))
+        if self._int2ext is None:
+            return ids.astype(np.int32)
+        m = self._int2ext
+        out = np.full(ids.shape, -1, np.int32)
+        ok = (ids >= 0) & (ids < len(m))
+        out[ok] = m[ids[ok]]
+        return out
+
+    def _translate(self, chunk: PreparedChunk) -> PreparedChunk:
+        """Rewrite a chunk's external ids to internal slots, giving ids
+        never seen since the last relabel fresh slots in first-appearance
+        order (vertex before its row — so a replay allocates the same). A
+        no-op while the map is the identity."""
+        if self._ext2int is None:
+            return chunk
+        vx, nb = chunk.vertex, chunk.nbrs
+        seq = np.concatenate([vx[:, None], nb], axis=1).ravel()
+        seq = seq[seq >= 0].astype(np.int64)
+        m = self._ext2int
+        if seq.size:
+            mx = int(seq.max())
+            if mx >= len(m):
+                m = np.concatenate(
+                    [m, np.full(mx + 1 - len(m), -1, np.int32)])
+            unmapped = seq[m[seq] < 0]
+            if unmapped.size:
+                uniq, first = np.unique(unmapped, return_index=True)
+                order = uniq[np.argsort(first)].astype(np.int32)
+                base = len(self._int2ext)
+                m[order] = np.arange(base, base + len(order),
+                                     dtype=np.int32)
+                self._int2ext = np.concatenate([self._int2ext, order])
+            self._ext2int = m
+        vx_t = np.where(vx >= 0, m[np.clip(vx, 0, None)], -1).astype(np.int32)
+        nb_t = np.where(nb >= 0, m[np.clip(nb, 0, None)], -1).astype(np.int32)
+        return PreparedChunk(chunk.etype, vx_t, nb_t,
+                             required_geometry_of(vx_t, nb_t))
 
     # -- ingestion ----------------------------------------------------------
 
@@ -295,9 +580,11 @@ class Partitioner:
         return PreparedChunk(et, vx, nb, required)
 
     def feed_prepared(self, chunk: PreparedChunk) -> "Partitioner":
-        """Ingest a :class:`PreparedChunk`: grow the geometry if needed,
-        re-width the rows to the session, copy the events to the device
-        once, and run the engines slice by slice."""
+        """Ingest a :class:`PreparedChunk`: translate external ids, grow the
+        geometry if needed, re-width the rows to the session, copy the
+        events to the device once, run the engines slice by slice, then
+        the auto-rebalance, drift and auto-shrink checks."""
+        chunk = self._translate(chunk)
         self._ensure_geometry(chunk.required)
         T = chunk.num_events
         if T == 0:
@@ -327,6 +614,18 @@ class Partitioner:
             # leaves the cursor matching the state
             self._cursor += end - t
             t = end
+        # rebalance before the shrink check: migration changes loads and so
+        # what maybe_shrink sees — the order is part of the replay contract
+        if self.auto_rebalance and (self._cursor - self._last_rebalance
+                                    >= self.rebalance_every):
+            self._last_rebalance = self._cursor
+            self.rebalance()
+        if self.rebalance_drift is not None:
+            self._check_drift()
+        if self.auto_shrink and (self._cursor - self._last_shrink_check
+                                 >= self.shrink_every):
+            self._last_shrink_check = self._cursor
+            self.maybe_shrink()
         return self
 
     def _feed_scan(self, et, vx, nb):
@@ -368,6 +667,73 @@ class Partitioner:
             torch.cuda.synchronize(self.device)
         return self
 
+    # -- rebalancing --------------------------------------------------------
+
+    def _drift_signals(self) -> tuple[float, float]:
+        """(cut ratio, normalized load imbalance) from the counters the
+        engines keep — scale-free, so one threshold fits both."""
+        tot = int(self._state.total_edges)
+        ratio = int(self._state.cut_edges) / tot if tot else 0.0
+        imb = normalized_load_imbalance(self._state.edge_load.cpu().numpy(),
+                                        self._state.active.cpu().numpy())
+        return ratio, float(imb)
+
+    def _check_drift(self) -> bool:
+        """The ``rebalance_drift`` check (each feed boundary): fire a pass
+        when either signal rose more than the threshold since the last pass
+        (or the first check, the baseline). Only an executed pass moves the
+        baseline, so slow drift cannot creep under it."""
+        ratio, imb = self._drift_signals()
+        if self._drift_base is None:
+            self._drift_base = (ratio, imb)
+            return False
+        r0, i0 = self._drift_base
+        if (ratio - r0) < self.rebalance_drift \
+                and (imb - i0) < self.rebalance_drift:
+            return False
+        self._drift_fires += 1
+        self._last_rebalance = self._cursor
+        self.rebalance()
+        return True
+
+    def rebalance(self, m: int | None = None, passes: int | None = None,
+                  slack: float | None = None) -> dict:
+        """One rebalance over the live state: greedy migration of the top
+        ``m`` worst-gain vertices, then ``passes`` LPA iterations
+        (``repro_torch.rebalance``); defaults from the constructor. Never
+        touches ``state.key`` or the cursor; with ``m=0`` and ``passes=0``
+        the state is not touched at all. Returns the recorded event (also
+        appended to ``rebalance_events``). Reads the device."""
+        m = self.rebalance_m if m is None else int(m)
+        passes = self.rebalance_passes if passes is None else int(passes)
+        slack = self.rebalance_slack if slack is None else float(slack)
+        if m <= 0 and passes <= 0:
+            return {"cursor": self._cursor, "m": 0, "passes": 0, "moved": 0}
+        load0 = self._state.edge_load.cpu().numpy()
+        act0 = self._state.active.cpu().numpy()
+        dev = self.device
+        self._state, stats = rebalance_state(
+            self._state, self._cursor,
+            torch.tensor(slack, dtype=torch.float32, device=dev),
+            torch.tensor(self.cfg.max_cap, dtype=torch.float32, device=dev),
+            True, m=min(m, self.n), passes=passes, use_kernel=self.use_kernel)
+        ev = {"cursor": self._cursor, "m": m, "passes": passes,
+              "moved": int(stats.moved),
+              "cut_before": int(stats.cut_before),
+              "cut_after": int(stats.cut_after),
+              "imbalance_before": load_imbalance(load0, act0),
+              "imbalance_after": load_imbalance(
+                  self._state.edge_load.cpu().numpy(),
+                  self._state.active.cpu().numpy())}
+        self._rebalances += 1
+        self._rebalance_moves += ev["moved"]
+        self._rebalance_events.append(ev)
+        if self.rebalance_drift is not None:
+            # re-base on the post-pass signals: the next fire needs fresh
+            # drift, not this one's residue
+            self._drift_base = self._drift_signals()
+        return ev
+
     # -- observation --------------------------------------------------------
 
     def metrics(self) -> dict:
@@ -380,6 +746,8 @@ class Partitioner:
         m["n"] = self.n
         m["max_deg"] = self.max_deg
         m["regeometries"] = self._regeometries
+        m["shrinks"] = self._shrinks
+        m["compactions"] = self._compactions
         m["state_bytes"] = state_bytes(self._state)
         # kernel coverage: windows that rode the kernels vs the plain
         # engines (per-event loop slices count as one fallback unit each)
@@ -388,6 +756,9 @@ class Partitioner:
         # the window engines' windows by kind: pure-ADD and mixed
         m["add_windows"] = self._add_windows
         m["mixed_windows"] = self._mixed_windows
+        m["rebalances"] = self._rebalances
+        m["rebalance_moves"] = self._rebalance_moves
+        m["rebalance_drift_fires"] = self._drift_fires
         return m
 
     def trace(self) -> EventTrace:
@@ -407,20 +778,124 @@ class Partitioner:
                 for f in EventTrace._fields))]
         return self._traces[0]
 
-    # -- later slices -------------------------------------------------------
+    # -- persistence --------------------------------------------------------
 
-    def snapshot(self, *a, **kw):
-        _later("snapshot()", "A9/A10 (checkpoints, snapshot/restore)")
+    def snapshot(self, directory: str, *, keep: int = 3,
+                 blocking: bool = True) -> int:
+        """Checkpoint the session under ``directory`` in the JAX package's
+        format (atomic rename, the ``keep`` newest retained); the step is
+        the event cursor, which it returns. The state is staged to the host
+        before the call returns, so ``blocking=False`` writes on a
+        background thread while the next ``feed`` runs; the next snapshot
+        to the same directory, or ``wait()``, joins the writer. The id map,
+        both cadence marks and the drift baseline ride along as extras."""
+        mgr = self._managers.get(directory)
+        if mgr is None:
+            mgr = CheckpointManager(directory, interval=1, keep=keep)
+            self._managers[directory] = mgr
+        else:
+            mgr.keep = keep
+        extras = {}
+        if self._ext2int is not None:
+            extras["ext2int"] = self._ext2int
+        if self._last_shrink_check:
+            extras["shrink_mark"] = np.asarray([self._last_shrink_check],
+                                               np.int64)
+        if self._last_rebalance:
+            extras["rebalance_mark"] = np.asarray([self._last_rebalance],
+                                                  np.int64)
+        if self._drift_base is not None:
+            extras["drift_base"] = np.asarray(self._drift_base, np.float64)
+        mgr.save_now(self._cursor, self._state, blocking=blocking,
+                     geometry=geometry_of(self._state),
+                     extras=extras or None)
+        return self._cursor
+
+    def wait(self) -> None:
+        """Join any background snapshot writers (a no-op if none)."""
+        for mgr in self._managers.values():
+            mgr.wait()
 
     @classmethod
-    def restore(cls, *a, **kw):
-        _later("restore()", "A9/A10 (checkpoints, snapshot/restore)")
-
-    def compact(self, *a, **kw):
-        _later("compact()", "A10 (compact/shrink)")
-
-    def shrink_to(self, *a, **kw):
-        _later("shrink_to()", "A10 (compact/shrink)")
-
-    def rebalance(self, *a, **kw):
-        _later("rebalance()", "A12 (rebalancing)")
+    def restore(cls, directory: str, cfg: EngineConfig | None = None, *,
+                n: int | None = None, max_deg: int | None = None,
+                step: int | None = None, **kw) -> "Partitioner":
+        """Resume a session from a checkpoint (default: the latest step) —
+        one this package or the JAX package wrote — on ``device`` (a
+        keyword for the constructor; ``None`` is the card). The
+        checkpoint's geometry sizes the restore; ``n`` / ``max_deg``
+        larger grow it, smaller shrink it (``shrink_to``, which raises if
+        the live content cannot fit), and declare the geometry of a
+        checkpoint so old that its leaves cannot tell it. A larger
+        ``cfg.k_max`` grows the partition slots; a smaller one raises.
+        States that predate ``cut_matrix`` restore through ``fill_missing``
+        and are healed with ``recount_cut_matrix``. Pass the ``cfg``,
+        policy and engine knobs the session ran with (they are not
+        stored). Traces are not checkpointed."""
+        cfg = cfg or EngineConfig()
+        mgr = CheckpointManager(directory, interval=1)
+        step = step if step is not None else mgr.latest()
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint found under {directory!r}")
+        ck = mgr.geometry(step)
+        if ck is None:
+            if n is None or max_deg is None:
+                raise ValueError(
+                    f"checkpoint at step {step} records no geometry and "
+                    "none could be inferred from its leaf shapes — pass "
+                    "n= and max_deg= explicitly")
+            ck = Geometry(int(n), int(max_deg), cfg.k_max)
+        if cfg.k_max < (ck.k_max or 0):
+            raise ValueError(
+                f"checkpoint was taken at k_max={ck.k_max} but "
+                f"cfg.k_max={cfg.k_max}: partition-slot shapes grow, "
+                "never shrink — raise cfg.k_max")
+        target = Geometry(max(int(n or 0), ck.n),
+                          max(int(max_deg or 0), ck.max_deg), cfg.k_max)
+        # the session starts tier-minimal: its placeholder state is
+        # replaced below
+        part = cls(cfg, **kw)
+        # the payload dictates the leaf shapes: a host `like` at the exact
+        # checkpoint geometry, each restored leaf placed on the session's
+        # device
+        like = init_state(ck.n, ck.max_deg, ck.k_max or cfg.k_max,
+                          cfg.k_init, 0, device="cpu")
+        keys = mgr.leaf_keys(step)
+        state, step = mgr.restore(like, step=step, fill_missing=True,
+                                  device=part.device)
+        k_saved = int(state.edge_load.shape[0])
+        if k_saved > cfg.k_max:
+            raise ValueError(
+                f"checkpoint was taken at k_max={k_saved} but "
+                f"cfg.k_max={cfg.k_max}: partition-slot shapes grow, "
+                "never shrink — raise cfg.k_max")
+        if len(keys) < len(like):
+            # pre-cut_matrix checkpoint: fill_missing kept `like`'s zero
+            # matrix — rebuild it exactly from the restored adjacency
+            state = recount_cut_matrix(state)
+        part._set_state(grow_state(state, target))
+        part._cursor = int(step)
+        ext = mgr.extras(step)
+        if "ext2int" in ext:
+            e2i = np.asarray(ext["ext2int"], np.int32)
+            part._ext2int = e2i
+            valid = np.flatnonzero(e2i >= 0)
+            slots = int(e2i[valid].max()) + 1 if valid.size else 0
+            inv = np.full(slots, -1, np.int32)
+            inv[e2i[valid]] = valid.astype(np.int32)
+            part._int2ext = inv
+        if "shrink_mark" in ext:
+            part._last_shrink_check = int(np.asarray(ext["shrink_mark"])[0])
+        if "rebalance_mark" in ext:
+            part._last_rebalance = int(np.asarray(ext["rebalance_mark"])[0])
+        if "drift_base" in ext:
+            base = np.asarray(ext["drift_base"])
+            part._drift_base = (float(base[0]), float(base[1]))
+        part._record_geometry("restore", ck, geometry_of(part._state))
+        want_n = int(n) if n is not None and n < target.n else None
+        want_d = int(max_deg) if max_deg is not None \
+            and max_deg < target.max_deg else None
+        if want_n is not None or want_d is not None:
+            part.shrink_to(n=want_n, max_deg=want_d)
+        return part

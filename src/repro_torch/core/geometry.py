@@ -1,5 +1,5 @@
 """Elastic state geometry: the (n, max_deg, k_max) shape triple as a value
-(the port's copy of ``repro.core.geometry``, growth half).
+(the port's copy of ``repro.core.geometry``).
 
 Growing ``n``/``max_deg`` never changes a decision: every transition core
 scores absent rows as empty and ``-1`` neighbour entries are masked, and
@@ -9,7 +9,11 @@ start — except under LDG, whose capacity knob reads the allocated ``n``.
 
 Auto-growth doubles at minimum (:func:`grow_tier`): each grown dimension
 jumps to ``next_pow2(max(required, 2 * current))``, so a session fed a
-stream of unknown size regrows O(log n) times.
+stream of unknown size regrows O(log n) times. Shrinking is its
+hysteretic inverse (:func:`shrink_tier`): a dimension drops only once its
+live content fills at most ``1 / (2 * hysteresis)`` of it, and lands at
+most half full, so a stream oscillating around a tier boundary does not
+regrow and shrink on every window.
 """
 from __future__ import annotations
 
@@ -66,6 +70,30 @@ def grow_tier(current: Geometry, required: Geometry) -> Geometry:
         k = required.k_max
     return Geometry(dim(current.n, required.n),
                     dim(current.max_deg, required.max_deg), k)
+
+
+def shrink_tier(current: Geometry, required: Geometry, *,
+                hysteresis: int = 4) -> Geometry:
+    """The hysteretic shrink policy, the inverse of :func:`grow_tier`: a
+    dimension whose live requirement has fallen to ``1 / (2 *
+    hysteresis)`` of the allocation drops to ``next_pow2(2 * required)``;
+    everything else keeps its size. ``k_max`` never shrinks. Returns
+    ``current`` when nothing qualifies."""
+    if hysteresis < 2:
+        raise ValueError(
+            f"hysteresis={hysteresis} must be >= 2: at 1 the shrink "
+            "target is exactly the growth trigger, so a stream oscillating"
+            " around a tier boundary would regrow every window")
+
+    def dim(cur: int, req: int) -> int:
+        req = max(int(req), 1)
+        if req * 2 * hysteresis > cur:
+            return cur
+        return next_pow2(2 * req)
+
+    return Geometry(dim(current.n, required.n),
+                    dim(current.max_deg, required.max_deg),
+                    current.k_max)
 
 
 def check_row_width(state, nbrs) -> None:

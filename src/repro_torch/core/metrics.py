@@ -1,5 +1,5 @@
 """Paper §5.2 metrics (Eqs. 9–10) from first principles (the port's copy
-of ``repro.core.metrics``, the part the session needs).
+of ``repro.core.metrics``).
 
 These recompute from (assignment, present, adjacency) rather than trusting
 the engines' incremental counters, so a run can be checked against them.
@@ -48,9 +48,29 @@ def recompute_counters(
     }
 
 
+def edge_cut_ratio(cut_edges: int, total_edges: int) -> float:
+    """Eq. 9."""
+    return cut_edges / max(total_edges, 1)
+
+
 def load_imbalance(edge_load: np.ndarray, active: np.ndarray) -> float:
     """Eq. 10: population std of per-partition load over active partitions."""
     load = np.asarray(edge_load, np.float64)[np.asarray(active, bool)]
     if load.size == 0:
         return 0.0
     return float(np.sqrt(np.mean((load - load.mean()) ** 2)))
+
+
+def normalized_load_imbalance(edge_load: np.ndarray,
+                              active: np.ndarray) -> float:
+    """Eq. 10 normalised by the mean load (scale-free: the rebalance's
+    drift signal compares it against a threshold)."""
+    load = np.asarray(edge_load, np.float64)[np.asarray(active, bool)]
+    if load.size == 0 or load.mean() == 0:
+        return 0.0
+    return load_imbalance(edge_load, active) / load.mean()
+
+
+def replication_factor(n_replicas: int, n_vertices: int) -> float:
+    """Vertex-cut metric (HDRF-family baselines)."""
+    return n_replicas / max(n_vertices, 1)

@@ -1,10 +1,11 @@
 """The port's copy of the JAX RNG that the engines consume: threefry-2x32
 under ``jax_threefry_partitionable=True``, written as integer tensor ops.
 
-The JAX engines draw exactly one kind of random number: per event ``i``,
+The JAX engines draw one kind of random number: per event ``i``,
 ``randint(fold_in(key, i), (), 0, m)`` with ``m = max(num_partitions, 1)``
 (``repro.core.transition._rand_index`` / ``_choose_random`` /
-``rand_index_table``). Reproducing those bits is what lets the port's SDP,
+``rand_index_table``). The rebalance's LPA pass draws a second kind,
+``uniform(key, (n,))`` in [0, 1) (:func:`uniform`). Reproducing those bits is what lets the port's SDP,
 greedy and random policies choose bit-identically: the no-overlap branch
 of the affinity choice draws at random for every vertex that arrives with
 no assigned neighbour.
@@ -68,6 +69,8 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a scalar or a tensor of
     indices; returns keys of shape ``data.shape + (2,)``."""
     k0, k1 = _words(key)
+    if isinstance(data, int):   # a fill, not a host copy: graph-capturable
+        data = torch.full((), data, dtype=torch.int64, device=key.device)
     data = torch.as_tensor(data, device=key.device).to(torch.int64) & _M32
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(data), data)
     return _as_key(torch.stack([y0, y1], dim=-1))
@@ -110,3 +113,15 @@ def randint(key: torch.Tensor, minval: int, maxval) -> torch.Tensor:
     hi, lo = _draw_pair(*_words(key))
     span = torch.as_tensor(maxval, device=key.device).to(torch.int64) - minval
     return randint_words(hi, lo, span) + minval
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))``: f32 in [0, 1). Word ``i`` of the
+    random bits is the xor of the cipher's output pair at counter ``(0,
+    i)`` (partitionable threefry); its top 23 bits become the mantissa of
+    a float in [1, 2), minus 1 (exact)."""
+    k0, k1 = _words(key)
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(k0, k1, torch.zeros_like(idx), idx)
+    bits = ((y0 ^ y1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0

@@ -560,6 +560,38 @@ def del_edge_core(state: PartitionState, v, row, gate=True):
     )
 
 
+def migrate_core(state: PartitionState, v, dst, gate=True, stats=None):
+    """Move present vertex ``v`` to partition ``dst`` (the rebalance's
+    transition, ``repro_torch.rebalance``). Returns ``(state, did)``.
+
+    Algebraically ``del_vertex_core(v)`` then ``commit_add(v)`` at ``dst``
+    with the same neighbour scores: a move never changes the adjacency, so
+    the neighbours' terms of ``edge_load`` cancel, ``total_edges`` stays,
+    and only the src/dst rows and columns of ``cut_matrix`` move. A gated-off
+    call, or a move to the current or an inactive partition, leaves every
+    value as it was. ``stats`` passes in ``neighbor_stats`` of ``v``'s row
+    when the caller has it (the state's, so the values are the same)."""
+    if stats is None:
+        stats = neighbor_stats(state, state.adj[v.reshape(1)][0])
+    scores, deg = stats[0], stats[1]
+    a_v = _take(state.assignment, v)
+    src = torch.clamp(a_v, min=0)
+    dst = torch.clamp(dst, 0, state.edge_load.shape[0] - 1)
+    do = (gate & _take(state.present, v) & (a_v >= 0)
+          & _take(state.active, dst) & (dst != src))
+    e = do.to(_I32)
+    d = torch.where(do, deg, 0)
+    sc = torch.where(do, scores, 0)
+    _write(state.assignment, v, do, dst)
+    cm = _add_row_col(state.cut_matrix, src, -sc)
+    return state._replace(
+        vertex_count=_add_at(_add_at(state.vertex_count, src, -e), dst, e),
+        edge_load=_add_at(_add_at(state.edge_load, src, -d), dst, d),
+        cut_edges=state.cut_edges + _take(sc, src) - _take(sc, dst),
+        cut_matrix=_add_row_col(cm, dst, sc),
+    ), do
+
+
 def merge_slot(small, sc, deg, p, fresh, p_dv, was, pu, exists):
     """The masked counter merge of one window slot from its histogram
     ``(sc, deg)``: a fresh ADD commits to ``p``, a DEL_VERTEX of a present

@@ -44,6 +44,7 @@ def assert_same(jax_tuple, torch_tuple):
         want = np.asarray(getattr(jax_tuple, f))
         got = getattr(torch_tuple, f).cpu().numpy()
         assert want.dtype == got.dtype, (f, want.dtype, got.dtype)
+        assert want.shape == got.shape, (f, want.shape, got.shape)
         np.testing.assert_array_equal(want, got, err_msg=f)
 
 

@@ -825,3 +825,67 @@ def test_window_pipelines_read_nothing_back_to_the_host(cuda):
         torch.cuda.synchronize()
         for f in want._fields:
             assert torch.equal(getattr(got, f), getattr(want, f)), (kind, f)
+
+
+def _grqc_session(cuda, use_kernel, **kw):
+    s = interleaved_churn(load_dataset("grqc", scale=0.3), warmup_frac=0.2,
+                          del_every=3, edge_del_every=5, seed=0)
+    cfg = EngineConfig(k_max=16, k_init=1, max_cap=300, autoscale=True)
+    return Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=128,
+                                   use_kernel=use_kernel, device=cuda,
+                                   **kw).feed(s), s
+
+
+@pytest.mark.parametrize("m,passes", [(64, 2), (0, 3), (300, 0)])
+def test_rebalance_kernel_matches_plain_histograms(cuda, m, passes):
+    """rebalance() on a card session with use_kernel=True takes its label
+    histograms from partition_affinity at W = n — once for the migration's
+    ranking and twice an LPA iteration — and equals the same rebalance with
+    the plain histograms on the card, leaf for leaf, and a recount."""
+    from repro_torch.core.metrics import recompute_counters
+    (kp, _), (pp, _) = (_grqc_session(cuda, k) for k in (True, False))
+    before = partition_affinity.launches
+    ek = kp.rebalance(m=m, passes=passes)
+    assert partition_affinity.launches - before == \
+        (1 if m else 0) + 2 * passes
+    after = partition_affinity.launches
+    ep = pp.rebalance(m=m, passes=passes)
+    assert partition_affinity.launches == after
+    assert ek == ep
+    if not passes:     # commits only ever lower the cut
+        assert ek["cut_after"] <= ek["cut_before"]
+    for f in kp.state._fields:
+        assert torch.equal(getattr(kp.state, f), getattr(pp.state, f)), f
+    st = kp.state
+    rec = recompute_counters(st.assignment.cpu().numpy(),
+                             st.present.cpu().numpy(), st.adj.cpu().numpy(),
+                             st.edge_load.shape[0])
+    assert np.array_equal(rec["cut_matrix"], st.cut_matrix.cpu().numpy())
+    assert rec["cut_edges"] == int(st.cut_edges)
+
+
+def test_snapshot_on_card_restores_on_cpu_and_back(cuda, tmp_path):
+    """A card session's snapshot restores into a CPU session and back onto
+    the card; all three, fed the same tail, stay equal."""
+    part, s = _grqc_session(cuda, True, auto_shrink=True, shrink_every=512)
+    cfg = part.cfg
+    part.feed((np.ones(300, np.int32), s.vertex[:300],
+               np.full((300, 1), -1, np.int32)))
+    part.compact()
+    part.snapshot(str(tmp_path / "card"), blocking=False)
+    part.wait()
+    kw = dict(policy="sdp", window=128, use_kernel=True, auto_shrink=True,
+              shrink_every=512)
+    host = Partitioner.restore(str(tmp_path / "card"), cfg, device="cpu",
+                               **kw)
+    host.snapshot(str(tmp_path / "host"))
+    back = Partitioner.restore(str(tmp_path / "host"), cfg, device=cuda,
+                               **kw)
+    assert host.device.type == "cpu" and back.device.type == "cuda"
+    tail = (s.etype[:600], s.vertex[:600], s.nbrs[:600])
+    for p in (part, host, back):
+        p.feed(tail)
+    for f in part.state._fields:
+        want = getattr(part.state, f).cpu()
+        assert torch.equal(want, getattr(host.state, f)), f
+        assert torch.equal(want, getattr(back.state, f).cpu()), f
