@@ -24,7 +24,12 @@ runs fig16's three streams at full scale against the JAX package's
 pinned digests, drives the long-lived session's lifecycle — bulk deletes
 with ``auto_shrink``, ``compact()``, ``snapshot()``, ``restore()`` on the
 card, the same tail to both sessions — on twitter and on grqc (against
-its pinned JAX digest), and serves
+its pinned JAX digest), serves twitter's stream through
+``PartitionService`` under Poisson arrivals at four times the
+synchronous driver's capacity (a reader racing ingest, every answer held
+to a batch boundary's state) and recovers ``RecoverableSession``s from an
+injected crash, a SIGKILLed child process and a closed service, each
+against its uninterrupted state (phase ``serve``), and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -49,6 +54,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -60,6 +66,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.api import scenarios as sc  # noqa: E402
 from repro_torch.api.scenarios import state_digest  # noqa: E402
 from repro_torch.api.partitioner import Partitioner  # noqa: E402
+from repro_torch.api.serve import PartitionService  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import engine, windowed as wnd  # noqa: E402
@@ -74,7 +82,7 @@ from repro_torch.core.offline import cut_of, offline_partition  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
 from repro_torch.graph.datasets import load_dataset  # noqa: E402
 from repro_torch.graph.stream import (  # noqa: E402
-    VertexStream, interleaved_churn, materialize_graph,
+    VertexStream, interleaved_churn, materialize_graph, poisson_arrivals,
 )
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
@@ -101,6 +109,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.rebalance import passes as rpasses  # noqa: E402
+from repro_torch.runtime import CrashError, RecoverableSession  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 (NVIDIA data sheet)
@@ -1489,6 +1498,416 @@ def phase_lifecycle(dev, g, s) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase serve: the serving tier and crash-safe sessions on the card
+# ---------------------------------------------------------------------------
+
+SERVE_MEAN_BATCH = 24.0      # fig14's Poisson burst size (events)
+SERVE_OVERLOAD = 4.0         # λ = 4 × the synchronous driver's capacity
+SERVE_MAX_PENDING = 64       # fig14's ingest queue bound
+SERVE_QUERY_IDS = 1024       # ids in each racing where_many
+SERVE_QUERY_GAP_S = 0.002    # the racing reader's pause between queries
+SERVE_SNAPSHOT_EVERY = 16384
+SERVE_CRASH_AT = 0.7         # the injected crash, as a share of the stream
+SERVE_RECOVER_CHUNK = 3000   # events per feed of the recovering session
+SERVE_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_serve")
+KILLED_CHILD = """
+import os, signal, sys
+from repro_torch.api import Partitioner
+from repro_torch.api import scenarios as sc
+from repro_torch.core.config import EngineConfig
+from repro_torch.runtime import RecoverableSession
+
+g, s = sc.lifecycle_stream("grqc")
+part = Partitioner.from_stream(s, EngineConfig(**sc.LIFECYCLE_CFG["grqc"]),
+                               policy="sdp", seed=0, use_kernel=True,
+                               window=256, engine="windowed", device="cuda")
+sess = RecoverableSession(part, sys.argv[1], snapshot_every=1536)
+stop = int(sys.argv[2])
+for a in range(0, stop, 500):
+    b = min(a + 500, stop)
+    sess.feed((s.etype[a:b], s.vertex[a:b], s.nbrs[a:b]))
+sess.wait()                   # snapshots on disk, journal written
+print("CHILD_FED", sess.cursor, flush=True)
+os.kill(os.getpid(), signal.SIGKILL)      # no atexit, no cleanup
+"""
+
+
+class _Recorded(Partitioner):
+    """A session that records the cursor after each dispatched batch: the
+    boundaries a racing query may observe."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.boundaries = [0]
+
+    def feed_prepared(self, chunk):
+        super().feed_prepared(chunk)
+        self.boundaries.append(self.cursor)
+        return self
+
+
+def _serve_session(s, dev, cls=Partitioner):
+    return cls.from_stream(s, EngineConfig(**sc.LIFECYCLE_CFG["twitter"]),
+                           policy="sdp", seed=0, use_kernel=True,
+                           window=WINDOW, engine="windowed", device=dev)
+
+
+def _pcts(seconds) -> dict:
+    return {"p50_ms": _ms_pct(seconds, 50), "p99_ms": _ms_pct(seconds, 99)}
+
+
+def _run_sync_feed(s, dev, batches, due) -> tuple:
+    """fig14's naive driver: sleep to each arrival's due time, feed it,
+    sync — one (padded) window per arrival."""
+    part = _serve_session(s, dev)
+    lat = np.empty(len(batches))
+    t0 = time.perf_counter()
+    for i, chunk in enumerate(batches):
+        ahead = due[i] - (time.perf_counter() - t0)
+        if ahead > 0:
+            time.sleep(ahead)
+        part.feed(chunk).sync()
+        lat[i] = (time.perf_counter() - t0) - due[i]
+    return part, time.perf_counter() - t0, lat
+
+
+def _profiler():
+    """torch.profiler over every thread: the service's kernels are launched
+    from its ingest thread."""
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA],
+        experimental_config=torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True))
+
+
+def _profiled_busy(prof, wall_s: float) -> dict:
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    return {"traced_wall_s": wall_s, "traced_device_s": busy,
+            "device_ops": sum(r[2] for r in rows),
+            "device_busy_share": busy / wall_s if rows else None,
+            "top_kernels": [{"name": k[:100], "count": c, "ms": us / 1e3}
+                            for us, k, c in rows[:6]]}
+
+
+def _run_service(s, dev, batches, due, *, trace=False, reader=False):
+    """The same arrivals through PartitionService. ``trace``: torch.profiler
+    over the whole run, from the first arrival to the flush. ``reader``: a
+    second thread calls where_many on SERVE_QUERY_IDS random ids every
+    SERVE_QUERY_GAP_S while ingest runs, recording the cursor before and
+    after each query."""
+    part = _serve_session(s, dev, _Recorded)
+    svc = PartitionService(part, max_pending_chunks=SERVE_MAX_PENDING,
+                           policy="block")
+    answers, stop = [], threading.Event()
+    rng = np.random.default_rng(7)
+
+    def read():
+        while not stop.is_set():
+            ids = rng.integers(0, s.n, SERVE_QUERY_IDS).astype(np.int32)
+            lo = part.cursor
+            t = time.perf_counter()
+            got = svc.where_many(ids)
+            answers.append((lo, ids, got, part.cursor,
+                            time.perf_counter() - t))
+            stop.wait(SERVE_QUERY_GAP_S)
+
+    th = threading.Thread(target=read, daemon=True) if reader else None
+    prof = None
+    if trace:
+        with _profiler():              # the profiler's one-off start-up
+            torch.zeros(1, device=dev).add_(1)
+        prof = _profiler()
+        prof.__enter__()
+    t0 = time.perf_counter()
+    if th is not None:
+        th.start()
+    for i, chunk in enumerate(batches):
+        ahead = due[i] - (time.perf_counter() - t0)
+        if ahead > 0:
+            time.sleep(ahead)
+        svc.submit(chunk, arrival=t0 + due[i], timeout=300)
+    svc.flush(timeout=300)
+    dur = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    stop.set()
+    if th is not None:
+        th.join(timeout=300)
+        if th.is_alive():
+            raise AssertionError("serve: the racing reader did not stop")
+    m = svc.metrics()
+    lat = svc.latencies()
+    svc.close()
+    out = {"seconds": dur, "events_per_s": s.num_events / dur,
+           **_pcts(lat), "batches_dispatched": m["batches_dispatched"],
+           "mean_batch_events": s.num_events / m["batches_dispatched"],
+           **{k: m[k] for k in ("coercion_s", "device_wait_s",
+                                "submit_blocked_s", "max_queue_depth",
+                                "device_busy_fraction")}}
+    if trace:
+        out["profiler"] = _profiled_busy(prof, dur)
+    return part, out, answers
+
+
+def _check_answers(s, dev, part, answers) -> dict:
+    """Each racing answer equals a synchronous card session's labels at a
+    dispatched batch boundary between the cursors read around it."""
+    ref = _serve_session(s, dev)
+    pending = sorted(range(len(answers)), key=lambda i: answers[i][0])
+    ok = [False] * len(answers)
+    prev = 0
+    for c in part.boundaries:
+        ref.feed((s.etype[prev:c], s.vertex[prev:c], s.nbrs[prev:c]))
+        prev = c
+        labels = None
+        for i in pending:
+            lo, ids, got, hi, _ = answers[i]
+            if lo > c:
+                break
+            if ok[i] or hi < c:
+                continue
+            if labels is None:
+                labels = ref.state.assignment.cpu().numpy()
+            ok[i] = bool(np.array_equal(got, labels[ids]))
+        pending = [i for i in pending if not ok[i]]
+    if pending:
+        lo, _, _, hi, _ = answers[pending[0]]
+        raise AssertionError(
+            f"serve: {len(pending)} of {len(answers)} racing queries match "
+            f"no batch boundary (first: cursors {lo}..{hi})")
+    return {"queries": len(answers), **_pcts([a[4] for a in answers]),
+            "boundaries": len(part.boundaries) - 1,
+            "boundaries_per_query": float(np.mean(
+                [sum(lo <= c <= hi for c in part.boundaries)
+                 for lo, _, _, hi, _ in answers[::max(len(answers) // 64,
+                                                      1)]]))}
+
+
+def _dir_bytes(directory: str) -> dict:
+    out = {"journal_bytes": 0, "checkpoint_bytes": 0}
+    for root, _, files in os.walk(directory):
+        key = "journal_bytes" if os.path.basename(root) == "journal" \
+            else "checkpoint_bytes"
+        out[key] += sum(os.path.getsize(os.path.join(root, f))
+                        for f in files)
+    return out
+
+
+def _serve_recovery(s, dev, ref) -> dict:
+    """A RecoverableSession over the twitter stream, crashing (injected)
+    at SERVE_CRASH_AT of it; recover() on the card, then the rest."""
+    directory = os.path.join(SERVE_DIR, "crash")
+    shutil.rmtree(directory, ignore_errors=True)
+    T = s.num_events
+    crash_at = int(SERVE_CRASH_AT * T)
+    sess = RecoverableSession(_serve_session(s, dev), directory,
+                              snapshot_every=SERVE_SNAPSHOT_EVERY,
+                              inject_crash_after=crash_at)
+    t = time.perf_counter()
+    try:
+        for a in range(0, T, SERVE_RECOVER_CHUNK):
+            b = min(a + SERVE_RECOVER_CHUNK, T)
+            sess.feed((s.etype[a:b], s.vertex[a:b], s.nbrs[a:b]))
+        raise AssertionError("serve: the injected crash never fired")
+    except CrashError:
+        pass
+    sess.wait()
+    torch.cuda.synchronize()
+    fed_s = time.perf_counter() - t
+    snapshots, on_disk = sess.metrics()["snapshots"], _dir_bytes(directory)
+    del sess
+    kw = dict(policy="sdp", use_kernel=True, window=WINDOW,
+              engine="windowed", device=dev)
+    cfg = EngineConfig(**sc.LIFECYCLE_CFG["twitter"])
+    # the restore alone (its session is dropped), then the whole recovery:
+    # restore + journal replay
+    t = time.perf_counter()
+    restored_at = Partitioner.restore(directory, cfg, **kw).cursor
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rec = RecoverableSession.recover(directory, cfg,
+                                     snapshot_every=SERVE_SNAPSHOT_EVERY,
+                                     **kw)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    replayed = rec.cursor - restored_at
+    c = rec.cursor
+    rec.feed((s.etype[c:], s.vertex[c:], s.nbrs[c:]))
+    rec.sync()
+    assert_states_equal(rec.state, ref.state,
+                        "serve: recovered session vs the uninterrupted one")
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"crash_at": crash_at, "fed_until_crash_s": fed_s,
+            "snapshots": snapshots, **on_disk,
+            "restored_cursor": restored_at, "replayed_events": replayed,
+            "restore_s": restore_s, "replay_s": recover_s - restore_s,
+            "recover_s": recover_s, "recovered_equal": True}
+
+
+def _killed_process(dev) -> dict:
+    """A child python3 feeds grqc's churn session on the card through a
+    RecoverableSession and SIGKILLs itself mid-stream; this process
+    recovers on the card, finishes, and meets the JAX package's digest."""
+    directory = os.path.join(SERVE_DIR, "killed")
+    shutil.rmtree(directory, ignore_errors=True)
+    g, s = sc.lifecycle_stream("grqc")
+    stop = s.num_events * 2 // 3
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", KILLED_CHILD, directory,
+                          str(stop)], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    child_s = time.perf_counter() - t
+    if out.returncode != -9 or f"CHILD_FED {stop}" not in out.stdout:
+        raise AssertionError(f"serve: the child was not killed mid-stream "
+                             f"(exit {out.returncode}): {out.stderr[-2000:]}")
+    snapshot = CheckpointManager(directory, interval=1).latest()
+    t = time.perf_counter()
+    rec = RecoverableSession.recover(
+        directory, EngineConfig(**sc.LIFECYCLE_CFG["grqc"]), policy="sdp",
+        use_kernel=True, window=WINDOW, engine="windowed", device=dev)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t
+    if rec.cursor != stop:
+        raise AssertionError(f"serve: recovered cursor {rec.cursor}, the "
+                             f"child fed {stop}")
+    rec.feed((s.etype[stop:], s.vertex[stop:], s.nbrs[stop:]))
+    digest = state_digest(rec.state)
+    if digest != sc.GRQC_SESSION_DIGEST:
+        raise AssertionError("serve: the SIGKILL-recovered grqc session "
+                             "differs from the JAX package's")
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"events": s.num_events, "killed_at": stop,
+            "restored_cursor": snapshot, "replayed_events": stop - snapshot,
+            "child_s": child_s, "recover_s": recover_s, "digest_ok": True}
+
+
+def _serve_recover_serve(s, dev, ref, batches) -> dict:
+    """The crash-safe tier: a service over a RecoverableSession serves the
+    first half of the arrivals and is closed; a service over the recovered
+    session serves the rest; the end state is the whole-stream state."""
+    directory = os.path.join(SERVE_DIR, "tier")
+    shutil.rmtree(directory, ignore_errors=True)
+    half = len(batches) // 2
+    sess = RecoverableSession(_serve_session(s, dev), directory,
+                              snapshot_every=SERVE_SNAPSHOT_EVERY)
+    t = time.perf_counter()
+    with PartitionService(sess, max_pending_chunks=SERVE_MAX_PENDING) as svc:
+        for chunk in batches[:half]:
+            svc.submit(chunk, timeout=300)
+        svc.flush(timeout=300)
+    sess.wait()
+    first_s = time.perf_counter() - t
+    at, snaps = sess.cursor, sess.metrics()["snapshots"]
+    del sess, svc
+    t = time.perf_counter()
+    rec = RecoverableSession.recover(
+        directory, EngineConfig(**sc.LIFECYCLE_CFG["twitter"]),
+        snapshot_every=SERVE_SNAPSHOT_EVERY, policy="sdp", use_kernel=True,
+        window=WINDOW, engine="windowed", device=dev)
+    recover_s = time.perf_counter() - t
+    if rec.cursor != at:
+        raise AssertionError(f"serve: the tier recovered at {rec.cursor}, "
+                             f"it had served {at}")
+    t = time.perf_counter()
+    with PartitionService(rec, max_pending_chunks=SERVE_MAX_PENDING) as svc:
+        for chunk in batches[half:]:
+            svc.submit(chunk, timeout=300)
+        svc.flush(timeout=300)
+    rec.wait()
+    second_s = time.perf_counter() - t
+    assert_states_equal(rec.state, ref.state,
+                        "serve: serve-recover-serve vs the whole stream")
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"served_before_close": at, "snapshots_before_close": snaps,
+            "first_half_s": first_s, "recover_s": recover_s,
+            "second_half_s": second_s, "state_equal": True}
+
+
+def phase_serve(dev, s, card: str) -> dict:
+    """The serving tier on the card at twitter's full size, as
+    benchmarks/fig14_serving.py runs it: Poisson arrivals (mean burst 24)
+    at 4 × the synchronous driver's capacity, fed by the synchronous
+    driver and by PartitionService (every dispatch a padded window on the
+    kernels); a reader racing ingest; then crash recovery, a SIGKILLed
+    process and the crash-safe tier."""
+    T = s.num_events
+    t_phase = t = time.perf_counter()
+    ref = _serve_session(s, dev).feed(s)
+    ref.sync()
+    ref_s = time.perf_counter() - t
+    if state_digest(ref.state) != sc.TWITTER_SESSION_DIGEST:
+        raise AssertionError("serve: the whole-stream session differs from "
+                             "the JAX package's")
+    bounds, _ = poisson_arrivals(s, rate=1.0, mean_batch=SERVE_MEAN_BATCH,
+                                 seed=1)
+    batches = [(s.etype[a:b], s.vertex[a:b], s.nbrs[a:b])
+               for a, b in zip(bounds[:-1], bounds[1:])]
+    _run_sync_feed(s, dev, batches[:256], np.zeros(256))     # warm-up
+    part, cap_s, cap_lat = _run_sync_feed(s, dev, batches,
+                                          np.zeros(len(batches)))
+    assert_states_equal(part.state, ref.state, "serve: unthrottled sync")
+    capacity = T / cap_s
+    lam = SERVE_OVERLOAD * capacity
+    _, due = poisson_arrivals(s, rate=lam, mean_batch=SERVE_MEAN_BATCH,
+                              seed=1)
+    part, sync_s, sync_lat = _run_sync_feed(s, dev, batches, due)
+    assert_states_equal(part.state, ref.state, "serve: sync_feed")
+    drivers = {"sync_unthrottled": {"seconds": cap_s,
+                                    "events_per_s": capacity,
+                                    **_pcts(cap_lat)},
+               "sync_feed": {"seconds": sync_s, "events_per_s": T / sync_s,
+                             **_pcts(sync_lat),
+                             "batches_dispatched": len(batches),
+                             "mean_batch_events": T / len(batches)}}
+    del part
+    _reset_launches()
+    part, drivers["service"], _ = _run_service(s, dev, batches, due)
+    launches = _read_launches()
+    windows = _window_kinds(part)
+    _check_session_launches(launches, windows, "serve: the service")
+    assert_states_equal(part.state, ref.state, "serve: service")
+    if state_digest(part.state) != sc.TWITTER_SESSION_DIGEST:
+        raise AssertionError("serve: the service's state differs from the "
+                             "JAX package's")
+    del part
+    part, traced, _ = _run_service(s, dev, batches, due, trace=True)
+    assert_states_equal(part.state, ref.state, "serve: traced service")
+    del part
+    part, raced, answers = _run_service(s, dev, batches, due, reader=True)
+    assert_states_equal(part.state, ref.state, "serve: raced service")
+    queries = _check_answers(s, dev, part, answers)
+    del part, answers
+    out = {"phase": "serve", "card": card, "events": T, "n": s.n,
+           "chunks": len(batches), "mean_batch": SERVE_MEAN_BATCH,
+           "window": WINDOW, "engine": "windowed",
+           "max_pending_chunks": SERVE_MAX_PENDING,
+           "whole_stream_s": ref_s, "arrival_rate_eps": lam,
+           "drivers": drivers, "launches": launches, "windows": windows,
+           "states_equal": True, "digest_ok": True,
+           "traced_service": traced,
+           "raced_service": {**raced, "queries": queries},
+           "recovery": _serve_recovery(s, dev, ref),
+           "killed_process": _killed_process(dev),
+           "serve_recover_serve": _serve_recover_serve(s, dev, ref, batches)}
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 class _PlainLoops:
     """Within it, the window pipelines run the host loops that the window
     kernels replace: the prep loop, the plain RNG and the pure-ADD loop
@@ -2368,7 +2787,7 @@ def phase_lm(dev) -> dict:
 
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
-                lm: dict, rebalance: dict) -> dict:
+                lm: dict, rebalance: dict, serve: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -2400,7 +2819,8 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              "launch_floor_ms")},
          # the rebalance's histograms at W = n, launched from its own run
          "rebalance": {"launches": rebalance["launches"][
-             "partition_affinity"], **rebalance["partition_affinity"]}},
+             "partition_affinity"], **rebalance["partition_affinity"]},
+         "serve": {"launches": serve["launches"]["partition_affinity"]}},
         {"name": "fused_chooser", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_chooser.cu",
          "replaces": "src/repro/kernels/fused_chooser/fused_chooser.py:245",
@@ -2412,6 +2832,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "bound_ms": fc_case["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "launches_by_kernel": twitter["launches_by_kernel"],
+         "serve": {"launches": serve["launches"]["fused_chooser"]},
          "policies_ms": {p: fc_timed[("session", p)]["ms"]
                          for p in ("sdp", "ldg", "random")},
          **{label: {k: fc_timed[(label, "sdp")][k]
@@ -2463,6 +2884,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              # no Pallas kernel: the lax.scan / XLA ops of the JAX package
              "replaces": replaces,
              "launches": twitter["launches"][name],
+             "serve": {"launches": serve["launches"][name]},
              "max_abs_err": max(c["max_abs_err"] for c in cases),
              "shape": case["shape"], "cases": len(cases),
              "mismatches": sum(c["max_abs_err"] != 0 for c in cases),
@@ -2539,10 +2961,11 @@ def main() -> int:
     rebalance = phase_rebalance(dev, twitter_part)
     del twitter_part
     phase_lifecycle(dev, twitter_g, twitter_s)
+    serve = phase_serve(dev, twitter_s, info["nvidia_smi"])
     del twitter_g, twitter_s
     recsys = phase_recsys(dev)
     lm = phase_lm(dev)
-    emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance))
+    emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

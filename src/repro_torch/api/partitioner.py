@@ -57,8 +57,10 @@ policy except ``hash`` (which assigns by raw id — relabelling compaction
 refuses it) and LDG's allocated-``n`` capacity knob, as in the JAX
 package.
 
-Vertex-sharded sessions are a later slice of the port (ROADMAP A16):
-their arguments raise ``NotImplementedError`` when set.
+``place(device)`` moves a live session to another device (a host
+round-trip). Vertex-sharded sessions, and with them ``reshard``, are a
+later slice of the port (ROADMAP A16): their arguments raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -426,8 +428,8 @@ class Partitioner:
         power-of-two tier that holds them (no hysteresis: the caller has
         decided). Prefers the id-preserving truncation; otherwise relabels
         and keeps the external-id map, so ``feed`` and ``to_internal`` go
-        on speaking original ids. Counters are untouched. Syncs."""
-        self.sync()
+        on speaking original ids. Counters are untouched. Reads the device
+        (ordered on the current stream after every enqueued feed)."""
         cur = geometry_of(self._state)
         packed, _ = live_extent(self._state)
         target = Geometry(min(next_pow2(packed.n), cur.n),
@@ -445,7 +447,6 @@ class Partitioner:
         Truncates when the live slot ids fit, else re-packs (relabelling,
         see ``compact``). Raises if the live content cannot fit even
         packed, or if a dimension would grow."""
-        self.sync()
         cur = geometry_of(self._state)
         target = Geometry(int(n if n is not None else cur.n),
                           int(max_deg if max_deg is not None
@@ -476,13 +477,29 @@ class Partitioner:
         n_present = int(self._state.present.sum())
         if (n_present + 1) * 2 * hysteresis > cur.n:
             return False
-        self.sync()
         packed, _ = live_extent(self._state)
         target = shrink_tier(cur, packed, hysteresis=hysteresis)
         if target == cur:
             return False
         self._repack_to(target, "shrink")
         return True
+
+    def place(self, device) -> "Partitioner":
+        """Move the session onto ``device`` through a host round-trip (card
+        to CPU, CPU to card, or card to card) — the single-device re-mesh
+        path: after a (simulated) device loss the session goes on feeding
+        there bit-identically (placement is not semantics). Everything tied
+        to the device moves or is remade: the state's tensors (the RNG key
+        among them), ``device``, the knobs tensor and any collected traces.
+        Syncs. Returns ``self``."""
+        dev = resolve_device(device)
+        self.sync()
+        host = [t.cpu() for t in self._state]
+        self.device = dev
+        self._set_state(PartitionState(*(t.to(dev) for t in host)))
+        self._traces = [EventTrace(*(x.to(dev) for x in tr))
+                        for tr in self._traces]
+        return self
 
     # -- external ids -------------------------------------------------------
 

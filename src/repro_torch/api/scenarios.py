@@ -60,6 +60,10 @@ TWITTER_SESSION_DIGEST = (
     "ee5e42a3670aedde660526a82462ae0c07e54bb88b576390e5a1413d660a6d93")
 TWITTER_REBALANCE_DIGEST = (
     "642e5a66f293bb3561e850b40d13e2d27c947c163b2c3bddc1ef7a604614f943")
+# grqc's churn session (scale 1.0, degree cap 192, the churn stream below,
+# LIFECYCLE_CFG["grqc"], window 256): the JAX package's final state
+GRQC_SESSION_DIGEST = (
+    "7e3136ee0be08fc836cdc165fbc6aa7daac4d5166a2a324aa9061cbd8da63190")
 # the lifecycle on grqc at scale 1.0: the JAX package's final state
 GRQC_LIFECYCLE_DIGEST = (
     "bdbbe872f7d82b58dd0b3059238fcc370dc3f83c1eb115f7497aeda3366bd8a5")

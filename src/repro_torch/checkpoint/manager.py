@@ -40,7 +40,10 @@ def _stage_leaf(leaf, chunk_bytes: int) -> np.ndarray:
         return np.asarray(leaf)
     nbytes = leaf.numel() * leaf.element_size()
     if leaf.ndim == 0 or nbytes <= chunk_bytes:
-        return to_numpy(leaf)
+        # a CPU leaf's numpy() is a view of the live tensor, which the next
+        # feed updates in place: copy it
+        host = to_numpy(leaf)
+        return host.copy() if leaf.device.type == "cpu" else host
     row_bytes = max(nbytes // leaf.shape[0], 1)
     rows = max(int(chunk_bytes // row_bytes), 1)
     out = np.empty(tuple(leaf.shape), to_numpy(leaf[:0]).dtype)
@@ -118,7 +121,8 @@ class CheckpointManager:
         """Save ``tree`` at ``step``, staged to the host before the call
         returns. Returns ``step``."""
         host_tree = _stage_host(tree, self.host_chunk_bytes)
-        host_extras = ({k: to_numpy(v) for k, v in extras.items()}
+        # copies: the session updates its id map in place
+        host_extras = ({k: np.array(to_numpy(v)) for k, v in extras.items()}
                        if extras else None)
 
         def work():

@@ -889,3 +889,155 @@ def test_snapshot_on_card_restores_on_cpu_and_back(cuda, tmp_path):
         want = getattr(part.state, f).cpu()
         assert torch.equal(want, getattr(host.state, f)), f
         assert torch.equal(want, getattr(back.state, f).cpu()), f
+
+
+# -- the serving tier and crash-safe sessions on the card -------------------
+
+def _grqc_stream():
+    return interleaved_churn(load_dataset("grqc", scale=0.3), warmup_frac=0.2,
+                             del_every=3, edge_del_every=5, seed=0)
+
+
+def _grqc_card(s, cuda, cls=Partitioner, **kw):
+    cfg = EngineConfig(k_max=16, k_init=1, max_cap=300, autoscale=True)
+    kw.setdefault("window", 128)
+    return cls.from_stream(s, cfg, policy="sdp", seed=0, use_kernel=True,
+                           device=cuda, **kw)
+
+
+def _arrivals(s, mean_batch=24.0):
+    from repro_torch.graph.stream import poisson_arrivals
+    bounds, _ = poisson_arrivals(s, rate=1.0, mean_batch=mean_batch, seed=1)
+    return [(s.etype[a:b], s.vertex[a:b], s.nbrs[a:b])
+            for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _assert_states_equal(a, b):
+    for f in a._fields:
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f
+
+
+class _Recording(Partitioner):
+    """Records the cursor after each dispatched batch."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.boundaries = [0]
+
+    def feed_prepared(self, chunk):
+        super().feed_prepared(chunk)
+        self.boundaries.append(self.cursor)
+        return self
+
+
+@pytest.mark.parametrize("stream", ["current", "side"])
+@pytest.mark.parametrize("engine", ["windowed", "auto"])
+def test_service_on_card_equals_sync_session(cuda, engine, stream):
+    """PartitionService over a card session with use_kernel=True (built on
+    the current stream, or on a side stream that then carries every
+    dispatch and gather) equals a synchronous card session, and its
+    completion tokens are CUDA events on the session's stream."""
+    from repro_torch.api import PartitionService
+    s = _grqc_stream()
+    sync = _grqc_card(s, cuda, engine=engine).feed(s)
+    side = torch.cuda.Stream(cuda) if stream == "side" else None
+    part = _grqc_card(s, cuda, engine=engine)
+    before = window_rng.launches
+    with torch.cuda.stream(side):
+        svc = PartitionService(part, max_pending_chunks=64)
+    assert svc._stream == (side or torch.cuda.current_stream(cuda))
+    with svc:
+        for c in _arrivals(s):
+            svc.submit(c, timeout=60)
+        svc.flush(timeout=120)
+        labels = svc.where_many(np.arange(s.n))
+        m = svc.metrics()
+    assert isinstance(svc._token(), torch.cuda.Event)
+    assert window_rng.launches > before
+    assert m["events_ingested"] == s.num_events
+    _assert_states_equal(sync.state, part.state)
+    assert np.array_equal(labels, sync.state.assignment.cpu().numpy())
+
+
+def test_service_queries_during_ingest_see_batch_boundaries(cuda):
+    """A reader thread's where_many answers taken while the card ingests:
+    each equals a synchronous card session's labels at a dispatched batch
+    boundary between the cursors read before and after the query."""
+    import threading
+    from repro_torch.api import PartitionService
+    s = _grqc_stream()
+    part = _grqc_card(s, cuda, cls=_Recording, engine="windowed")
+    rng = np.random.default_rng(3)
+    answers, stop = [], threading.Event()
+    svc = PartitionService(part, max_pending_chunks=64)
+
+    def reader():
+        while not stop.is_set():
+            ids = rng.integers(0, s.n, 256).astype(np.int32)
+            lo = part.cursor
+            answers.append((lo, ids, svc.where_many(ids), part.cursor))
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    for c in _arrivals(s, mean_batch=8.0):
+        svc.submit(c, timeout=60)
+    svc.flush(timeout=120)
+    stop.set()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    svc.close()
+    assert len(answers) > 1
+    ref = _grqc_card(s, cuda, engine="windowed")
+    labels, prev = {}, 0
+    for c in part.boundaries:
+        ref.feed((s.etype[prev:c], s.vertex[prev:c], s.nbrs[prev:c]))
+        prev = c
+        labels[c] = ref.state.assignment.cpu().numpy().copy()
+    for lo, ids, got, hi in answers:
+        assert any(np.array_equal(got, labels[c][ids])
+                   for c in part.boundaries if lo <= c <= hi), (lo, hi)
+
+
+def test_crash_on_card_recovers_equal(cuda, tmp_path):
+    """A RecoverableSession on the card crashes (injected) at 70 % of the
+    stream; recover() on the card and the rest of the stream reach the
+    uninterrupted card session's state."""
+    from repro_torch.runtime import CrashError, RecoverableSession
+    s = _grqc_stream()
+    T = s.num_events
+    ref = _grqc_card(s, cuda).feed(s)
+    sess = RecoverableSession(_grqc_card(s, cuda), str(tmp_path),
+                              snapshot_every=512,
+                              inject_crash_after=int(0.7 * T))
+    with pytest.raises(CrashError):
+        for a in range(0, T, 300):
+            sess.feed((s.etype[a:a + 300], s.vertex[a:a + 300],
+                       s.nbrs[a:a + 300]))
+    sess.wait()
+    cfg = ref.cfg
+    rec = RecoverableSession.recover(str(tmp_path), cfg, policy="sdp",
+                                     window=128, use_kernel=True,
+                                     device=cuda)
+    assert rec.device.type == "cuda" and rec.cursor > int(0.7 * T)
+    c = rec.cursor
+    rec.feed((s.etype[c:], s.vertex[c:], s.nbrs[c:]))
+    _assert_states_equal(ref.state, rec.state)
+
+
+def test_remesh_card_cpu_card_continues(cuda, tmp_path):
+    """remesh() card → CPU → card mid-stream: the session goes on
+    bit-identically to the one that never moved."""
+    from repro_torch.runtime import RecoverableSession
+    s = _grqc_stream()
+    T = s.num_events
+    ref = _grqc_card(s, cuda).feed(s)
+    sess = RecoverableSession(_grqc_card(s, cuda), str(tmp_path))
+    cuts = (0, T // 3, 2 * T // 3, T)
+    for (a, b), dev in zip(zip(cuts[:-1], cuts[1:]), ("cpu", cuda, None)):
+        sess.feed((s.etype[a:b], s.vertex[a:b], s.nbrs[a:b]))
+        if dev is not None:
+            sess.remesh(dev)
+            assert sess.state.assignment.device.type == \
+                torch.device(dev).type
+    assert sess.device.type == "cuda"
+    _assert_states_equal(ref.state, sess.state)
