@@ -29,7 +29,11 @@ its pinned JAX digest), serves twitter's stream through
 synchronous driver's capacity (a reader racing ingest, every answer held
 to a batch boundary's state) and recovers ``RecoverableSession``s from an
 injected crash, a SIGKILLed child process and a closed service, each
-against its uninterrupted state (phase ``serve``), and serves
+against its uninterrupted state (phase ``serve``), runs sweep lanes
+through ``Sweep(...).windowed(256).kernel()`` — 64 grqc lanes and 16
+twitter lanes, one sweep-form ``fused_chooser`` launch a window step for
+all of them, each lane held to its own card session (phase ``sweep``) —
+and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -67,6 +71,7 @@ from repro_torch.api import scenarios as sc  # noqa: E402
 from repro_torch.api.scenarios import state_digest  # noqa: E402
 from repro_torch.api.partitioner import Partitioner  # noqa: E402
 from repro_torch.api.serve import PartitionService  # noqa: E402
+from repro_torch.api.sweep import Sweep, SweepRun  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
@@ -93,7 +98,8 @@ from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
 from repro_torch.kernels.fused_chooser import sweep as fsweep  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import (  # noqa: E402
-    fused_window_choose_ref, prepare_window_ref,
+    fused_window_choose_lanes_ref, fused_window_choose_ref,
+    prepare_window_ref,
 )
 from repro_torch.kernels.fused_chooser.window_prep import window_prep  # noqa: E402
 from repro_torch.kernels.partition_affinity import ops as pops  # noqa: E402
@@ -122,6 +128,12 @@ WINDOW, TWITTER_CAP, K_MAX = 256, 192, 16
 SESSION_SHAPE = (WINDOW, TWITTER_CAP, K_MAX)
 K_200_CAP = 60             # grqc's k_max = 200 session: edges a partition
 GRQC_WIDTH = 2843          # grqc's widest row, uncapped (the grqc phase's D)
+# the checks' references (the plain versions of the window kernels, the
+# faithful engine, the plain session) run on copies of their inputs on the
+# host CPU: the same functions on the same inputs, each a loop of small ops
+# that the host runs 3-6x faster than it issues them to the card. The plain
+# versions' times (``plain_ms``) are taken on the card.
+HOST = torch.device("cpu")
 # embedding_bag cases (V, D, B, L, lowest id, table view's offset in
 # elements): tests/test_kernels.py's shapes, the serve shape (4096 bags of 8
 # slots at D = 256), rows past 2^23 at D = 256, where idx * D passes 2^31,
@@ -182,7 +194,14 @@ CKPT_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_ckpt")
 SPMM_WIDTHS = (128, 1433)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    script started, so the phases' shares of the time limit can be read."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -239,6 +258,15 @@ def host_ms(fn, reps: int) -> float:
     return secs * 1e3 / reps
 
 
+def on_host(fn, *args, **kw):
+    """``fn`` on host copies of its tensor arguments; its tensor outputs
+    back on the card."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    out = fn(*(a.to(HOST) if isinstance(a, torch.Tensor) else a
+               for a in args), **kw)
+    return tuple(o.to(dev) for o in out)
+
+
 def max_abs_diff(a, b) -> int:
     worst = 0
     for x, y in zip(a, b):
@@ -270,6 +298,8 @@ def bag_case(dev, v, d, b, l, dtype, seed, low=-1, off=0):
 def assert_states_equal(a, b, what: str) -> None:
     for f in a._fields:
         x, y = getattr(a, f), getattr(b, f)
+        if x.device != y.device:
+            x, y = x.to(HOST), y.to(HOST)
         if x.dtype == torch.uint32:
             x, y = x.view(torch.int32), y.view(torch.int32)
         if x.shape != y.shape or not torch.equal(x, y):
@@ -404,7 +434,22 @@ def _fused_bytes(w: int, d: int, k: int) -> int:
                 + fk.SCAL_N + 7 + 2 * w + 4 * k + k * k + fk.SCAL_N)
 
 
-def check_fused_chooser(dev) -> dict:
+def _chooser_inputs(dev, cases, setup):
+    """A setup's window (slots ``warm .. warm + W`` of its mid-session
+    state, ``cases`` from ``_window_cases``) as ``fused_window_choose``'s
+    ten tensor arguments, with the state's ``n`` and the window's event
+    types."""
+    state, cfg, (et, vx, nb) = cases[setup]
+    w, warm = fsweep.WINDOW_SETUPS[setup][6:8]
+    sl = slice(warm, warm + w)
+    n = state.assignment.shape[0]
+    prep = fops._prepare_window(clone_state(state), et[sl], vx[sl], nb[sl])
+    return n, (prep.ev, prep.src_lbl, prep.touch,
+               window_rng_ref(state.key, warm, w, cfg.k_max),
+               *wnd.small_args(state), knob_tensor(cfg, n, dev)), et[sl]
+
+
+def check_fused_chooser(dev, cases) -> dict:
     fc_out = {"name": "fused_chooser", "cases": []}
     # the window kernels' setups (sweep.WINDOW_SETUPS): the session's shapes
     # (SESSION_SHAPE), a window and width off every multiple of 32, a single
@@ -412,15 +457,14 @@ def check_fused_chooser(dev) -> dict:
     # 2,843-wide rows, and 200 and 1,000 partition slots (the large-K
     # kernel)
     for label, spec in fsweep.WINDOW_SETUPS.items():
-        name, scale, cap, width, k_max, max_cap, window, warm = spec
-        args, n, ets = fsweep.window_inputs(
-            dev, name, scale, cap, width, k_max, max_cap, window, warm,
-            EVENT_ARGS)
+        _name, _scale, _cap, width, k_max, _max_cap, window, _warm = spec
+        n, args, ets = _chooser_inputs(dev, cases, label)
         scalars = args[8]
         n_del = int((ets != 0).sum())
         guards = ("text", "alg1")
-        # the plain version takes ~8 s a window at K = 1,000: SDP only
-        # there (tests/test_torch_gpu.py holds every policy at K = 1,000)
+        # the plain version takes ~4 s a window at K = 1,000 on the host:
+        # SDP only there (tests/test_torch_gpu.py holds every policy at
+        # K = 1,000)
         for policy in (("sdp",) if label == "k1000" else POLICIES):
             for guard in guards:
                 for auto in ((True, False) if label == "session"
@@ -428,7 +472,7 @@ def check_fused_chooser(dev) -> dict:
                     kw = dict(n=n, policy=policy, balance_guard=guard,
                               autoscaling=auto)
                     got = fk.fused_window_choose(*args, **kw)
-                    want = fused_window_choose_ref(*args, **kw)
+                    want = on_host(fused_window_choose_ref, *args, **kw)
                     torch.cuda.synchronize()
                     err = max_abs_diff(got, want)
                     scale = int(got[6][4] - scalars[4])
@@ -643,7 +687,8 @@ def check_add_window_choose(dev, cases) -> dict:
                                 f"take the {variant} kernel: "
                                 f"{fk.add_window_choose.kernel_launches}")
                         out["launches_by_kernel"][variant] += 1
-                        want = wnd.add_window_fixup_ref(*args, **kw)
+                        want = on_host(wnd.add_window_fixup_ref, *args,
+                                       **kw)
                         torch.cuda.synchronize()
                         err = max_abs_diff(got, want)
                         case = {"case": name, "window": label,
@@ -873,19 +918,24 @@ def check_segment_spmm(dev, graphs) -> dict:
     return sp_out
 
 
-def phase_kernels(dev, graphs) -> dict:
+def phase_kernels(dev, graphs, cases) -> dict:
     """Each kernel against its plain version on the card: bit for bit, but
-    flash_attention at its stated tolerances."""
-    cases = _window_cases(dev)
-    out = {"phase": "kernels",
-           "partition_affinity": check_partition_affinity(dev),
-           "fused_chooser": check_fused_chooser(dev),
-           "window_rng": check_window_rng(dev),
-           "window_prep": check_window_prep(dev, cases),
-           "add_window_choose": check_add_window_choose(dev, cases),
-           "embedding_bag": check_embedding_bag(dev),
-           "flash_attention": check_flash_attention(dev),
-           "segment_spmm": check_segment_spmm(dev, graphs)}
+    flash_attention at its stated tolerances. ``cases`` are the window
+    kernels' setups (``_window_cases``). ``check_s``: each check's
+    seconds."""
+    out = {"phase": "kernels", "check_s": {}}
+    for name, check, args in (
+            ("partition_affinity", check_partition_affinity, ()),
+            ("fused_chooser", check_fused_chooser, (cases,)),
+            ("window_rng", check_window_rng, ()),
+            ("window_prep", check_window_prep, (cases,)),
+            ("add_window_choose", check_add_window_choose, (cases,)),
+            ("embedding_bag", check_embedding_bag, ()),
+            ("flash_attention", check_flash_attention, ()),
+            ("segment_spmm", check_segment_spmm, (graphs,))):
+        t = time.perf_counter()
+        out[name] = check(dev, *args)
+        out["check_s"][name] = time.perf_counter() - t
     emit(out)
     return out
 
@@ -911,6 +961,7 @@ def _scaling(state, k_init) -> dict:
 
 _WRAPPERS = {"partition_affinity": pa.partition_affinity,
              "fused_chooser": fk.fused_window_choose,
+             "fused_chooser_sweep": fk.fused_window_choose_lanes,
              "window_prep": window_prep,
              "window_rng": rops.window_rng,
              "add_window_choose": fk.add_window_choose,
@@ -919,6 +970,7 @@ _WRAPPERS = {"partition_affinity": pa.partition_affinity,
              "segment_spmm": ss.segment_spmm}
 SESSION_KERNELS = ("partition_affinity", "fused_chooser", "window_prep",
                    "window_rng", "add_window_choose")
+SWEEP_KERNELS = SESSION_KERNELS + ("fused_chooser_sweep",)
 
 
 def _reset_launches():
@@ -929,6 +981,8 @@ def _reset_launches():
     eb.embedding_bag.kernel_launches = dict.fromkeys(eb.KERNELS, 0)
     fk.fused_window_choose.kernel_launches = dict.fromkeys(fk.KERNELS, 0)
     fk.add_window_choose.kernel_launches = dict.fromkeys(fk.KERNELS, 0)
+    fk.fused_window_choose_lanes.kernel_launches = dict.fromkeys(
+        fk.SWEEP_KERNELS, 0)
 
 
 def _read_launches(names=SESSION_KERNELS) -> dict:
@@ -961,12 +1015,12 @@ def _window_kinds(part) -> dict:
 
 
 def phase_grqc(dev) -> dict:
-    """The session with both kernels against the port's faithful engine."""
+    """The session with both kernels against the port's faithful engine
+    (run on the host)."""
     s = interleaved_churn(load_dataset("grqc"), **EVENT_ARGS)
     cfg = EngineConfig(k_max=16, k_init=1, max_cap=1500, autoscale=True)
     t = time.perf_counter()
-    ref, _ = engine.run_stream(s, policy="sdp", cfg=cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
+    ref, _ = engine.run_stream(s, policy="sdp", cfg=cfg, seed=0, device=HOST)
     t_ref = time.perf_counter() - t
     T = s.num_events
     chunks = [1, 7, 300, 301, 1000, 2500, T // 2 + 3, T - 5]
@@ -985,8 +1039,8 @@ def phase_grqc(dev) -> dict:
            **_scaling(part.state, cfg.k_init),
            "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"], "launches": launches,
-           "faithful_s": round(t_ref, 3), "session_s": round(t_part, 3),
-           "k200": _session_k200(s, dev)}
+           "faithful_host_s": round(t_ref, 3),
+           "session_s": round(t_part, 3), "k200": _session_k200(s, dev)}
     emit(out)
     return out
 
@@ -994,7 +1048,7 @@ def phase_grqc(dev) -> dict:
 def _session_k200(s, dev) -> dict:
     """The same stream at k_max = 200 (K_200_CAP a partition): the session
     with both kernels — the large-K fused_chooser, partition_affinity's
-    shared histogram — against the plain windowed session on the card."""
+    shared histogram — against the plain windowed session (on the host)."""
     cfg = EngineConfig(k_max=200, k_init=1, max_cap=K_200_CAP, autoscale=True)
     _reset_launches()
     t = time.perf_counter()
@@ -1003,9 +1057,10 @@ def _session_k200(s, dev) -> dict:
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
     add_by_kernel = dict(fk.add_window_choose.kernel_launches)
+    t = time.perf_counter()
     plain = Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=256,
-                                    device=dev).feed(s)
-    plain.sync()
+                                    device=HOST).feed(s)
+    t_plain = time.perf_counter() - t
     assert_states_equal(part.state, plain.state,
                         "grqc k_max=200 session vs the plain session")
     _check_session_launches(launches, _window_kinds(part),
@@ -1018,7 +1073,7 @@ def _session_k200(s, dev) -> dict:
             **_scaling(part.state, cfg.k_init), "launches": launches,
             "launches_by_kernel": by_kernel,
             "add_launches_by_kernel": add_by_kernel,
-            "session_s": round(t_part, 3)}
+            "session_s": round(t_part, 3), "plain_host_s": round(t_plain, 3)}
 
 
 class _Split:
@@ -1908,6 +1963,371 @@ def phase_serve(dev, s, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase sweep: the sweep lanes on the card
+# ---------------------------------------------------------------------------
+
+SWEEP_GRQC_LANES = 64        # fig11's largest lane count
+SWEEP_TWITTER_LANES = 16
+SWEEP_K200_LANES = 4
+SWEEP_PREFIX_EVENTS = 2 * WINDOW    # the plain windowed lanes' prefix
+SWEEP_SCAN_EVENTS = 96              # the scan lanes' prefix (per-event loop)
+SWEEP_SHORT_LANES = 2
+SWEEP_REBALANCE = dict(m=128, every=8 * WINDOW, passes=2, lanes=[1, 3])
+# the rebalance lanes' prefix: two passes, then two windows that end short
+# of the next
+SWEEP_REBALANCE_EVENTS = 2 * SWEEP_REBALANCE["every"] + 2 * WINDOW
+SWEEP_PROFILE_EVENTS = 64 * WINDOW   # the profiled prefix of twitter's lanes
+SWEEP_TIMED_LANES = (1, 16, 64)
+
+
+class _Capture:
+    """Within it, the sweep form's launcher (``fk.sweep_launch``, which the
+    counted wrapper calls) keeps a copy of its inputs at window step
+    ``step``; every launch goes on as before."""
+
+    def __init__(self, step: int):
+        self.step, self.calls, self.inputs = step, 0, None
+
+    def __enter__(self):
+        fn = self._fn = fk.sweep_launch
+
+        def capture(kernel, *a, **kw):
+            if self.calls == self.step:
+                self.inputs = (tuple(x.clone() for x in a), dict(kw))
+            self.calls += 1
+            return fn(kernel, *a, **kw)
+
+        fk.sweep_launch = capture
+        return self
+
+    def __exit__(self, *exc):
+        fk.sweep_launch = self._fn
+
+
+def _sweep_runs(n_lanes, sdp_cfg, other_cfg) -> list:
+    """Lane b runs POLICIES[b % 6] with seed b // 6: the six policies ×
+    seeds; SDP lanes take ``sdp_cfg`` (autoscale), the others
+    ``other_cfg``."""
+    runs = []
+    for b in range(n_lanes):
+        p = POLICIES[b % len(POLICIES)]
+        runs.append(SweepRun(p, sdp_cfg if p == "sdp" else other_cfg,
+                             b // len(POLICIES)))
+    return runs
+
+
+def _lane_session(s, r, dev):
+    """A lane's own card session: the kernels, windows of WINDOW events,
+    the tail padded into a window."""
+    part = Partitioner.from_stream(s, r.cfg, policy=r.policy, seed=r.seed,
+                                   use_kernel=True, window=WINDOW,
+                                   engine="windowed", device=dev).feed(s)
+    part.sync()
+    return part
+
+
+def _sweep_vs_sessions(name, s, runs, dev, kernel: str) -> dict:
+    """One kernel sweep over ``s`` (the main path: launches counted around
+    it alone), then each lane's own card session, timed in turn and held
+    leaf for leaf to its lane; and the sweep form's inputs at the middle
+    window step held to its plain version (``_sweep_form_plain``)."""
+    windows = -(-s.num_events // WINDOW)
+    L = len(runs)
+    _reset_launches()
+    t = time.perf_counter()
+    with _Capture(windows // 2) as cap:
+        res = Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
+        torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    launches = _read_launches(SWEEP_KERNELS)
+    by_kernel = dict(fk.fused_window_choose_lanes.kernel_launches)
+    want = {"window_prep": L * windows, "window_rng": L * windows,
+            "fused_chooser_sweep": windows, "fused_chooser": 0,
+            "add_window_choose": 0, "partition_affinity": 0}
+    if launches != want or by_kernel[f"sweep_{kernel}"] != windows:
+        raise AssertionError(f"sweep {name}: launched {launches} "
+                             f"({by_kernel}), want {want} on sweep_{kernel}")
+    sessions_s = 0.0
+    for r, lane in zip(runs, res):
+        t = time.perf_counter()
+        part = _lane_session(s, r, dev)
+        sessions_s += time.perf_counter() - t
+        assert_states_equal(lane.state, part.state,
+                            f"sweep {name}: lane {r.policy}/{r.seed} vs its "
+                            "card session")
+        del part
+    return {"lanes": L, "events": s.num_events, "windows": windows,
+            "n": s.n, "max_deg": s.max_deg, "k_max": runs[0].cfg.k_max,
+            "sweep_s": sweep_s,
+            "lane_events_per_s": L * s.num_events / sweep_s,
+            "sessions_s": sessions_s,
+            "session_events_per_s": L * s.num_events / sessions_s,
+            "speedup": sessions_s / sweep_s, "launches": launches,
+            "launches_by_kernel": by_kernel, "lanes_equal_sessions": True,
+            "policies": [r.policy for r in runs],
+            "plain": _sweep_form_plain(cap.inputs, res[0].state,
+                                       f"sweep {name}", windows // 2)}, res
+
+
+def _sweep_form_plain(inputs, lane_state, what: str, step: int) -> dict:
+    """The sweep form's counted wrapper on one of the main path's launches
+    (``inputs``: every lane's own window of its own state, from
+    ``_Capture``), with the lanes' flags and again with every scale gate
+    flipped; in each, the first lane of each policy held bit for bit to the
+    plain version (``fused_window_choose_lanes_ref``, on the host) on the
+    same inputs. ``lane_state``: a lane's state, for ``n``."""
+    (*tensors, flags), kw = inputs
+    kw = {**kw, "n": lane_state.assignment.shape[0]}
+    pidx = flags[:, 0].tolist()
+    pick = [pidx.index(i) for i in sorted(set(pidx))]
+    sel = torch.tensor(pick, device=flags.device)
+    t = time.perf_counter()
+    worst = 0
+    for flip in (False, True):
+        f = flags.clone()
+        if flip:
+            f[:, 1] = 1 - f[:, 1]
+        got = fk.fused_window_choose_lanes(*tensors, f, **kw)
+        want = on_host(fused_window_choose_lanes_ref,
+                       *(x[sel] for x in tensors), f[sel], **kw)
+        err = max_abs_diff([x[sel] for x in got], want)
+        if err:
+            raise AssertionError(f"{what}: the sweep form differs from its "
+                                 f"plain version at window step {step} "
+                                 f"(gates flipped: {flip}) by {err}")
+        worst = max(worst, err)
+    return {"window_step": step, "lanes": int(flags.shape[0]),
+            "lanes_checked": pick, "gates": ["sweep's", "flipped"],
+            "dynamic": kw["dynamic"], "max_abs_err": worst,
+            "s": time.perf_counter() - t}
+
+
+def _prefix(s, t):
+    return VertexStream(s.etype[:t], s.vertex[:t], s.nbrs[:t], n=s.n)
+
+
+def _sweep_short(s, runs, dev) -> dict:
+    """Short prefixes of the two host-looped lanes: the plain windowed
+    lanes (``use_kernel=False``) against each lane's card session, and the
+    scan lanes (with traces) against ``run_stream`` on the card."""
+    sub = _prefix(s, SWEEP_PREFIX_EVENTS)
+    t = time.perf_counter()
+    plain = Sweep(sub, device=dev).lanes(runs).windowed(WINDOW).run()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t
+    for r, lane in zip(runs, plain):
+        assert_states_equal(lane.state, _lane_session(sub, r, dev).state,
+                            f"sweep plain lane {r.policy} vs its session")
+    sub = _prefix(s, SWEEP_SCAN_EVENTS)
+    t = time.perf_counter()
+    scan = Sweep(sub, device=dev).lanes(runs).chunked(50).run()
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t
+    for r, lane in zip(runs, scan):
+        st, tr = engine.run_stream(sub, policy=r.policy, cfg=r.cfg,
+                                   seed=r.seed, device=dev)
+        assert_states_equal(lane.state, st, f"sweep scan lane {r.policy}")
+        for f in tr._fields:
+            if not torch.equal(getattr(tr, f), getattr(lane.trace, f)):
+                raise AssertionError(f"sweep scan lane {r.policy}: trace "
+                                     f"{f} differs from run_stream's")
+    return {"lanes": len(runs),
+            "windowed_plain": {"events": SWEEP_PREFIX_EVENTS,
+                               "sweep_s": plain_s, "equal_sessions": True},
+            "scan": {"events": SWEEP_SCAN_EVENTS, "chunk": 50,
+                     "sweep_s": scan_s, "equal_run_stream": True,
+                     "traces_equal": True}}
+
+
+def _sweep_k200(s, dev) -> dict:
+    """The large layout: grqc at k_max = 200, four lanes through the
+    sweep's large kernel, each lane equal to its card session; the first
+    window held to the plain lanes on the card."""
+    runs = _sweep_runs(
+        SWEEP_K200_LANES,
+        EngineConfig(k_max=200, k_init=1, max_cap=K_200_CAP, autoscale=True),
+        EngineConfig(k_max=200, k_init=4, max_cap=1 << 30,
+                        autoscale=False))
+    out, _ = _sweep_vs_sessions("grqc k200", s, runs, dev, "large")
+    sub = _prefix(s, WINDOW)
+    kern = Sweep(sub, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
+    plain = Sweep(sub, device=dev).lanes(runs).windowed(WINDOW).run()
+    for r, a, b in zip(runs, kern, plain):
+        assert_states_equal(a.state, b.state,
+                            f"sweep k200 lane {r.policy} vs the plain lane")
+    out["prefix_equal_plain_lanes"] = WINDOW
+    return out
+
+
+def _sweep_rebalance(s, runs, dev) -> dict:
+    """Rebalance lanes: the first four grqc lanes with
+    ``rebalance(m=128, every=2048, passes=2, lanes=[1, 3])`` on the
+    stream's first SWEEP_REBALANCE_EVENTS. The gated-off lanes equal the
+    sweep without rebalance; each rebalanced lane equals a card session fed
+    in chunks of ``every`` events and rebalanced after each full chunk, and
+    its counters a from-scratch recount."""
+    runs = runs[:4]
+    rb = SWEEP_REBALANCE
+    s = _prefix(s, SWEEP_REBALANCE_EVENTS)
+    base = Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
+    t = time.perf_counter()
+    res = (Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel()
+           .rebalance(rb["m"], every=rb["every"], passes=rb["passes"],
+                      lanes=rb["lanes"]).run())
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    T = s.num_events
+    moved = {}
+    for b, (r, lane) in enumerate(zip(runs, res)):
+        if b not in rb["lanes"]:
+            assert_states_equal(lane.state, base[b].state,
+                                f"sweep rebalance: gated-off lane {b}")
+            continue
+        check_recount(lane.state, f"sweep rebalance lane {b}")
+        part = Partitioner.from_stream(s, r.cfg, policy=r.policy,
+                                       seed=r.seed, use_kernel=True,
+                                       window=WINDOW, engine="windowed",
+                                       device=dev)
+        for a in range(0, T, rb["every"]):
+            e = min(a + rb["every"], T)
+            part.feed((s.etype[a:e], s.vertex[a:e], s.nbrs[a:e]))
+            if e - a == rb["every"]:
+                part.rebalance(m=rb["m"], passes=rb["passes"])
+        assert_states_equal(lane.state, part.state,
+                            f"sweep rebalance lane {b} vs its session")
+        moved[b] = int((lane.state.assignment
+                        != base[b].state.assignment).sum())
+    return {**rb, "lanes_rebalanced": rb["lanes"], "events": T,
+            "sweep_s": sweep_s, "passes_run": T // rb["every"],
+            "vertices_moved_vs_unrebalanced": moved,
+            "gated_off_equal": True, "rebalanced_equal_sessions": True}
+
+
+def _sweep_form_timing(dev, cases) -> dict:
+    """The sweep form (one launch; a setup's window replicated on L lanes
+    of the six policies in turn, every scale gate on) against the
+    single-session kernel at the same window, device ms from CUDA-graph
+    replay: at twitter's shape (256, 192, 16) and grqc's rows (256, 2,843,
+    16), L = 1, 16, 64. Every launch's lanes are held bit for bit to the
+    single-session kernel; at L = 1 on twitter's shape also to the plain
+    version, which is timed there once (eager: one lane's slot loop is
+    ~1 s of host-issued ops)."""
+    out = {}
+    for setup, label in (("session", "twitter_shape"),
+                         ("grqc_wide", "grqc_shape")):
+        n, one, _ = _chooser_inputs(dev, cases, setup)
+        w, d = one[1].shape
+        k = one[3].shape[1]
+        singles = [fk.launch("lanes", *one, policy=p, balance_guard="text",
+                             autoscaling=True) for p in POLICIES]
+        rows = []
+        for lanes in SWEEP_TIMED_LANES:
+            args = tuple(x.unsqueeze(0).expand((lanes,) + x.shape)
+                         .contiguous() for x in one)
+            flags = torch.tensor([[b % len(POLICIES), 1]
+                                  for b in range(lanes)],
+                                 dtype=torch.int32, device=dev)
+
+            def sweep_call(args=args, flags=flags):
+                return fk.sweep_launch("lanes", *args, flags,
+                                       balance_guard="text", dynamic=True)
+            got = sweep_call()
+            err = max(max_abs_diff([x[b] for x in got],
+                                   singles[b % len(POLICIES)])
+                      for b in range(lanes))
+            if err:
+                raise AssertionError(f"sweep form differs from the single "
+                                     f"kernel at {setup}, L = {lanes}")
+            row = {"lanes": lanes, "shape": [lanes, w, d, k],
+                   "ms": graph_ms(sweep_call, 10),
+                   "max_abs_err_vs_single": err,
+                   **_bound(lanes * _fused_bytes(w, d, k), 0)}
+            if setup == "session" and lanes == 1:
+                t = time.perf_counter()
+                want = fused_window_choose_lanes_ref(
+                    *args, flags, n=n, balance_guard="text", dynamic=True)
+                torch.cuda.synchronize()
+                row["plain_ms"] = (time.perf_counter() - t) * 1e3
+                row["max_abs_err"] = max_abs_diff(got, want)
+                if row["max_abs_err"]:
+                    raise AssertionError("sweep form differs from its plain "
+                                         "version")
+            rows.append(row)
+        out[label] = {"single_sdp_ms": graph_ms(lambda: fk.launch(
+            "lanes", *one, policy="sdp", balance_guard="text",
+            autoscaling=True), 10), "lanes": rows}
+    return out
+
+
+def _sweep_profile(s, runs, dev) -> dict:
+    """torch.profiler over a run of the twitter lanes on the stream's first
+    SWEEP_PROFILE_EVENTS (set-up included): the host-issued device ops per
+    window step and the device's busy share."""
+    s = _prefix(s, SWEEP_PROFILE_EVENTS)
+    windows = -(-s.num_events // WINDOW)
+    with _profiler() as prof:
+        t = time.perf_counter()
+        Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy = _profiled_busy(prof, wall)
+    return {"events": s.num_events, "window_steps": windows, **busy,
+            "device_ops_per_window_step": busy["device_ops"] / windows}
+
+
+def phase_sweep(dev, twitter_s, cases, card: str) -> dict:
+    """The sweep lanes on the card (``Sweep(...).windowed(256).kernel()``:
+    per window step each lane's window_prep and window_rng, then one
+    sweep-form fused_chooser launch for every lane): grqc at scale 1.0
+    with fig11's 64 lanes (six policies × seeds, SDP with autoscale at
+    max_cap 1,500, the others ``default_cfg(k=4, k_max=16)``), twitter at
+    scale 1.0 with 16, each lane equal to its own card session and the
+    sweep timed against those sessions in turn; the large layout at
+    k_max = 200; short prefixes of the plain and scan lanes; rebalance
+    lanes; the sweep form's device time at L = 1, 16, 64 against the
+    single-session kernel; a profile of the twitter lanes. In each of the
+    grqc, twitter and K = 200 sweeps, one launch's lanes are also held to
+    the sweep form's plain version (``_sweep_form_plain``)."""
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        part_s[name] = time.perf_counter() - t
+        return r
+
+    grqc = interleaved_churn(load_dataset("grqc"), **EVENT_ARGS)
+    sdp_cfg = EngineConfig(k_max=16, k_init=1, max_cap=1500, autoscale=True)
+    other_cfg = EngineConfig(k_max=16, k_init=4, max_cap=1 << 30,
+                             autoscale=False)
+    runs = _sweep_runs(SWEEP_GRQC_LANES, sdp_cfg, other_cfg)
+    grqc_out, res = part("grqc", _sweep_vs_sessions, "grqc", grqc, runs, dev,
+                         "lanes")
+    del res
+    rebalance = part("rebalance", _sweep_rebalance, grqc, runs, dev)
+    short = part("short", _sweep_short, grqc, runs[:SWEEP_SHORT_LANES], dev)
+    k200 = part("k200", _sweep_k200, grqc, dev)
+    tw_runs = _sweep_runs(
+        SWEEP_TWITTER_LANES,
+        EngineConfig(k_max=K_MAX, k_init=1, max_cap=40000, autoscale=True),
+        other_cfg)
+    twitter_out, res = part("twitter", _sweep_vs_sessions, "twitter",
+                            twitter_s, tw_runs, dev, "lanes")
+    del res
+    out = {"phase": "sweep", "card": card, "grqc": grqc_out,
+           "twitter": twitter_out, "k200": k200, "short": short,
+           "rebalance": rebalance,
+           "sweep_form": part("sweep_form", _sweep_form_timing, dev, cases),
+           "profile": part("profile", _sweep_profile, twitter_s, tw_runs,
+                           dev)}
+    out["part_s"] = part_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 class _PlainLoops:
     """Within it, the window pipelines run the host loops that the window
     kernels replace: the prep loop, the plain RNG and the pure-ADD loop
@@ -2787,7 +3207,7 @@ def phase_lm(dev) -> dict:
 
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
-                lm: dict, rebalance: dict, serve: dict) -> dict:
+                lm: dict, rebalance: dict, serve: dict, sweep: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -2860,6 +3280,37 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                         **{k: eb_bulk[k] for k in timed + (
                             "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
+    # the sweep form: its launches on the twitter lanes' sweep (the grqc
+    # lanes' beside them); ms, plain ms and bound at one lane of twitter's
+    # shape, and 1, 16 (the twitter sweep's launch) and 64 lanes on both
+    # shapes
+    sf = sweep["sweep_form"]
+    sf_main = next(r for r in sf["twitter_shape"]["lanes"] if r["lanes"] == 1)
+    rows.append(
+        {"name": "fused_chooser_sweep", "route": "cuda",
+         "source": "src/repro_torch/csrc/fused_chooser.cu",
+         "replaces": "src/repro/kernels/fused_chooser/fused_chooser.py:245",
+         "form": "traced policy, lanes on grid.x (policy=None)",
+         "launches": sweep["twitter"]["launches"]["fused_chooser_sweep"],
+         "launches_by_kernel": sweep["twitter"]["launches_by_kernel"],
+         "grqc_launches": sweep["grqc"]["launches"]["fused_chooser_sweep"],
+         "k200_launches_by_kernel": sweep["k200"]["launches_by_kernel"],
+         "max_abs_err": max(
+             [sf_main["max_abs_err"]]
+             + [sweep[c]["plain"]["max_abs_err"]
+                for c in ("grqc", "twitter", "k200")]),
+         "plain_checks": {c: {k: sweep[c]["plain"][k] for k in (
+             "window_step", "lanes", "lanes_checked")}
+             for c in ("grqc", "twitter", "k200")},
+         "shape": sf_main["shape"],
+         "ms": sf_main["ms"], "plain_ms": sf_main["plain_ms"],
+         "bound_ms": sf_main["bound_ms"], "bound_by": sf_main["bound_by"],
+         "library_ms": None,
+         **{label: {"single_sdp_ms": sf[label]["single_sdp_ms"],
+                    **{f"L{r['lanes']}": {k: r[k] for k in (
+                        "shape", "ms", "bound_ms", "max_abs_err_vs_single")}
+                       for r in sf[label]["lanes"]}}
+            for label in ("twitter_shape", "grqc_shape")}})
     timed_scan = timed + ("eager_ms", "plain_eager_ms", "bound_by", "kernel",
                           "large_ms")
     for name, source, replaces, main, others in (
@@ -2953,7 +3404,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     graphs = spmm_graphs(dev)
-    kernels = phase_kernels(dev, graphs)
+    t = time.perf_counter()
+    cases = _window_cases(dev)
+    emit({"phase": "window_setups", "s": time.perf_counter() - t})
+    kernels = phase_kernels(dev, graphs, cases)
     spmm = phase_spmm(dev, graphs)
     del graphs
     phase_grqc(dev)
@@ -2962,10 +3416,12 @@ def main() -> int:
     del twitter_part
     phase_lifecycle(dev, twitter_g, twitter_s)
     serve = phase_serve(dev, twitter_s, info["nvidia_smi"])
-    del twitter_g, twitter_s
+    sweep = phase_sweep(dev, twitter_s, cases, info["nvidia_smi"])
+    del twitter_g, twitter_s, cases
     recsys = phase_recsys(dev)
     lm = phase_lm(dev)
-    emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve))
+    emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
+                     sweep))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

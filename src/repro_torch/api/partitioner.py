@@ -88,6 +88,7 @@ from repro_torch.core.transition import EventTrace, knob_tensor
 from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_PAD, VertexStream, normalize_rows, required_geometry_of,
 )
+from repro_torch.kernels.fused_chooser.ops import check_shape_limits
 from repro_torch.rebalance import rebalance_state
 
 _ENGINES = ("auto", "scan", "windowed")
@@ -97,6 +98,19 @@ _DEFERRED = {
     "sharded": (False, "A16 (vertex-sharded sessions)"),
     "shard_devices": (None, "A16 (vertex-sharded sessions)"),
 }
+
+
+def _check_kernel_limits(device, *, use_kernel: bool, engine: str,
+                         window: int, k_max: int) -> None:
+    """A card session with ``use_kernel=True`` runs its windows through
+    kernels with shape limits (``fused_chooser.ops.check_shape_limits``):
+    check them before any window runs, so a session past one raises when it
+    is built, placed or restored — never at its first such window, after
+    earlier ones committed. No fallback: the plain engines on the card are
+    not a substitute. The CPU's plain versions have no limit."""
+    dev = torch.device("cuda" if device is None else device)
+    if use_kernel and engine != "scan" and dev.type == "cuda":
+        check_shape_limits(window, k_max)
 
 
 def _later(what: str, item: str):
@@ -134,7 +148,9 @@ class Partitioner:
       collect_trace: record the per-event :class:`EventTrace`; forces the
         per-event loop (the window engines produce no trace).
       use_kernel: route full windows through the CUDA kernels (their plain
-        versions when the session lives on the CPU).
+        versions when the session lives on the CPU). On the card a
+        ``window`` or ``cfg.k_max`` past the kernels' shape limits raises
+        here, naming the knob.
       device: where the state lives; ``None`` is the CUDA card, and a
         machine without one raises. Pass ``"cpu"`` for the plain versions.
       auto_shrink: run ``maybe_shrink()`` every ``shrink_every`` ingested
@@ -229,6 +245,8 @@ class Partitioner:
                     "rebalance_drift with rebalance_m=0 and "
                     "rebalance_passes=0 would fire empty passes — give "
                     "it a migration budget and/or LPA iterations")
+        _check_kernel_limits(device, use_kernel=use_kernel, engine=engine,
+                             window=window, k_max=cfg.k_max)
         self.cfg = cfg
         self.policy = policy
         self.engine = engine
@@ -491,7 +509,11 @@ class Partitioner:
         there bit-identically (placement is not semantics). Everything tied
         to the device moves or is remade: the state's tensors (the RNG key
         among them), ``device``, the knobs tensor and any collected traces.
-        Syncs. Returns ``self``."""
+        Syncs. Returns ``self``. A kernel session moving onto the card
+        checks the kernels' shape limits first."""
+        _check_kernel_limits(device, use_kernel=self.use_kernel,
+                             engine=self.engine, window=self.window,
+                             k_max=int(self._state.edge_load.shape[0]))
         dev = resolve_device(device)
         self.sync()
         host = [t.cpu() for t in self._state]
@@ -848,8 +870,13 @@ class Partitioner:
         States that predate ``cut_matrix`` restore through ``fill_missing``
         and are healed with ``recount_cut_matrix``. Pass the ``cfg``,
         policy and engine knobs the session ran with (they are not
-        stored). Traces are not checkpointed."""
+        stored). Traces are not checkpointed. The session is built first,
+        so its knobs (the kernels' shape limits among them) are checked
+        before the checkpoint is read."""
         cfg = cfg or EngineConfig()
+        # the session starts tier-minimal: its placeholder state is
+        # replaced below
+        part = cls(cfg, **kw)
         mgr = CheckpointManager(directory, interval=1)
         step = step if step is not None else mgr.latest()
         if step is None:
@@ -870,9 +897,6 @@ class Partitioner:
                 "never shrink — raise cfg.k_max")
         target = Geometry(max(int(n or 0), ck.n),
                           max(int(max_deg or 0), ck.max_deg), cfg.k_max)
-        # the session starts tier-minimal: its placeholder state is
-        # replaced below
-        part = cls(cfg, **kw)
         # the payload dictates the leaf shapes: a host `like` at the exact
         # checkpoint geometry, each restored leaf placed on the session's
         # device

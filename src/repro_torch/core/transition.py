@@ -89,7 +89,8 @@ def knob_values(cfg: EngineConfig, n: int) -> tuple[float, ...]:
 def knob_tensor(cfg: EngineConfig, n: int, device) -> torch.Tensor:
     """The seven knobs as one (7,) f32 tensor on ``device``: what the
     window engines and kernels take, made once per session (a copy to the
-    card waits for the card)."""
+    card waits for the card). The port's counterpart of JAX's
+    ``knobs_arrays``: the sweep stacks one per lane into (L, 7)."""
     return torch.tensor(knob_values(cfg, n), dtype=_F32, device=device)
 
 
@@ -332,10 +333,28 @@ def policy_fns(balance_guard: str):
             _choose_greedy)
 
 
-def make_chooser(balance_guard: str, policy: str) -> Callable:
-    """``choose(state, scores, deg, v, words, kn, n) -> p`` for a static
-    policy string (traced policy indices belong to the sweep lanes)."""
-    return policy_fns(balance_guard)[POLICY_INDEX[policy]]
+def policy_name(policy: str | None = None,
+                policy_idx: int | None = None) -> str:
+    """The policy a chooser is asked for by name or by its index in
+    POLICIES (the sweep lanes' form, JAX's traced ``policy_idx``): pass
+    exactly one. The port runs each sweep lane on its own, so an index is a
+    host int and picks its table entry like a name does."""
+    if (policy is None) == (policy_idx is None):
+        raise ValueError("pass exactly one of policy / policy_idx")
+    if policy is not None:
+        return policy
+    if not 0 <= int(policy_idx) < len(POLICIES):
+        raise ValueError(f"policy_idx={policy_idx} names no policy of "
+                         f"{POLICIES}")
+    return POLICIES[int(policy_idx)]
+
+
+def make_chooser(balance_guard: str, policy: str | None = None,
+                 policy_idx: int | None = None) -> Callable:
+    """``choose(state, scores, deg, v, words, kn, n) -> p`` for a policy
+    given by name or index (``policy_name``)."""
+    return policy_fns(balance_guard)[
+        POLICY_INDEX[policy_name(policy, policy_idx)]]
 
 
 def _choose_sdp_text_at(state, scores, deg, v, ridx, kn: Knobs, n: int):
@@ -363,11 +382,13 @@ def policy_fns_at(balance_guard: str):
             _choose_greedy_at)
 
 
-def make_table_chooser(balance_guard: str, policy: str) -> Callable:
+def make_table_chooser(balance_guard: str, policy: str | None = None,
+                       policy_idx: int | None = None) -> Callable:
     """``choose(state, scores, deg, v, ridx, kn, n) -> p`` — the
     ``make_chooser`` contract with the random words replaced by the drawn
     index ``ridx`` (see ``rand_index_table``)."""
-    return policy_fns_at(balance_guard)[POLICY_INDEX[policy]]
+    return policy_fns_at(balance_guard)[
+        POLICY_INDEX[policy_name(policy, policy_idx)]]
 
 
 def rand_index_table(base_key: torch.Tensor, t0: int, w: int,
@@ -641,27 +662,56 @@ class EventTransition(NamedTuple):
         return self.apply_del_edge(state, v, row, words, et == 2)
 
 
+def make_scale_hooks(kn: Knobs, autoscale: bool):
+    """(scale_out_hook, scale_in_hook), each ``(state, gate) -> state``:
+    the §4.2.3 hooks gated by their event's branch, or identities when
+    ``autoscale`` is False (then they compute nothing)."""
+    if not autoscale:
+        return (lambda s, gate: s), (lambda s, gate: s)
+    return ((lambda s, gate: scale_out(s, kn, gate)),
+            (lambda s, gate: scale_in(s, kn, gate)))
+
+
 def make_transition(kn: Knobs, n: int, *, balance_guard: str, policy: str,
                     autoscale: bool = False) -> EventTransition:
     """The event branches for one run (the caller resolves ``autoscale =
     cfg.autoscale and policy == "sdp"``)."""
     choose = make_chooser(balance_guard, policy)
+    so_hook, si_hook = make_scale_hooks(kn, autoscale)
 
     def apply_add(state, v, row, words, gate):
-        if autoscale:
-            state = scale_out(state, kn, gate)
+        state = so_hook(state, gate)
         scores, deg, _, _ = neighbor_stats(state, row)
         p = choose(state, scores, deg, v, words, kn, n)
         return commit_add(state, v, row, p, scores, deg, gate)
 
     def apply_del_vertex(state, v, row, words, gate):
-        state = del_vertex_core(state, v, gate)
-        return scale_in(state, kn, gate) if autoscale else state
+        return si_hook(del_vertex_core(state, v, gate), gate)
 
     def apply_del_edge(state, v, row, words, gate):
         return del_edge_core(state, v, row, gate)
 
     return EventTransition(apply_add, apply_del_vertex, apply_del_edge)
+
+
+def make_masked_step(kn: Knobs, n: int, *, balance_guard: str,
+                     policy: str | None = None, policy_idx: int | None = None,
+                     autoscale: bool = False, cut_fn=None) -> Callable:
+    """The sweep lanes' event step ``step(state, et, v, row, words)``:
+    JAX's branch-free step for vmapped lanes. The port's
+    ``EventTransition.step`` already gates every branch by its event code
+    instead of switching, so the lane step is that step, under the lane's
+    policy (by name or index, ``policy_name``) and its resolved autoscale
+    (``cfg.autoscale and policy == "sdp"`` in a sweep whose autoscale mode
+    is dynamic). ``cut_fn``, fig12's from-scratch scale-in baseline, is not
+    ported (ROADMAP A22)."""
+    if cut_fn is not None:
+        raise NotImplementedError(
+            "cut_fn (fig12's from-scratch scale-in baseline) is not ported "
+            "to the PyTorch sweep yet — ROADMAP A22")
+    return make_transition(kn, n, balance_guard=balance_guard,
+                           policy=policy_name(policy, policy_idx),
+                           autoscale=bool(autoscale)).step
 
 
 def scan_events(step_fn: Callable, state: PartitionState,

@@ -14,6 +14,9 @@ to the faithful engine.
   scoring every slot from a dense per-vertex label journal. Under
   ``use_kernel`` the whole slot loop runs in the fused chooser kernel
   instead (``repro_torch.kernels.fused_chooser``).
+* ``sweep_window_mixed`` — the sweep's plain lanes: every window of every
+  lane through ``run_window_mixed``'s body under the lane's policy (its
+  kernel twin is ``fused_chooser.ops.sweep_window_mixed_fused``).
 
 RNG is the engines' ``fold_in(key, global_event_index)`` scheme, drawn in
 one batch per window (``repro_torch.kernels.window_rng``). Like every
@@ -371,6 +374,74 @@ def run_window_mixed(
         autoscaling=policy == "sdp" and cfg.autoscale,
     )
 
+
+def lane_autoscaling(policy_idx, autoscale, autoscale_mode: str) -> list:
+    """Each sweep lane's resolved autoscale: on where the sweep's mode is
+    ``"dynamic"`` and the lane is an SDP lane with ``cfg.autoscale`` (JAX's
+    ``do_scale = auto & (pidx == sdp)`` under ``autoscaling=dynamic``)."""
+    if autoscale_mode not in ("off", "dynamic"):
+        raise ValueError(f"autoscale_mode={autoscale_mode!r} is unknown "
+                         "(expected 'off' or 'dynamic')")
+    sdp = tx.POLICY_INDEX["sdp"]
+    return [autoscale_mode == "dynamic" and bool(a) and int(p) == sdp
+            for p, a in zip(policy_idx, autoscale)]
+
+
+def window_starts(T: int, window: int) -> range:
+    """The first events of a sweep's windows over ``T`` events, which must
+    be a multiple of ``window`` (right-padded with EVENT_PAD)."""
+    if T % window:
+        raise ValueError(f"the stream's {T} events are not a multiple of "
+                         f"the window ({window}): right-pad with EVENT_PAD")
+    return range(0, T, window)
+
+
+def lane_events(x: torch.Tensor, b: int, shared_stream: bool):
+    """Lane ``b``'s events of a sweep's (L, T[, D]) stream, or the shared
+    (T[, D]) stream itself."""
+    return x if shared_stream else x[b]
+
+
+def sweep_window_mixed(
+    states: list,              # one PartitionState per lane
+    kns: torch.Tensor,         # (L, 7) f32 knobs (knob_tensor per lane)
+    policy_idx,                # (L,) host ints into POLICIES order
+    autoscale,                 # (L,) host bools (cfg.autoscale per lane)
+    ets: torch.Tensor,         # (L, T) per-lane — or (T,) shared — events
+    vs: torch.Tensor,          # (L, T) / (T,)
+    rows: torch.Tensor,        # (L, T, max_deg) / (T, max_deg)
+    t0: int,                   # global event index of the first event
+    *,
+    balance_guard: str,
+    autoscale_mode: str,       # "off" | "dynamic"
+    window: int = 256,
+    shared_stream: bool = False,
+) -> list:
+    """A stream of mixed windows across all sweep lanes — the plain lanes
+    of JAX's ``sweep_window_mixed``: per lane, every ``window`` events go
+    through ``_window_mixed_lane`` under the lane's policy and resolved
+    autoscale (``lane_autoscaling``). Every window takes the mixed path,
+    pure-ADD ones too, as JAX's sweep does. T must be a multiple of
+    ``window`` (right-pad with EVENT_PAD). Lanes are independent, so each
+    runs its windows in turn; each lane's state is consumed (its O(n)
+    leaves updated in place) and the new states are returned in lane
+    order."""
+    check_row_width(states[0], rows)
+    starts = window_starts(ets.shape[-1], window)
+    autos = lane_autoscaling(policy_idx, autoscale, autoscale_mode)
+    out = []
+    for b, state in enumerate(states):
+        kn = tx.Knobs(*kns[b].unbind())
+        choose = tx.make_chooser(balance_guard, policy_idx=policy_idx[b])
+        et_b, vs_b, rows_b = (lane_events(x, b, shared_stream)
+                              for x in (ets, vs, rows))
+        for i0 in starts:
+            sl = slice(i0, i0 + window)
+            state = _window_mixed_lane(state, et_b[sl], vs_b[sl], rows_b[sl],
+                                       t0 + i0, kn, choose=choose,
+                                       autoscaling=autos[b])
+        out.append(state)
+    return out
 
 
 def _pad_to(arr: torch.Tensor, length: int, fill) -> torch.Tensor:

@@ -7,7 +7,9 @@
 // partitions on the decider's lanes, described here) and the large-K kernel
 // (any K whose vectors fit shared memory, described where it starts). The
 // pure-ADD window's fixup runs on the same two layouts, with their decider
-// code (its two kernels are described where they start).
+// code (its two kernels are described where they start). The sweep form
+// runs one window of each of L sweep lanes in one launch, a block a lane,
+// on either layout (described where it starts).
 //
 // Replaces the Pallas TPU kernel `fused_window_choose`
 // (src/repro/kernels/fused_chooser/fused_chooser.py:245), which kept the
@@ -64,8 +66,8 @@
 // -fmad=false so nothing is contracted, except the two multiply-adds that
 // XLA's CPU backend (and hence the JAX reference) fuses — the SDP guard's
 // w_dev - load_dev and Fennel's scores - cost — which are explicit
-// __fmaf_rn here and exact FMAs in the plain version. grid.x is left for
-// sweep lanes.
+// __fmaf_rn here and exact FMAs in the plain version. grid.x carries sweep
+// lanes in the sweep form (described where it starts).
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -515,9 +517,11 @@ __device__ __forceinline__ void merge_slot(const Lanes<KT>& L, State<KT>& s,
   }
 }
 
+// The lanes kernel's body: one window's slot loop in the block that calls it
+// (the single-session kernel below and the sweep form, a block a lane).
 template <int POLICY, bool ALG1, int KT>
-__global__ void __launch_bounds__(kThreads)
-fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl,
+__device__ __forceinline__ void
+fused_chooser_body(const int* __restrict__ ev, const int* __restrict__ src_lbl,
                      const int* __restrict__ touch, const int* __restrict__ rand_tab,
                      const int* __restrict__ active_in, const int* __restrict__ el_in,
                      const int* __restrict__ vc_in, const int* __restrict__ cm_in,
@@ -773,6 +777,24 @@ fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl
   for (int j = lane; j < w; j += 32) w_label_out[j] = w_label[j];
   for (int j = lane; j < k; j += 32) remap_out[j] = remap[j];
   store_state(L, s, cm, ks, active_out, loads_out, cm_out, scal_out);
+}
+
+template <int POLICY, bool ALG1, int KT>
+__global__ void __launch_bounds__(kThreads)
+fused_chooser_kernel(const int* __restrict__ ev, const int* __restrict__ src_lbl,
+                     const int* __restrict__ touch, const int* __restrict__ rand_tab,
+                     const int* __restrict__ active_in, const int* __restrict__ el_in,
+                     const int* __restrict__ vc_in, const int* __restrict__ cm_in,
+                     const int* __restrict__ scal_in, const float* __restrict__ knobs,
+                     int* __restrict__ w_label_out, int* __restrict__ psel_out,
+                     int* __restrict__ remap_out, int* __restrict__ active_out,
+                     int* __restrict__ loads_out, int* __restrict__ cm_out,
+                     int* __restrict__ scal_out, int w, int d, int k,
+                     int autoscaling) {
+  fused_chooser_body<POLICY, ALG1, KT>(
+      ev, src_lbl, touch, rand_tab, active_in, el_in, vc_in, cm_in, scal_in,
+      knobs, w_label_out, psel_out, remap_out, active_out, loads_out, cm_out,
+      scal_out, w, d, k, autoscaling);
 }
 
 // ---------------------------------------------------------------------------
@@ -1152,9 +1174,10 @@ __device__ __forceinline__ void merge_slot(const Wide& S, const int* sc,
 
 }  // namespace wide
 
+// The large-K kernel's body, as fused_chooser_body is the lanes kernel's.
 template <int POLICY, bool ALG1>
-__global__ void __launch_bounds__(kThreads)
-fused_chooser_large_kernel(
+__device__ __forceinline__ void
+fused_chooser_large_body(
     const int* __restrict__ ev, const int* __restrict__ src_lbl,
     const int* __restrict__ touch, const int* __restrict__ rand_tab,
     const int* __restrict__ active_in, const int* __restrict__ el_in,
@@ -1350,6 +1373,114 @@ fused_chooser_large_kernel(
     scal_out[S_DENIED] = s.denied;
     scal_out[S_SCALE] = s.scale;
   }
+}
+
+template <int POLICY, bool ALG1>
+__global__ void __launch_bounds__(kThreads)
+fused_chooser_large_kernel(
+    const int* __restrict__ ev, const int* __restrict__ src_lbl,
+    const int* __restrict__ touch, const int* __restrict__ rand_tab,
+    const int* __restrict__ active_in, const int* __restrict__ el_in,
+    const int* __restrict__ vc_in, const int* __restrict__ scal_in,
+    const float* __restrict__ knobs, int* __restrict__ w_label_out,
+    int* __restrict__ psel_out, int* __restrict__ remap_out,
+    int* __restrict__ active_out, int* __restrict__ loads_out,
+    int* cm, int* __restrict__ scal_out, int w, int d, int k,
+    int autoscaling) {
+  fused_chooser_large_body<POLICY, ALG1>(
+      ev, src_lbl, touch, rand_tab, active_in, el_in, vc_in, scal_in, knobs,
+      w_label_out, psel_out, remap_out, active_out, loads_out, cm, scal_out,
+      w, d, k, autoscaling);
+}
+
+// ---------------------------------------------------------------------------
+// The sweep form (the traced-policy form of the Pallas kernel,
+// fused_chooser.py:199-216 with policy=None): one window of each of L sweep
+// lanes in one launch, lane b on block b. A lane's arrays are its slice of
+// the (L, ...) inputs and outputs; its policy and scale gate are its row of
+// lane_flags (L, 2) = [policy, gate], read once at block entry, and the block
+// runs that policy's instantiation of the single-session body — the same
+// code, so each policy keeps its exact arithmetic. A lane scales out and in
+// where dynamic && gate (JAX's gate_dv = dv_i & do_scale). W, D, K and the
+// balance guard are shared by every lane (the sweep requires one k_max and
+// one balance_guard), so one layout and one ALG1 serve the whole launch. A
+// block's work and shared memory are the single-session kernel's, so up to
+// one lane per SM (132) a launch takes about the slowest lane's time.
+// ---------------------------------------------------------------------------
+
+template <int P>
+struct PolicyTag {
+  static constexpr int value = P;
+};
+
+// f(PolicyTag<policy>{}) for a policy read at run time: one instantiation of
+// the body per policy, the block taking the one its lane names
+template <typename F>
+__device__ __forceinline__ void with_policy(int policy, F&& f) {
+  switch (policy) {
+    case kSdp: f(PolicyTag<kSdp>{}); break;
+    case kLdg: f(PolicyTag<kLdg>{}); break;
+    case kFennel: f(PolicyTag<kFennel>{}); break;
+    case kHash: f(PolicyTag<kHash>{}); break;
+    case kRandom: f(PolicyTag<kRandom>{}); break;
+    case kGreedy: f(PolicyTag<kGreedy>{}); break;
+    default: __trap();                    // names no policy: fail the launch
+  }
+}
+
+template <bool ALG1, int KT>
+__global__ void __launch_bounds__(kThreads)
+fused_chooser_sweep_kernel(
+    const int* __restrict__ ev, const int* __restrict__ src_lbl,
+    const int* __restrict__ touch, const int* __restrict__ rand_tab,
+    const int* __restrict__ active_in, const int* __restrict__ el_in,
+    const int* __restrict__ vc_in, const int* __restrict__ cm_in,
+    const int* __restrict__ scal_in, const float* __restrict__ knobs,
+    const int* __restrict__ lane_flags, int* __restrict__ w_label_out,
+    int* __restrict__ psel_out, int* __restrict__ remap_out,
+    int* __restrict__ active_out, int* __restrict__ loads_out,
+    int* __restrict__ cm_out, int* __restrict__ scal_out, int w, int d, int k,
+    int dynamic) {
+  const size_t b = blockIdx.x;
+  const size_t sw = w, sd = d, sk = k;
+  const int autoscaling = dynamic && lane_flags[2 * b + 1] != 0;
+  with_policy(lane_flags[2 * b], [&](auto tag) {
+    fused_chooser_body<decltype(tag)::value, ALG1, KT>(
+        ev + b * sw * EV_COLS, src_lbl + b * sw * sd, touch + b * sw * sd,
+        rand_tab + b * sw * sk, active_in + b * sk, el_in + b * sk,
+        vc_in + b * sk, cm_in + b * sk * sk, scal_in + b * SCAL_N,
+        knobs + b * KNOB_N, w_label_out + b * sw, psel_out + b * sw,
+        remap_out + b * sk, active_out + b * sk, loads_out + b * 2 * sk,
+        cm_out + b * sk * sk, scal_out + b * SCAL_N, w, d, k, autoscaling);
+  });
+}
+
+// The large-K sweep form: cm is the (L, K, K) output, copied from the input
+// by the launch and updated in place, each lane's block its own slice.
+template <bool ALG1>
+__global__ void __launch_bounds__(kThreads)
+fused_chooser_large_sweep_kernel(
+    const int* __restrict__ ev, const int* __restrict__ src_lbl,
+    const int* __restrict__ touch, const int* __restrict__ rand_tab,
+    const int* __restrict__ active_in, const int* __restrict__ el_in,
+    const int* __restrict__ vc_in, const int* __restrict__ scal_in,
+    const float* __restrict__ knobs, const int* __restrict__ lane_flags,
+    int* __restrict__ w_label_out, int* __restrict__ psel_out,
+    int* __restrict__ remap_out, int* __restrict__ active_out,
+    int* __restrict__ loads_out, int* cm, int* __restrict__ scal_out, int w,
+    int d, int k, int dynamic) {
+  const size_t b = blockIdx.x;
+  const size_t sw = w, sd = d, sk = k;
+  const int autoscaling = dynamic && lane_flags[2 * b + 1] != 0;
+  with_policy(lane_flags[2 * b], [&](auto tag) {
+    fused_chooser_large_body<decltype(tag)::value, ALG1>(
+        ev + b * sw * EV_COLS, src_lbl + b * sw * sd, touch + b * sw * sd,
+        rand_tab + b * sw * sk, active_in + b * sk, el_in + b * sk,
+        vc_in + b * sk, scal_in + b * SCAL_N, knobs + b * KNOB_N,
+        w_label_out + b * sw, psel_out + b * sw, remap_out + b * sk,
+        active_out + b * sk, loads_out + b * 2 * sk, cm + b * sk * sk,
+        scal_out + b * SCAL_N, w, d, k, autoscaling);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1794,6 +1925,66 @@ cudaError_t launch_add_lanes(const int* scores_c, const int* deg_c,
       autoscaling, stream);
 }
 
+#define SWEEP_PARAMS                                                          \
+  const int *ev, const int *src_lbl, const int *touch, const int *rand_tab,  \
+      const int *active, const int *el, const int *vc, const int *cm,        \
+      const int *scal, const float *knobs, const int *lane_flags,            \
+      int *w_label, int *psel, int *remap, int *active_out, int *loads,      \
+      int *cm_out, int *scal_out, int lanes, int w, int d, int k,            \
+      int dynamic, cudaStream_t stream
+#define SWEEP_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal,   \
+                   knobs, lane_flags, w_label, psel, remap, active_out,      \
+                   loads, cm_out, scal_out, lanes, w, d, k, dynamic, stream
+
+template <bool ALG1, int KT>
+cudaError_t launch_sweep_kt(SWEEP_PARAMS) {
+  auto kernel = fused_chooser_sweep_kernel<ALG1, KT>;
+  const size_t smem = smem_bytes(w, k);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<lanes, kThreads, smem, stream>>>(
+      ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs,
+      lane_flags, w_label, psel, remap, active_out, loads, cm_out, scal_out,
+      w, d, k, dynamic);
+  return cudaGetLastError();
+}
+
+template <bool ALG1>
+cudaError_t launch_sweep(SWEEP_PARAMS) {
+  if (lanes <= 0 || k <= 0 || k > 32 * kMaxKt || smem_bytes(w, k) > kSmemMax)
+    return cudaErrorInvalidValue;
+  return (k <= 32 ? launch_sweep_kt<ALG1, 1>
+                  : launch_sweep_kt<ALG1, kMaxKt>)(SWEEP_ARGS);
+}
+
+template <bool ALG1>
+cudaError_t launch_large_sweep(SWEEP_PARAMS) {
+  auto kernel = fused_chooser_large_sweep_kernel<ALG1>;
+  const size_t smem = large_smem_bytes(w, k);
+  if (lanes <= 0 || k <= 0 || smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  // every lane's cut matrix is updated in place, in the output: one copy
+  const cudaError_t err = cudaMemcpyAsync(
+      cm_out, cm,
+      sizeof(int) * static_cast<size_t>(lanes) * static_cast<size_t>(k) * k,
+      cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<lanes, kThreads, smem, stream>>>(
+      ev, src_lbl, touch, rand_tab, active, el, vc, scal, knobs, lane_flags,
+      w_label, psel, remap, active_out, loads, cm_out, scal_out, w, d, k,
+      dynamic);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define FUSED_ARGS ev, src_lbl, touch, rand_tab, active, el, vc, cm, scal, knobs, \
@@ -1885,4 +2076,31 @@ extern "C" int add_window_lanes_launch(
     int* loads, int* cm_out, int* scal_out, int w, int d, int k, int policy,
     int alg1, int autoscaling, cudaStream_t stream) {
   POLICY_SWITCH(launch_add_lanes, ADD_ARGS)
+}
+
+// The sweep form of the lanes kernel (K <= 192): one window of each of
+// `lanes` sweep lanes, every input and output with a leading lane axis, and
+// lane_flags (lanes, 2) = [policy, scale gate] per lane.
+extern "C" int fused_chooser_sweep_launch(
+    const int* ev, const int* src_lbl, const int* touch, const int* rand_tab,
+    const int* active, const int* el, const int* vc, const int* cm,
+    const int* scal, const float* knobs, const int* lane_flags, int* w_label,
+    int* psel, int* remap, int* active_out, int* loads, int* cm_out,
+    int* scal_out, int lanes, int w, int d, int k, int alg1, int dynamic,
+    cudaStream_t stream) {
+  return static_cast<int>(alg1 ? launch_sweep<true>(SWEEP_ARGS)
+                               : launch_sweep<false>(SWEEP_ARGS));
+}
+
+// The sweep form of the large-K kernel (any K up to
+// fused_chooser_large_max_k(w)).
+extern "C" int fused_chooser_large_sweep_launch(
+    const int* ev, const int* src_lbl, const int* touch, const int* rand_tab,
+    const int* active, const int* el, const int* vc, const int* cm,
+    const int* scal, const float* knobs, const int* lane_flags, int* w_label,
+    int* psel, int* remap, int* active_out, int* loads, int* cm_out,
+    int* scal_out, int lanes, int w, int d, int k, int alg1, int dynamic,
+    cudaStream_t stream) {
+  return static_cast<int>(alg1 ? launch_large_sweep<true>(SWEEP_ARGS)
+                               : launch_large_sweep<false>(SWEEP_ARGS));
 }

@@ -35,6 +35,14 @@ and the cut matrix in device memory, for any K up to ``large_max_k(W)``
 (9,587 at W = 256), where its 4·(32 + W + 6K + ⌈K/32⌉) bytes of shared
 memory reach the 232,448 a block can have.
 
+``fused_window_choose_lanes`` is the sweep form of both kernels (the
+Pallas kernel's traced-policy form, ``policy=None``, which the JAX sweep
+vmaps over lanes): one window of each of L sweep lanes in one launch, lane
+b on block b, under the policy and scale gate of its ``flags`` row. A
+block runs the single-session kernel's code for that policy, so every lane
+is bit-equal to a single-session launch on its inputs; W, D, K and the
+balance guard are shared by the lanes.
+
 ``add_window_choose`` runs a pure-ADD window's slot loop (the JAX
 package's ``lax.scan`` at ``src/repro/core/windowed.py:167``; no Pallas
 kernel) from ``partition_affinity``'s committed scores and the window's
@@ -72,6 +80,9 @@ SCAL_N = 5
 _I32 = torch.int32
 
 KERNELS = ("lanes", "large")
+# the sweep form of each (one window of every sweep lane a launch); "lanes"
+# in KERNELS is the layout (partition j on warp lane j % 32), not a sweep lane
+SWEEP_KERNELS = ("sweep_lanes", "sweep_large")
 LANES_MAX_K = 192            # csrc's 32 * kMaxKt: six partitions a lane
 EV_PAD = 12                  # csrc's kEvPad: a scalar row's ints in smem
 
@@ -231,6 +242,11 @@ def _lib():
         lib.fused_chooser_large_max_k.restype = ctypes.c_int
         for add in (lib.add_window_launch, lib.add_window_lanes_launch):
             add.argtypes, add.restype = fn.argtypes, fn.restype
+        for sweep in (lib.fused_chooser_sweep_launch,
+                      lib.fused_chooser_large_sweep_launch):
+            sweep.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                              + [ctypes.c_void_p])
+            sweep.restype = ctypes.c_int
     return lib
 
 
@@ -313,6 +329,100 @@ def launch(kernel, ev, src_lbl, touch, rand_tab, active, edge_load,
 
 fused_window_choose.launches = 0
 fused_window_choose.kernel_launches = dict.fromkeys(KERNELS, 0)
+
+
+def fused_window_choose_lanes(ev, src_lbl, touch, rand_tab, active,
+                              edge_load, vertex_count, cut_matrix, scalars,
+                              knobs, flags, *, n: int, balance_guard: str,
+                              dynamic: bool):
+    """The sweep form: one window of each of L sweep lanes in one launch.
+    Every input is ``fused_window_choose``'s with a leading lane axis —
+    ``ev`` (L, W, 9), ``src_lbl`` / ``touch`` (L, W, D), ``rand_tab`` (L,
+    W, K), the counters (L, K), (L, K, K), (L, 5), ``knobs`` (L, 7) — plus
+    ``flags`` (L, 2) int32, each lane's ``[policy index, scale gate]``
+    (the JAX kernel's ``flags_ref``): lane b runs policy
+    ``POLICIES[flags[b, 0]]`` and scales out and in where ``dynamic and
+    flags[b, 1]``. W, D, K and ``balance_guard`` are shared. Returns the
+    seven outputs of ``fused_window_choose`` with a leading L.
+
+    CUDA tensors launch the sweep form of the kernel that ``dispatch(W,
+    K)`` names, lanes on ``grid.x`` (counted in
+    ``fused_window_choose_lanes.launches`` and, by kernel, in its
+    ``kernel_launches`` as ``sweep_lanes`` / ``sweep_large``); a lane
+    whose policy index names no policy traps the launch (a device-side
+    error at the next synchronisation; the flags stay on the card, so the
+    wrapper does not read them). CPU tensors run
+    ``ref.fused_window_choose_lanes_ref``, which raises ``ValueError``
+    there."""
+    tensors = (ev, src_lbl, touch, rand_tab, active, edge_load,
+               vertex_count, cut_matrix, scalars, knobs, flags)
+    if not on_cuda(*tensors):
+        from repro_torch.kernels.fused_chooser.ref import (
+            fused_window_choose_lanes_ref,
+        )
+        return fused_window_choose_lanes_ref(
+            *tensors, n=n, balance_guard=balance_guard, dynamic=dynamic)
+    lanes, w, d = src_lbl.shape
+    k = rand_tab.shape[2]
+    check_input(ev, "ev", _I32, (lanes, w, EV_COLS))
+    check_input(touch, "touch", _I32, (lanes, w, d))
+    check_input(active, "active", torch.bool, (lanes, k))
+    for name, t, shape in (("src_lbl", src_lbl, (lanes, w, d)),
+                           ("rand_tab", rand_tab, (lanes, w, k)),
+                           ("edge_load", edge_load, (lanes, k)),
+                           ("vertex_count", vertex_count, (lanes, k)),
+                           ("cut_matrix", cut_matrix, (lanes, k, k)),
+                           ("scalars", scalars, (lanes, SCAL_N)),
+                           ("flags", flags, (lanes, 2))):
+        check_input(t, name, _I32, shape)
+    check_input(knobs, "knobs", torch.float32, (lanes, 7))
+    if balance_guard not in ("text", "alg1"):
+        raise ValueError(f"balance_guard={balance_guard!r} is unknown")
+    if lanes < 1:
+        raise ValueError("fused_window_choose_lanes needs at least one lane")
+    kernel = dispatch(w, k)
+    out = sweep_launch(kernel, *tensors, balance_guard=balance_guard,
+                       dynamic=dynamic)
+    fused_window_choose_lanes.launches += 1
+    fused_window_choose_lanes.kernel_launches[f"sweep_{kernel}"] += 1
+    return out
+
+
+def sweep_launch(kernel, ev, src_lbl, touch, rand_tab, active, edge_load,
+                 vertex_count, cut_matrix, scalars, knobs, flags, *,
+                 balance_guard: str, dynamic: bool):
+    """Launches the sweep form of ``kernel`` (one of KERNELS) on checked
+    CUDA inputs and returns ``fused_window_choose_lanes``' outputs,
+    uncounted (the wrapper's launch, and the timing and card tests')."""
+    tensors = (ev, src_lbl, touch, rand_tab, active, edge_load,
+               vertex_count, cut_matrix, scalars, knobs, flags)
+    if not on_cuda(*tensors):
+        raise ValueError("sweep_launch takes CUDA tensors")
+    lanes, w, d = src_lbl.shape
+    k = rand_tab.shape[2]
+    dev = ev.device
+    lib = _lib()
+    fn = (lib.fused_chooser_sweep_launch if kernel == "lanes"
+          else lib.fused_chooser_large_sweep_launch)
+    active_i = active.to(_I32)
+    out = (torch.empty((lanes, w), dtype=_I32, device=dev),       # w_label
+           torch.empty((lanes, w), dtype=_I32, device=dev),       # p_sel
+           torch.empty((lanes, k), dtype=_I32, device=dev),       # remap
+           torch.empty((lanes, k), dtype=_I32, device=dev),       # active
+           torch.empty((lanes, 2, k), dtype=_I32, device=dev),    # loads
+           torch.empty((lanes, k, k), dtype=_I32, device=dev),    # cut_matrix
+           torch.empty((lanes, SCAL_N), dtype=_I32, device=dev))  # scalars
+    ptrs = [t.data_ptr() for t in (ev, src_lbl, touch, rand_tab, active_i,
+                                   edge_load, vertex_count, cut_matrix,
+                                   scalars, knobs, flags) + out]
+    err = fn(*ptrs, lanes, w, d, k, int(balance_guard == "alg1"),
+             int(dynamic), stream_ptr(dev))
+    check_launch(err, f"fused_chooser (sweep, {kernel})")
+    return out
+
+
+fused_window_choose_lanes.launches = 0
+fused_window_choose_lanes.kernel_launches = dict.fromkeys(SWEEP_KERNELS, 0)
 
 
 def add_window_choose(scores_c, deg_c, win_pos, fresh_c, vs, rand_tab, active,

@@ -25,6 +25,10 @@ design):
      (w_label, remap): ``label = w_label[last_touch]`` where touched, else
      ``remap[committed]``.
 
+Sweep lanes (``sweep_window_mixed_fused``): steps 1 and 2 per lane, then
+ONE launch of the chooser's sweep form for every lane's window, then the
+apply for all lanes at once.
+
 Nothing here reads the card back to the host. Each kernel's wrapper runs
 its plain version for CPU tensors.
 """
@@ -38,11 +42,48 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.geometry import check_row_width
 from repro_torch.core.state import PartitionState
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
-from repro_torch.kernels.fused_chooser.window_prep import window_prep
+from repro_torch.kernels.fused_chooser.window_prep import (
+    prep_max_w, prep_smem_bytes, window_prep,
+)
 from repro_torch.kernels.partition_affinity.ops import scores_for_state
 from repro_torch.kernels.window_rng.ops import window_rng
 
 _prepare_window = window_prep
+
+
+def check_shape_limits(window: int, k_max: int) -> None:
+    """Raise unless the card's window kernels take a window of ``window``
+    events over ``k_max`` partition slots: ``window_prep`` up to
+    ``prep_max_w()`` slots, the mixed chooser up to ``large_max_k(window)``
+    partitions and the pure-ADD fixup up to ``add_max_k(window)``. A card
+    session or sweep with ``use_kernel=True`` calls it before any window
+    runs; the error names the knob to lower. (The plain versions on the CPU
+    have no limit.)"""
+    if window > prep_max_w():
+        raise ValueError(
+            f"window={window} is above the {prep_max_w()} slots the "
+            f"window_prep kernel takes ({prep_smem_bytes(window)} bytes of "
+            f"shared memory at {window}): lower window to at most "
+            f"{prep_max_w()}")
+    for what, limit in (("fused_chooser", fk.large_max_k(window)),
+                        ("pure-ADD fixup", fk.add_max_k(window))):
+        if k_max > limit:
+            raise ValueError(
+                f"k_max={k_max} is above the {limit} partitions the {what} "
+                f"kernel takes at a window of {window}: lower cfg.k_max to "
+                f"at most {limit} (or the window)")
+
+
+def _apply(w_label, remap, last_touch, label0):
+    """Step 4: the journal rebuilt from the window-local decisions — two
+    O(n) gathers, no scatter ordering to get wrong. ``w_label`` (…, W),
+    ``remap`` (…, K), ``last_touch`` and ``label0`` (…, n), for one window
+    or, with a leading lane axis, every sweep lane's at once."""
+    w = w_label.shape[-1]
+    lbl_touched = w_label.gather(-1, torch.clamp(last_touch, 0, w - 1).long())
+    lbl_kept = torch.where(
+        label0 >= 0, remap.gather(-1, torch.clamp(label0, min=0).long()), -1)
+    return torch.where(last_touch >= 0, lbl_touched, lbl_kept)
 
 
 def _fused_lane(state: PartitionState, ets, vs, rows, t0: int, knobs, *,
@@ -56,13 +97,7 @@ def _fused_lane(state: PartitionState, ets, vs, rows, t0: int, knobs, *,
         prep.ev, prep.src_lbl, prep.touch, rand_tab, *wnd.small_args(state),
         knobs, n=state.assignment.shape[0], policy=policy,
         balance_guard=balance_guard, autoscaling=autoscaling)
-
-    # apply: rebuild the journal from the window-local decisions — two
-    # O(n) gathers, no scatter ordering to get wrong
-    lbl_touched = w_label[torch.clamp(prep.last_touch, 0, w - 1)]
-    lbl_kept = torch.where(prep.label0 >= 0,
-                           remap[torch.clamp(prep.label0, min=0)], -1)
-    label_final = torch.where(prep.last_touch >= 0, lbl_touched, lbl_kept)
+    label_final = _apply(w_label, remap, prep.last_touch, prep.label0)
     return wnd.with_small_outputs(state, *small_out, assignment=label_final,
                                   present=label_final >= 0, adj=prep.adj)
 
@@ -101,3 +136,62 @@ def run_window_adds_fused(state: PartitionState, vs, rows, t0: int, *,
         policy=policy, balance_guard=cfg.balance_guard,
         autoscaling=policy == "sdp" and cfg.autoscale)
     return wnd.commit_add_window(state, vs, rows, *out)
+
+
+def _stacked_small(states) -> tuple:
+    """The lanes' O(K) counter slices stacked on a leading lane axis, as
+    ``fused_window_choose_lanes`` takes them: (active, edge_load,
+    vertex_count, cut_matrix, scalars (L, 5))."""
+    def stack(f):
+        return torch.stack([getattr(st, f) for st in states])
+    return (stack("active"), stack("edge_load"), stack("vertex_count"),
+            stack("cut_matrix"),
+            torch.stack([stack(f) for f in wnd._SCALARS], dim=1))
+
+
+def sweep_window_mixed_fused(states: list, kns: torch.Tensor, policy_idx,
+                             autoscale, ets, vs, rows, t0: int, *,
+                             balance_guard: str, autoscale_mode: str,
+                             window: int = 256,
+                             shared_stream: bool = False) -> list:
+    """Drop-in for ``windowed.sweep_window_mixed`` through the kernels, the
+    port's ``sweep_window_mixed_fused``: per window step, every lane's
+    ``window_prep`` and ``window_rng`` (a launch each, on the lane's own
+    state), then ONE launch of the chooser's sweep form
+    (``fused_window_choose_lanes``) for all lanes, each lane under its own
+    policy and scale gate (``flags``), then the apply for all lanes at
+    once: two batched gathers rebuild every lane's journal. Nothing reads
+    the card back to the host. Bit-identical per lane to
+    ``sweep_window_mixed``."""
+    check_row_width(states[0], rows)
+    starts = wnd.window_starts(ets.shape[-1], window)
+    dev = kns.device
+    n = states[0].assignment.shape[0]
+    k = states[0].edge_load.shape[0]
+    autos = wnd.lane_autoscaling(policy_idx, autoscale, autoscale_mode)
+    flags = torch.tensor([[int(p), int(a)] for p, a in zip(policy_idx, autos)],
+                         dtype=torch.int32, device=dev)
+    lanes = [tuple(wnd.lane_events(x, b, shared_stream)
+                   for x in (ets, vs, rows)) for b in range(len(states))]
+    for i0 in starts:
+        sl = slice(i0, i0 + window)
+        preps = [_prepare_window(st, et_b[sl], vs_b[sl], rows_b[sl])
+                 for st, (et_b, vs_b, rows_b) in zip(states, lanes)]
+        rand_tab = torch.stack([window_rng(st.key, t0 + i0, window, k)
+                                for st in states])
+        w_label, _psel, remap, active, loads, cut_matrix, scalars = \
+            fk.fused_window_choose_lanes(
+                *(torch.stack([getattr(p, f) for p in preps])
+                  for f in ("ev", "src_lbl", "touch")),
+                rand_tab, *_stacked_small(states), kns, flags, n=n,
+                balance_guard=balance_guard,
+                dynamic=autoscale_mode == "dynamic")
+        label_final = _apply(
+            w_label, remap, torch.stack([p.last_touch for p in preps]),
+            torch.stack([p.label0 for p in preps]))
+        present = label_final >= 0
+        states = [wnd.with_small_outputs(
+            st, active[b], loads[b], cut_matrix[b], scalars[b],
+            assignment=label_final[b], present=present[b], adj=p.adj)
+            for b, (st, p) in enumerate(zip(states, preps))]
+    return states

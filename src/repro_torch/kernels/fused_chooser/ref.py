@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the mixed window's kernels: the prep scan
 (``prepare_window_ref``, a Python loop over the slots) and the fused
 window chooser (the slot step ``fused_chooser.make_slot_step`` driven by a
-Python loop); and CPU models of how their CUDA kernels split the work, for
+Python loop; its sweep form ``fused_window_choose_lanes_ref``, that loop
+once per lane); and CPU models of how their CUDA kernels split the work, for
 the tests (``prepare_window_chains``, the ``warp_*`` reductions)."""
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import transition as tx
+from repro_torch.core.config import POLICIES
 from repro_torch.core.state import PartitionState
 from repro_torch.core.windowed import small_from_args, small_outputs
 from repro_torch.graph.stream import (
@@ -211,6 +213,28 @@ def fused_window_choose_ref(ev, src_lbl, touch, rand_tab, active, edge_load,
             small, w_label, remap, kn, i, ev[i], src_lbl[i], touch[i],
             rand_tab[i])
     return (w_label, psel, remap, *small_outputs(small))
+
+
+def fused_window_choose_lanes_ref(ev, src_lbl, touch, rand_tab, active,
+                                  edge_load, vertex_count, cut_matrix,
+                                  scalars, knobs, flags, *, n: int,
+                                  balance_guard: str, dynamic: bool):
+    """Same signature and outputs as
+    ``fused_chooser.fused_window_choose_lanes``, on any device:
+    ``fused_window_choose_ref`` once per lane, lane b under policy
+    ``POLICIES[flags[b, 0]]`` and autoscaling ``dynamic and flags[b, 1]``.
+    Reads ``flags`` on the host; an index that names no policy raises."""
+    outs = []
+    for b, (pidx, gate) in enumerate(flags.tolist()):
+        if not 0 <= pidx < len(POLICIES):
+            raise ValueError(f"lane {b}: policy index {pidx} names no "
+                             f"policy (0 .. {len(POLICIES) - 1})")
+        outs.append(fused_window_choose_ref(
+            ev[b], src_lbl[b], touch[b], rand_tab[b], active[b],
+            edge_load[b], vertex_count[b], cut_matrix[b], scalars[b],
+            knobs[b], n=n, policy=POLICIES[pidx],
+            balance_guard=balance_guard, autoscaling=dynamic and gate != 0))
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 # ---------------------------------------------------------------------------

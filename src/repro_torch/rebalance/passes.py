@@ -250,3 +250,22 @@ def rebalance_state(state: PartitionState, t0: int, slack, max_cap,
                          max_cap=max_cap, enabled=enabled,
                          use_kernel=use_kernel)
     return state, RebalanceStats(moved, cut0, state.cut_edges)
+
+
+def lane_rebalance(m: int, passes: int, *, use_kernel: bool = True):
+    """The sweep's rebalance over its lanes (JAX's vmapped
+    ``lane_rebalance``): ``run(states, t0, slack, max_cap, enabled)`` runs
+    ``rebalance_state`` on each lane's state with that lane's ``max_cap``
+    (a sequence of 0-dim f32 tensors), the shared ``slack`` and cursor
+    ``t0``, and the lane's ``enabled`` flag (host bools): a lane gated off
+    keeps its state bit for bit. Returns the lanes' states and their
+    ``RebalanceStats`` stacked on a leading lane axis. Consumes the
+    states."""
+    def run(states, t0: int, slack, max_cap, enabled):
+        out = [rebalance_state(st, t0, slack, cap, bool(en), m=m,
+                               passes=passes, use_kernel=use_kernel)
+               for st, cap, en in zip(states, max_cap, enabled)]
+        return ([st for st, _ in out],
+                RebalanceStats(*(torch.stack(x)
+                                 for x in zip(*(s for _, s in out)))))
+    return run

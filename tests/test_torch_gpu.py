@@ -1041,3 +1041,125 @@ def test_remesh_card_cpu_card_continues(cuda, tmp_path):
                 torch.device(dev).type
     assert sess.device.type == "cuda"
     _assert_states_equal(ref.state, sess.state)
+
+
+# -- the sweep form of the fused chooser and the sweep lanes on the card ----
+
+_SWEEP_WARMS = (64, 128, 192, 256)
+
+
+@pytest.fixture(scope="module")
+def _sweep_windows():
+    """Four distinct windows (states and prep tables) per k_max, made once:
+    lane b takes window b % 4."""
+    cache = {}
+
+    def get(cuda, k_max):
+        if k_max not in cache:
+            cache[k_max] = [_window(cuda, k_max, warm=w) for w in _SWEEP_WARMS]
+        return cache[k_max]
+    return get
+
+
+def _stack_lanes(args_per_lane):
+    return tuple(torch.stack(x).contiguous() for x in zip(*args_per_lane))
+
+
+@pytest.mark.parametrize("guard", ["text", "alg1"])
+@pytest.mark.parametrize("lanes", [1, 3, 64])
+@pytest.mark.parametrize("k_max", [16, 200])
+def test_fused_chooser_sweep_form_matches_single_and_plain(
+        cuda, _sweep_windows, k_max, lanes, guard):
+    """The sweep form, one launch for L lanes of mixed policies and scale
+    gates (K = 16: the lanes layout; K = 200: the large one): each lane
+    bit-equal to the single-session kernel on its own inputs and to the
+    plain version."""
+    wins = _sweep_windows(cuda, k_max)
+    n = wins[0][0]
+    per = [wins[b % 4][1] for b in range(lanes)]
+    pol = [b % len(POLICIES) for b in range(lanes)]
+    gate = [(b // len(POLICIES) + b) % 2 for b in range(lanes)]
+    flags = torch.tensor(list(zip(pol, gate)), dtype=torch.int32,
+                         device=cuda)
+    args = _stack_lanes(per)
+    kernel = f"sweep_{fk.dispatch(per[0][1].shape[0], k_max)}"
+    for dynamic in (True, False):
+        before = dict(fk.fused_window_choose_lanes.kernel_launches)
+        single = fk.fused_window_choose.launches
+        got = fk.fused_window_choose_lanes(*args, flags, n=n,
+                                           balance_guard=guard,
+                                           dynamic=dynamic)
+        assert fk.fused_window_choose_lanes.kernel_launches == {
+            k: c + (k == kernel) for k, c in before.items()}
+        assert fk.fused_window_choose.launches == single
+        cpu = [x.cpu() for x in args]
+        want = fk.fused_window_choose_lanes(*cpu, flags.cpu(), n=n,
+                                            balance_guard=guard,
+                                            dynamic=dynamic)
+        for b in range(lanes):
+            one = fk.fused_window_choose(
+                *per[b], n=n, policy=POLICIES[pol[b]], balance_guard=guard,
+                autoscaling=dynamic and gate[b] == 1)
+            for x, y, z in zip(got, one, want):
+                assert torch.equal(x[b], y), (b, pol[b], gate[b])
+                assert torch.equal(x[b].cpu(), z[b]), (b, pol[b], gate[b])
+
+
+def test_fused_chooser_sweep_form_on_grqc_rows(cuda):
+    """The sweep form at grqc's 2,843-wide rows, 3 lanes: equal to the
+    single-session kernel lane by lane."""
+    state, cfg, (et, vx, nb) = fsweep.window_state(
+        cuda, *WINDOW_SETUPS["grqc_wide"], fsweep.CHURN)
+    n = state.assignment.shape[0]
+    w, k = 256, cfg.k_max
+    per = []
+    for b in range(3):
+        st = type(state)(*(x.clone() for x in state))
+        sl = slice(1024 + b * w, 1024 + (b + 1) * w)
+        prep = _prepare_window(st, et[sl], vx[sl], nb[sl])
+        per.append((prep.ev, prep.src_lbl, prep.touch,
+                    window_rng(st.key, sl.start, w, k), *wnd.small_args(st),
+                    tx.knob_tensor(cfg, n, cuda)))
+    flags = torch.tensor([[0, 1], [2, 0], [5, 1]], dtype=torch.int32,
+                         device=cuda)
+    got = fk.fused_window_choose_lanes(*_stack_lanes(per), flags, n=n,
+                                       balance_guard="text", dynamic=True)
+    for b, (p, g) in enumerate(flags.tolist()):
+        one = fk.fused_window_choose(*per[b], n=n, policy=POLICIES[p],
+                                     balance_guard="text",
+                                     autoscaling=g == 1)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y), b
+
+
+@pytest.mark.parametrize("kw", [dict(window=4096),
+                                dict(cfg=EngineConfig(k_max=20000))])
+def test_partitioner_past_a_kernel_limit_raises_when_built(cuda, kw):
+    """A card session past a kernel's shape limit raises at construction,
+    naming the knob to lower; the same session without the kernels, or on
+    the CPU, is built."""
+    knob = "window" if "window" in kw else "k_max"
+    with pytest.raises(ValueError, match=knob):
+        Partitioner(use_kernel=True, device=cuda, **kw)
+    Partitioner(use_kernel=False, device=cuda, **kw)
+    Partitioner(use_kernel=True, device="cpu", **kw)
+
+
+def test_sweep_kernel_lanes_match_card_sessions(cuda):
+    """Sweep(...).windowed(64).kernel() on the card: one sweep-form launch
+    per window step, and every lane equal to its own card session."""
+    from repro_torch.api import Sweep
+    s = interleaved_churn(load_dataset("grqc", scale=0.2), warmup_frac=0.2,
+                          del_every=3, edge_del_every=5, seed=0)
+    runs = [(p, EngineConfig(k_max=16, k_init=1 if p == "sdp" else 4,
+                             max_cap=60, autoscale=p == "sdp"), b)
+            for b, p in enumerate(POLICIES)]
+    before = fk.fused_window_choose_lanes.launches
+    res = Sweep(s, device=cuda).lanes(runs).windowed(64).kernel().run()
+    assert fk.fused_window_choose_lanes.launches - before == \
+        -(-s.num_events // 64)
+    for r in res:
+        part = Partitioner.from_stream(s, r.cfg, policy=r.policy, seed=r.seed,
+                                       window=64, engine="windowed",
+                                       use_kernel=True, device=cuda).feed(s)
+        _assert_states_equal(part.state, r.state)
