@@ -33,7 +33,13 @@ against its uninterrupted state (phase ``serve``), runs sweep lanes
 through ``Sweep(...).windowed(256).kernel()`` — 64 grqc lanes and 16
 twitter lanes, one sweep-form ``fused_chooser`` launch a window step for
 all of them, each lane held to its own card session (phase ``sweep``) —
-and serves
+runs twitter and grqc as vertex-sharded sessions (``Partitioner(sharded=
+True)``: 1, 2 and 4 row blocks on one card, one block a card where there
+are several, grqc at 3; each window one ``window_prep_rows`` launch a
+block, then ``window_rng`` and ``fused_chooser`` once) against the dense
+card sessions, a ``FaultTolerantLoop`` over twitter windows with one
+poisoned and an ``ElasticRunner`` 4 -> 2 -> 4 round trip (phase
+``shard``) — and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -87,7 +93,8 @@ from repro_torch.core.offline import cut_of, offline_partition  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
 from repro_torch.graph.datasets import load_dataset  # noqa: E402
 from repro_torch.graph.stream import (  # noqa: E402
-    VertexStream, interleaved_churn, materialize_graph, poisson_arrivals,
+    VertexStream, interleaved_churn, materialize_graph, normalize_rows,
+    poisson_arrivals,
 )
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
@@ -116,6 +123,19 @@ from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.rebalance import passes as rpasses  # noqa: E402
 from repro_torch.runtime import CrashError, RecoverableSession  # noqa: E402
+from repro_torch.runtime import shard_session  # noqa: E402
+from repro_torch.runtime.elastic import ElasticRunner  # noqa: E402
+from repro_torch.runtime.fault import FaultTolerantLoop  # noqa: E402
+from repro_torch.core.sharded_state import (  # noqa: E402
+    per_device_state_bytes, shard_state, unshard_state,
+)
+from repro_torch.launch.mesh import (  # noqa: E402
+    Placement, RowBlocks, make_vertices_mesh, tree_map,
+)
+from repro_torch.kernels.fused_chooser.ref import prepare_rows_ref  # noqa: E402
+from repro_torch.kernels.fused_chooser.window_prep import (  # noqa: E402
+    window_prep_rows,
+)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 L2_BYTES = 50 * 2 ** 20        # H100 SXM L2 (NVIDIA data sheet)
@@ -192,6 +212,16 @@ CKPT_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_ckpt")
 # segment_spmm: the twitter session's ELL (degree cap 192) at MeshGraphNet's
 # hidden width and at full_graph_sm's d_feat, and grqc's uncapped rows
 SPMM_WIDTHS = (128, 1433)
+# phase shard: twitter as a sharded session of 1, 2 and 4 row blocks on one
+# card (and on min(4, cards) cards where there are several), grqc at 3 (n =
+# 5,242 does not divide); the feed boundaries of its twitter runs; the
+# windows of the fault-tolerant loop (from the twitter window FAULT_FROM on,
+# a checkpoint a window, the middle one poisoned); the profiled prefix
+SHARD_WIDTHS, GRQC_SHARDS = (1, 2, 4), 3
+SHARD_CHUNKS = (30_001, 77_777)
+FAULT_FROM, FAULT_WINDOWS = 200, 16
+SHARD_PROFILE_WINDOWS = 32
+SHARD_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_shard")
 
 
 _T0 = time.perf_counter()
@@ -324,6 +354,10 @@ def check_recount(st, what: str) -> None:
 
 def clone_state(st) -> PartitionState:
     return PartitionState(*(t.clone() for t in st))
+
+
+def to_host(st) -> PartitionState:
+    return PartitionState(*(t.to(HOST) for t in st))
 
 
 # ---------------------------------------------------------------------------
@@ -571,9 +605,11 @@ def check_window_rng(dev) -> dict:
 
 
 def _prep_bytes(prep, state, rows) -> int:
-    """Bytes one window_prep call must move: the events in, the scalar
-    rows and both tables out, the assignment and presence (n) in, label0
-    and last_touch (n) out, and each adjacency row the window reads (the
+    """Bytes one window_prep call must move: each slot's event, subject
+    and first row entry (its u) in, and the rest of each ADD's row (the
+    ADDs score their rows; no other event row is read); the scalar rows
+    and both tables out, the assignment and presence (n) in, label0 and
+    last_touch (n) out, and each adjacency row the window reads (the
     subjects of fresh ADDs, DEL_VERTEXes and DEL_EDGEs, and the DEL_EDGEs'
     other ends) once, and once more if it writes it (all but those only
     DEL_VERTEXes name)."""
@@ -585,8 +621,9 @@ def _prep_bytes(prep, state, rows) -> int:
     wrote = (prep.ev[:, fk.EV_FRESH] != 0) | de
     read = torch.unique(torch.cat([v[wrote | (et == 1)], u[de]])).numel()
     written = torch.unique(torch.cat([v[wrote], u[de]])).numel()
-    return (4 * (2 * w + w * d) + 4 * w * fk.EV_COLS + 8 * w * d + 5 * n
-            + 8 * n + 4 * d * (read + written))
+    adds = int((et == 0).sum())
+    return (4 * 3 * w + 4 * (d - 1) * adds + 4 * w * fk.EV_COLS
+            + 8 * w * d + 5 * n + 8 * n + 4 * d * (read + written))
 
 
 def check_window_prep(dev, cases) -> dict:
@@ -1014,6 +1051,12 @@ def _window_kinds(part) -> dict:
     return {"add": m["add_windows"], "mixed": m["mixed_windows"]}
 
 
+def _grqc_chunks(T: int) -> list:
+    """Phase grqc's feed boundaries: chunks of 1 and 6 events, a window
+    split by one event, the rest in a few large ones."""
+    return [1, 7, 300, 301, 1000, 2500, T // 2 + 3, T - 5]
+
+
 def phase_grqc(dev) -> dict:
     """The session with both kernels against the port's faithful engine
     (run on the host)."""
@@ -1023,7 +1066,7 @@ def phase_grqc(dev) -> dict:
     ref, _ = engine.run_stream(s, policy="sdp", cfg=cfg, seed=0, device=HOST)
     t_ref = time.perf_counter() - t
     T = s.num_events
-    chunks = [1, 7, 300, 301, 1000, 2500, T // 2 + 3, T - 5]
+    chunks = _grqc_chunks(T)
     _reset_launches()
     t = time.perf_counter()
     part = _session(s, cfg, dev, 256, chunks)
@@ -1042,7 +1085,7 @@ def phase_grqc(dev) -> dict:
            "faithful_host_s": round(t_ref, 3),
            "session_s": round(t_part, 3), "k200": _session_k200(s, dev)}
     emit(out)
-    return out
+    return out, s, cfg, to_host(part.state)
 
 
 def _session_k200(s, dev) -> dict:
@@ -1981,28 +2024,50 @@ SWEEP_PROFILE_EVENTS = 64 * WINDOW   # the profiled prefix of twitter's lanes
 SWEEP_TIMED_LANES = (1, 16, 64)
 
 
-class _Capture:
-    """Within it, the sweep form's launcher (``fk.sweep_launch``, which the
-    counted wrapper calls) keeps a copy of its inputs at window step
-    ``step``; every launch goes on as before."""
+class _Hook:
+    """Within it, ``module.<attr>`` is wrapped: its call i (counted from 0
+    across the block) runs as before and, where ``key(i)`` is not None,
+    keeps ``kept[key(i)] = (args, kwargs, out, after)``. ``args`` are the
+    call's own arguments, or with ``clone`` copies of its tensors taken
+    before the call (a kernel may write its inputs in place); ``after``
+    is None, or with ``after`` copies taken after the call. A later call
+    with the same key replaces the kept one."""
 
-    def __init__(self, step: int):
-        self.step, self.calls, self.inputs = step, 0, None
+    def __init__(self, module, attr: str, key, clone: bool = True,
+                 after: bool = False):
+        self.module, self.attr, self.key = module, attr, key
+        self.clone, self.after = clone, after
+        self.calls, self.kept = 0, {}
 
     def __enter__(self):
-        fn = self._fn = fk.sweep_launch
+        fn = self._fn = getattr(self.module, self.attr)
 
-        def capture(kernel, *a, **kw):
-            if self.calls == self.step:
-                self.inputs = (tuple(x.clone() for x in a), dict(kw))
+        def copy(a):
+            return tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in a)
+
+        def hooked(*a, **kw):
+            k = self.key(self.calls)
             self.calls += 1
-            return fn(kernel, *a, **kw)
+            if k is None:
+                return fn(*a, **kw)
+            before = copy(a) if self.clone else a
+            out = fn(*a, **kw)
+            self.kept[k] = (before, dict(kw), out,
+                            copy(a) if self.after else None)
+            return out
 
-        fk.sweep_launch = capture
+        setattr(self.module, self.attr, hooked)
         return self
 
     def __exit__(self, *exc):
-        fk.sweep_launch = self._fn
+        setattr(self.module, self.attr, self._fn)
+
+
+def _capture_sweep(step: int) -> _Hook:
+    """Keeps the inputs of the sweep form's launcher (``fk.sweep_launch``,
+    which the counted wrapper calls) at window step ``step``."""
+    return _Hook(fk, "sweep_launch", lambda i: 0 if i == step else None)
 
 
 def _sweep_runs(n_lanes, sdp_cfg, other_cfg) -> list:
@@ -2036,7 +2101,7 @@ def _sweep_vs_sessions(name, s, runs, dev, kernel: str) -> dict:
     L = len(runs)
     _reset_launches()
     t = time.perf_counter()
-    with _Capture(windows // 2) as cap:
+    with _capture_sweep(windows // 2) as cap:
         res = Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
         torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t
@@ -2066,18 +2131,19 @@ def _sweep_vs_sessions(name, s, runs, dev, kernel: str) -> dict:
             "speedup": sessions_s / sweep_s, "launches": launches,
             "launches_by_kernel": by_kernel, "lanes_equal_sessions": True,
             "policies": [r.policy for r in runs],
-            "plain": _sweep_form_plain(cap.inputs, res[0].state,
+            "plain": _sweep_form_plain(cap.kept[0], res[0].state,
                                        f"sweep {name}", windows // 2)}, res
 
 
 def _sweep_form_plain(inputs, lane_state, what: str, step: int) -> dict:
     """The sweep form's counted wrapper on one of the main path's launches
-    (``inputs``: every lane's own window of its own state, from
-    ``_Capture``), with the lanes' flags and again with every scale gate
-    flipped; in each, the first lane of each policy held bit for bit to the
-    plain version (``fused_window_choose_lanes_ref``, on the host) on the
-    same inputs. ``lane_state``: a lane's state, for ``n``."""
-    (*tensors, flags), kw = inputs
+    (``inputs``: every lane's own window of its own state, as
+    ``_capture_sweep`` keeps them), with the lanes' flags and again with
+    every scale gate flipped; in each, the first lane of each policy held
+    bit for bit to the plain version (``fused_window_choose_lanes_ref``, on
+    the host) on the same inputs. ``lane_state``: a lane's state, for
+    ``n``."""
+    (_kernel, *tensors, flags), kw, _, _ = inputs
     kw = {**kw, "n": lane_state.assignment.shape[0]}
     pidx = flags[:, 0].tolist()
     pick = [pidx.index(i) for i in sorted(set(pidx))]
@@ -2326,6 +2392,370 @@ def phase_sweep(dev, twitter_s, cases, card: str) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase shard: vertex-sharded sessions, the fault-tolerant loop, the elastic
+# runner
+# ---------------------------------------------------------------------------
+
+class _RowCapture(_Hook):
+    """Hooks ``shard_session.window_prep_rows`` (the counted wrapper, so the
+    main path's launches still count) and keeps copies of the inputs and
+    outputs of every block's launch in window ``at``, and of the block's
+    adjacency after it — to be held to the plain loop on the host after the
+    run."""
+
+    def __init__(self, at: int, blocks: int):
+        self.at, self.blocks = at, blocks
+        super().__init__(
+            shard_session, "window_prep_rows",
+            lambda i: i % blocks if i // blocks == at else None, after=True)
+
+    def check(self, what: str) -> dict:
+        """Every kept launch against the plain loop on host copies: the
+        emissions and the block's adjacency after the window."""
+        if len(self.kept) != self.blocks:
+            raise AssertionError(f"{what}: kept {len(self.kept)} row-block "
+                                 f"launches of window {self.at}, want "
+                                 f"{self.blocks}")
+        t = time.perf_counter()
+        err = 0
+        for (adj, *args, lo), _, out, after in self.kept.values():
+            adj_h = adj.to(HOST)
+            want = prepare_rows_ref(adj_h, *(a.to(HOST) for a in args), lo)
+            err = max(err, max_abs_diff([o.to(HOST) for o in out], want),
+                      max_abs_diff([after[0].to(HOST)], [adj_h]))
+        if err:
+            raise AssertionError(f"{what}: window_prep_rows differs from its "
+                                 f"plain loop by {err} at window {self.at}")
+        return {"window": self.at, "blocks": self.blocks,
+                "max_abs_err": err, "host_s": time.perf_counter() - t}
+
+
+def _feed_chunks(part, s, bounds):
+    T = s.num_events
+    cuts = [0] + [c for c in bounds if 0 < c < T] + [T]
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        part.feed((s.etype[a:b], s.vertex[a:b], s.nbrs[a:b]))
+    return part.sync()
+
+
+def _rows_launches() -> dict:
+    return {"window_prep_rows": window_prep_rows.launches,
+            "fused_chooser": fk.fused_window_choose.launches,
+            "window_rng": rops.window_rng.launches}
+
+
+def _reset_rows_launches():
+    _reset_launches()
+    window_prep_rows.launches = 0
+
+
+def _sharded_run(s, cfg, devices, bounds, want, what: str) -> dict:
+    """One sharded card session over ``devices`` (row blocks) fed ``s`` in
+    the chunks ``bounds``: timed, its launches read (the row-block prep P
+    times a window, the chooser and the RNG once, nothing else), the
+    middle window's row-block launches held to the plain loop, and the
+    final state held to ``want`` (a host state)."""
+    p = len(devices)
+    T = s.num_events
+    cuts = [0] + [c for c in bounds if 0 < c < T] + [T]
+    windows = sum(-(-(b - a) // WINDOW) for a, b in zip(cuts[:-1], cuts[1:]))
+    torch.cuda.reset_peak_memory_stats(devices[0])
+    cap = _RowCapture(windows // 2, p)
+    _reset_rows_launches()
+    with cap:
+        t = time.perf_counter()
+        part = Partitioner.from_stream(s, cfg, policy="sdp", seed=0,
+                                       window=WINDOW, sharded=True,
+                                       shard_devices=devices)
+        _feed_chunks(part, s, bounds)
+        run_s = time.perf_counter() - t
+    launches = _rows_launches()
+    others = {k: v for k, v in _read_launches().items()
+              if k not in launches and v}
+    m = part.metrics()
+    want_l = {"window_prep_rows": p * m["mixed_windows"],
+              "fused_chooser": m["mixed_windows"],
+              "window_rng": m["mixed_windows"]}
+    # windows on the kernels (a card mesh) or their plain versions
+    counted = m["kernel_windows" if devices[0].type == "cuda"
+                else "fallback_windows"]
+    if launches != want_l or others or counted != windows \
+            or m["mixed_windows"] != windows:
+        raise AssertionError(f"{what}: launches {launches} (others "
+                             f"{others}), windows {m['mixed_windows']} of "
+                             f"{windows}, want {want_l}")
+    got = unshard_state(part.state, n=s.n)
+    assert_states_equal(got, want, what)
+    return {"blocks": p, "devices": sorted({str(d) for d in devices}),
+            "events": s.num_events, "windows": windows, "run_s": run_s,
+            "events_per_s": s.num_events / run_s, "launches": launches,
+            "per_device_state_bytes": m["per_device_state_bytes"],
+            "state_bytes": m["state_bytes"], "n_rows": part.n,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(
+                devices[0]),
+            "plain_check": cap.check(what), "bit_equal": True}
+
+
+def _shard_profile(s, cfg, devices) -> dict:
+    """torch.profiler over the first SHARD_PROFILE_WINDOWS windows of a
+    sharded session: host-issued device ops per window and the device's
+    busy share."""
+    t_end = SHARD_PROFILE_WINDOWS * WINDOW
+    part = Partitioner.from_stream(s, cfg, policy="sdp", seed=0,
+                                   window=WINDOW, sharded=True,
+                                   shard_devices=devices)
+    part.feed((s.etype[:WINDOW], s.vertex[:WINDOW], s.nbrs[:WINDOW]))
+    part.sync()
+    with _profiler() as prof:
+        t = time.perf_counter()
+        part.feed((s.etype[WINDOW:t_end], s.vertex[WINDOW:t_end],
+                   s.nbrs[WINDOW:t_end]))
+        part.sync()
+        wall = time.perf_counter() - t
+    busy = _profiled_busy(prof, wall)
+    return {"windows": SHARD_PROFILE_WINDOWS - 1, **busy,
+            "device_ops_per_window": busy["device_ops"]
+            / (SHARD_PROFILE_WINDOWS - 1)}
+
+
+def _rows_bytes(adj, ets, vs, rows, fresh) -> int:
+    """Bytes one row-block launch (the block of rows 0 .. n_loc - 1) must
+    move on this window's data: each slot's event, subject and first row
+    entry (its u) in, and the rest of the row of each fresh ADD the block
+    owns (``fresh``: the plain version's owner-masked flag) — no other
+    event row is read —; both emissions (W x D and W x 4) out; the presence
+    at the window's start of each owned vertex the window names; and each
+    row of the block that a chain walks (fresh ADDs, DEL_VERTEXes,
+    DEL_EDGEs) read once, unless a fresh ADD starts the chain (it
+    overwrites the row unread), and written once if a fresh ADD or a
+    DEL_EDGE writes it."""
+    w, d = rows.shape
+    n_loc = adj.shape[0]
+    et, v, u, fr = (x.tolist() for x in (ets, vs, rows[:, 0], fresh))
+    first, wrote, named = {}, set(), set()
+    for j in range(w):
+        if v[j] < 0:                           # a pad
+            continue
+        slots = []                             # (row, writes, a fresh ADD)
+        if et[j] == 0 and fr[j]:
+            slots.append((v[j], True, True))
+        elif et[j] == 1:
+            slots.append((v[j], False, False))
+        elif et[j] == 2 and u[j] >= 0:
+            slots.append((v[j], True, False))
+            if u[j] != v[j]:
+                slots.append((u[j], True, False))
+        for x in (v[j], u[j]):
+            if 0 <= x < n_loc:
+                named.add(x)
+        for x, writes, add in slots:
+            if x < n_loc:
+                first.setdefault(x, add)
+                if writes:
+                    wrote.add(x)
+    read = sum(not add for add in first.values())
+    return (4 * 3 * w + 4 * (d - 1) * sum(map(bool, fr)) + len(named)
+            + 4 * (w * d + 4 * w) + 4 * d * (read + len(wrote)))
+
+
+def _rows_timing(dev, st, s, t0) -> dict:
+    """The row-block form at twitter's shape: block 0 of four (n / 4 rows,
+    D = 192) against the window at ``t0``, from CUDA-graph replay; its
+    plain loop on the card; the bound."""
+    mesh = make_vertices_mesh(devices=[dev] * 4)
+    sh = shard_state(PartitionState(*(t.to(dev) for t in st)), mesh)
+    adj, present = sh.adj.blocks[0], sh.present.blocks[0]
+    sl = slice(t0, t0 + WINDOW)
+    ets, vs, rows = (torch.as_tensor(x).to(dev) for x in (
+        s.etype[sl], s.vertex[sl], normalize_rows(s.nbrs[sl], adj.shape[1])))
+    out = {"shape": [WINDOW, adj.shape[1], adj.shape[0]], "t0": t0}
+    got_adj = adj.clone()
+    got = window_prep_rows(got_adj, present, ets, vs, rows, 0)
+    want_adj = adj.to(HOST)
+    want = prepare_rows_ref(want_adj, present.to(HOST), ets.to(HOST),
+                            vs.to(HOST), rows.to(HOST), 0)
+    out["max_abs_err"] = max(
+        max_abs_diff([g.to(HOST) for g in got], want),
+        max_abs_diff([got_adj.to(HOST)], [want_adj]))
+    if out["max_abs_err"]:
+        raise AssertionError(f"window_prep_rows at {out['shape']}: kernel "
+                             "differs from the plain loop by "
+                             f"{out['max_abs_err']}")
+    c = adj.clone()
+    out["ms"] = graph_ms(lambda: window_prep_rows(c, present, ets, vs, rows,
+                                                  0), 20)
+    out["eager_ms"] = eager_ms(lambda: window_prep_rows(
+        c, present, ets, vs, rows, 0), 20)
+    out["plain_ms"] = graph_ms(lambda: prepare_rows_ref(
+        c, present, ets, vs, rows, 0), 1, replays=2)
+    out.update(_bound(_rows_bytes(adj, ets.to(HOST), vs.to(HOST),
+                                  rows.to(HOST), want.flags[:, 0]), 0))
+    return out
+
+
+def _fault_loop(dev, s, cfg, devices) -> dict:
+    """FaultTolerantLoop over FAULT_WINDOWS twitter windows of a sharded
+    state (a checkpoint a window), the middle one poisoned: one failure,
+    restored and skipped; the state equals the dense mixed windows fed
+    without it, at their own t0s."""
+    t_phase = time.perf_counter()
+    t_start = FAULT_FROM * WINDOW
+    base = Partitioner.from_stream(s, cfg, policy="sdp", seed=0,
+                                   window=WINDOW, engine="windowed",
+                                   use_kernel=True, device=dev)
+    base.feed((s.etype[:t_start], s.vertex[:t_start], s.nbrs[:t_start]))
+    base.sync()
+    start = to_host(base.state)
+    del base
+    n, width = start.adj.shape
+    windows = []
+    for i in range(FAULT_FROM, FAULT_FROM + FAULT_WINDOWS):
+        sl = slice(i * WINDOW, (i + 1) * WINDOW)
+        windows.append((i * WINDOW, *(torch.as_tensor(x).to(dev) for x in (
+            s.etype[sl], s.vertex[sl], normalize_rows(s.nbrs[sl], width)))))
+    bad = FAULT_WINDOWS // 2
+    batches = windows[:bad] + ["poison"] + windows[bad + 1:]
+    knobs = knob_tensor(cfg, n, dev)
+
+    def step_fn(state, batch):
+        if isinstance(batch, str):
+            raise RuntimeError("poisoned window")
+        t0, et, vx, nb = batch
+        return shard_session.sharded_window(
+            state, et, vx, nb, t0, n_sem=n, policy="sdp", cfg=cfg,
+            knobs=knobs), {}
+
+    ckpt_dir = os.path.join(SHARD_DIR, "fault")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mesh = make_vertices_mesh(devices=devices)
+    loop = FaultTolerantLoop(CheckpointManager(ckpt_dir, interval=1,
+                                               keep=2))
+    t = time.perf_counter()
+    got, step = loop.run(
+        shard_state(PartitionState(*(x.to(dev) for x in start)), mesh),
+        batches, step_fn)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    events = [e["event"] for e in loop.events]
+    if events != ["failure"] or step != FAULT_WINDOWS - 1:
+        raise AssertionError(f"fault loop: events {events}, step {step}")
+    want = PartitionState(*(x.to(dev) for x in start))
+    for t0, et, vx, nb in windows[:bad] + windows[bad + 1:]:
+        want = fops.run_window_mixed_fused(want, et, vx, nb, t0,
+                                           policy="sdp", cfg=cfg,
+                                           knobs=knobs)
+    assert_states_equal(unshard_state(got, n=n), want,
+                        "fault loop vs the dense windows without the "
+                        "poisoned one")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"windows": FAULT_WINDOWS, "poisoned": FAULT_FROM + bad,
+            "blocks": len(devices), "events": events, "final_step": step,
+            "loop_s": loop_s, "bit_equal": True,
+            "s": time.perf_counter() - t_phase}
+
+
+def _elastic(dev, state) -> dict:
+    """ElasticRunner: a sharded twitter state placed on 4 row blocks,
+    re-scaled to 2 and back to 4 (each re-scale a blocking checkpoint):
+    bit-equal to itself."""
+    rows = state.adj.shape[0]
+
+    def placements(mesh, tree):
+        return tree_map(lambda x: Placement(
+            mesh, "vertices" if isinstance(x, RowBlocks)
+            or (np.ndim(x) >= 1 and np.shape(x)[0] == rows) else None), tree)
+
+    ckpt_dir = os.path.join(SHARD_DIR, "elastic")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    runner = ElasticRunner(lambda devs: make_vertices_mesh(devices=devs),
+                           placements,
+                           CheckpointManager(ckpt_dir, interval=1, keep=1))
+    want = to_host(unshard_state(state))
+    t = time.perf_counter()
+    st = runner.place([dev] * 4, state, {}, step=0)
+    widths = [len(st.params.adj.blocks)]
+    for k in (2, 4):
+        st = runner.rescale(st, [dev] * k)
+        widths.append(len(st.params.adj.blocks))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    assert_states_equal(to_host(unshard_state(st.params)), want,
+                        "elastic 4 -> 2 -> 4")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"widths": widths, "bit_equal": True, "s": secs}
+
+
+def phase_shard(dev, s, twitter_host, grqc_s, grqc_cfg, grqc_host,
+                card: str) -> dict:
+    """Vertex-sharded sessions on the card (``Partitioner(sharded=True)``:
+    each window a ``window_prep_rows`` launch per row block, one
+    ``window_rng`` and one ``fused_chooser`` launch, the blocks' applies):
+    twitter at scale 1.0, unchanged, at 1, 2 and 4 row blocks on one card,
+    each equal to a dense card session (``engine="windowed"``) on the same
+    chunks and to the twitter phase's final state; grqc at 3 blocks (n does
+    not divide) against phase grqc's session; each run's middle window held
+    to the row-block plain loop; a FaultTolerantLoop with a poisoned window;
+    an ElasticRunner 4 -> 2 -> 4 round trip; twitter over several cards
+    where the machine has them."""
+    t_phase = time.perf_counter()
+    part_s = {}
+    cfg = EngineConfig(k_max=K_MAX, k_init=1, max_cap=40000, autoscale=True)
+    t = time.perf_counter()
+    dense = Partitioner.from_stream(s, cfg, policy="sdp", seed=0,
+                                    window=WINDOW, engine="windowed",
+                                    use_kernel=True, device=dev)
+    _feed_chunks(dense, s, SHARD_CHUNKS)
+    want = to_host(dense.state)
+    dense_s = time.perf_counter() - t
+    del dense
+    assert_states_equal(want, twitter_host,
+                        "twitter windowed session vs phase twitter's")
+    part_s["dense"] = dense_s
+    runs = {}
+    for p in SHARD_WIDTHS:
+        t = time.perf_counter()
+        runs[f"P{p}"] = _sharded_run(s, cfg, [dev] * p, SHARD_CHUNKS, want,
+                                     f"twitter at P = {p}")
+        runs[f"P{p}"]["profile"] = _shard_profile(s, cfg, [dev] * p)
+        part_s[f"P{p}"] = time.perf_counter() - t
+    count = torch.cuda.device_count()
+    if count > 1:
+        p = min(4, count)
+        t = time.perf_counter()
+        runs["cards"] = _sharded_run(
+            s, cfg, [torch.device("cuda", i) for i in range(p)],
+            SHARD_CHUNKS, want, f"twitter on {p} cards")
+        part_s["cards"] = time.perf_counter() - t
+    else:
+        runs["cards"] = {"skipped": f"torch.cuda.device_count() = {count}: "
+                         "no second card to place a block on"}
+    t = time.perf_counter()
+    grqc = _sharded_run(grqc_s, grqc_cfg, [dev] * GRQC_SHARDS,
+                        _grqc_chunks(grqc_s.num_events), grqc_host,
+                        f"grqc at P = {GRQC_SHARDS}")
+    part_s["grqc"] = time.perf_counter() - t
+    t = time.perf_counter()
+    timing = _rows_timing(dev, want, s, (FAULT_FROM + 8) * WINDOW)
+    part_s["rows_timing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fault = _fault_loop(dev, s, cfg, [dev] * 2)
+    part_s["fault"] = time.perf_counter() - t
+    t = time.perf_counter()
+    sharded = shard_state(PartitionState(*(x.to(dev) for x in want)),
+                          make_vertices_mesh(devices=[dev] * 4))
+    elastic = _elastic(dev, sharded)
+    del sharded
+    part_s["elastic"] = time.perf_counter() - t
+    out = {"phase": "shard", "card": card, "twitter": runs, "grqc": grqc,
+           "dense_windowed_s": dense_s, "rows_kernel": timing,
+           "fault": fault, "elastic": elastic, "part_s": part_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
 
 
 class _PlainLoops:
@@ -2866,27 +3296,21 @@ def _attn_bound(q, k, window: int, q_offset: int):
             flops, nbytes)
 
 
-class _Recorder:
-    """Wraps ``models.layers.attention`` (what every LM layer calls) and
-    keeps the arguments of the calls of layers 0 and 1 — gemma2's first
-    local and first global layer — of the latest step."""
+class _Recorder(_Hook):
+    """Keeps the arguments, as given, of the calls of
+    ``models.layers.attention`` (what every LM layer calls) of layers 0 and
+    1 — gemma2's first local and first global layer — of the latest
+    step."""
 
     def __init__(self, n_layers: int):
-        self.n_layers, self.calls, self.step = n_layers, 0, {}
-        self._orig = layers.attention
+        super().__init__(layers, "attention",
+                         lambda i: i % n_layers if i % n_layers < 2 else None,
+                         clone=False)
 
-    def __enter__(self):
-        def recording(q, k, v, **kw):
-            i = self.calls % self.n_layers
-            self.calls += 1
-            if i < 2:
-                self.step[i] = (q, k, v, kw)
-            return self._orig(q, k, v, **kw)
-        layers.attention = recording
-        return self
-
-    def __exit__(self, *exc):
-        layers.attention = self._orig
+    @property
+    def step(self) -> dict:
+        """{layer: (q, k, v, keyword arguments)}."""
+        return {i: (*a, kw) for i, (a, kw, _, _) in self.kept.items()}
 
 
 def _check_attention_at(rec: dict, what: str, chunk: int) -> dict:
@@ -3206,8 +3630,16 @@ def phase_lm(dev) -> dict:
     return out
 
 
+def _shard_launches(shard: dict, name: str) -> dict:
+    """A kernel's launches in each sharded run of phase shard."""
+    runs = {**shard["twitter"], "grqc": shard["grqc"]}
+    return {k: r["launches"][name] for k, r in runs.items()
+            if "launches" in r}
+
+
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
-                lm: dict, rebalance: dict, serve: dict, sweep: dict) -> dict:
+                lm: dict, rebalance: dict, serve: dict, sweep: dict,
+                shard: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -3253,6 +3685,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "library_ms": None,
          "launches_by_kernel": twitter["launches_by_kernel"],
          "serve": {"launches": serve["launches"]["fused_chooser"]},
+         "shard": _shard_launches(shard, "fused_chooser"),
          "policies_ms": {p: fc_timed[("session", p)]["ms"]
                          for p in ("sdp", "ldg", "random")},
          **{label: {k: fc_timed[(label, "sdp")][k]
@@ -3336,6 +3769,8 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              "replaces": replaces,
              "launches": twitter["launches"][name],
              "serve": {"launches": serve["launches"][name]},
+             **({"shard": _shard_launches(shard, name)}
+                if name == "window_rng" else {}),
              "max_abs_err": max(c["max_abs_err"] for c in cases),
              "shape": case["shape"], "cases": len(cases),
              "mismatches": sum(c["max_abs_err"] != 0 for c in cases),
@@ -3349,6 +3784,26 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              **{"_".join(o): {k: timed_cases[o][k] for k in
                               ("shape",) + timed_scan if k in timed_cases[o]}
                 for o in others}})
+    # the row-block form: launches on twitter's P = 4 run (the other runs'
+    # beside them), timed at block 0 of four at twitter's shape
+    rk = shard["rows_kernel"]
+    runs = {**shard["twitter"], "grqc": shard["grqc"]}
+    rows.append(
+        {"name": "window_prep_rows", "route": "cuda",
+         "source": "src/repro_torch/csrc/window_prep.cu",
+         "replaces": "src/repro/runtime/shard_session.py:113",
+         "form": "row-block form of window_prep (round 1 of the "
+                 "vertex-sharded window)",
+         "launches": shard["twitter"]["P4"]["launches"]["window_prep_rows"],
+         "shard": _shard_launches(shard, "window_prep_rows"),
+         "max_abs_err": max([rk["max_abs_err"]] + [
+             r["plain_check"]["max_abs_err"] for r in runs.values()
+             if "plain_check" in r]),
+         "plain_checks": {k: r["plain_check"] for k, r in runs.items()
+                          if "plain_check" in r},
+         "shape": rk["shape"], "ms": rk["ms"], "eager_ms": rk["eager_ms"],
+         "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
+         "bound_by": rk["bound_by"], "library_ms": None})
     fa_cases = kernels["flash_attention"]["cases"]
     fa_main = lm["kernel"]["prefill"]["layer1"]          # a global layer
     rows.append(
@@ -3410,18 +3865,23 @@ def main() -> int:
     kernels = phase_kernels(dev, graphs, cases)
     spmm = phase_spmm(dev, graphs)
     del graphs
-    phase_grqc(dev)
+    _, grqc_s, grqc_cfg, grqc_host = phase_grqc(dev)
     twitter, twitter_part, twitter_g, twitter_s = phase_twitter(dev)
+    # phase shard holds its sessions to this final state, which the
+    # rebalance changes
+    twitter_host = to_host(twitter_part.state)
     rebalance = phase_rebalance(dev, twitter_part)
     del twitter_part
     phase_lifecycle(dev, twitter_g, twitter_s)
     serve = phase_serve(dev, twitter_s, info["nvidia_smi"])
     sweep = phase_sweep(dev, twitter_s, cases, info["nvidia_smi"])
-    del twitter_g, twitter_s, cases
+    shard = phase_shard(dev, twitter_s, twitter_host, grqc_s, grqc_cfg,
+                        grqc_host, info["nvidia_smi"])
+    del twitter_g, twitter_s, cases, twitter_host, grqc_host
     recsys = phase_recsys(dev)
     lm = phase_lm(dev)
     emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
-                     sweep))
+                     sweep, shard))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

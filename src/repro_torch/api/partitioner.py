@@ -58,9 +58,22 @@ refuses it) and LDG's allocated-``n`` capacity knob, as in the JAX
 package.
 
 ``place(device)`` moves a live session to another device (a host
-round-trip). Vertex-sharded sessions, and with them ``reshard``, are a
-later slice of the port (ROADMAP A16): their arguments raise
-``NotImplementedError`` when set.
+round-trip).
+
+Vertex-sharded sessions
+-----------------------
+``sharded=True`` splits the O(n) state into row blocks over a vertices
+mesh (``shard_devices``: an int, a device sequence — a device may repeat —
+or None for every CUDA card; see ``repro_torch.launch.mesh``) and runs
+every slice as (padded) windows through ``runtime.shard_session``: each
+block's ``window_prep_rows``, the slot loop once on the lead device, each
+block's apply. The session stays bit-identical to a dense one: the knobs
+and checkpoints see the *semantic* geometry (what a dense session would
+allocate), the row count is padded to a multiple of the mesh. Geometry
+changes, ``rebalance()`` and ``compact()`` gather the rows to the lead
+device, work dense and re-shard; ``reshard(devices)`` moves the session to
+another mesh, and ``snapshot()`` writes the canonical dense rows, so dense
+and sharded sessions of any width restore each other's checkpoints.
 """
 from __future__ import annotations
 
@@ -79,6 +92,10 @@ from repro_torch.core.geometry import (
 from repro_torch.core.metrics import (
     load_imbalance, normalized_load_imbalance,
 )
+from repro_torch.core.sharded_state import (
+    gather_state, n_shards, per_device_state_bytes, shard_state,
+    unshard_state,
+)
 from repro_torch.core.state import (
     PartitionState, compact_state, grow_state, init_state, live_extent,
     recount_cut_matrix, resolve_device, shrink_state, state_bytes,
@@ -89,33 +106,24 @@ from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_PAD, VertexStream, normalize_rows, required_geometry_of,
 )
 from repro_torch.kernels.fused_chooser.ops import check_shape_limits
+from repro_torch.launch.mesh import resolve_vertices_mesh
 from repro_torch.rebalance import rebalance_state
 
 _ENGINES = ("auto", "scan", "windowed")
 
-# constructor arguments of later slices: name -> (default, ROADMAP item)
-_DEFERRED = {
-    "sharded": (False, "A16 (vertex-sharded sessions)"),
-    "shard_devices": (None, "A16 (vertex-sharded sessions)"),
-}
-
 
 def _check_kernel_limits(device, *, use_kernel: bool, engine: str,
                          window: int, k_max: int) -> None:
-    """A card session with ``use_kernel=True`` runs its windows through
-    kernels with shape limits (``fused_chooser.ops.check_shape_limits``):
-    check them before any window runs, so a session past one raises when it
-    is built, placed or restored — never at its first such window, after
-    earlier ones committed. No fallback: the plain engines on the card are
-    not a substitute. The CPU's plain versions have no limit."""
+    """A card session with ``use_kernel=True`` (and every sharded card
+    session) runs its windows through kernels with shape limits
+    (``fused_chooser.ops.check_shape_limits``): check them before any
+    window runs, so a session past one raises when it is built, placed,
+    re-sharded or restored — never at its first such window, after earlier
+    ones committed. No fallback: the plain engines on the card are not a
+    substitute. The CPU's plain versions have no limit."""
     dev = torch.device("cuda" if device is None else device)
     if use_kernel and engine != "scan" and dev.type == "cuda":
         check_shape_limits(window, k_max)
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch session yet — ROADMAP {item}")
 
 
 class PreparedChunk(NamedTuple):
@@ -167,9 +175,12 @@ class Partitioner:
         ratio or the normalized imbalance has risen more than this since
         the last pass (the baseline re-bases after every pass and rides
         checkpoint extras).
-
-    ``sharded`` / ``shard_devices`` belong to a later slice and raise
-    ``NotImplementedError`` at any value but their default.
+      sharded: split the O(n) state into row blocks over a vertices mesh
+        (module docstring); windows only, launching the kernels on card
+        blocks and running their plain versions on CPU ones.
+      shard_devices: the mesh of a sharded session — None (every CUDA
+        card, or ``[device]`` when ``device`` is given), an int (the first
+        N cards) or a device sequence (entries may repeat).
     """
 
     def __init__(self, cfg: EngineConfig | None = None, *,
@@ -182,14 +193,8 @@ class Partitioner:
                  rebalance_m: int = 32, rebalance_passes: int = 0,
                  rebalance_slack: float = 0.25,
                  rebalance_drift: float | None = None,
-                 device=None, **later):
-        for name, value in later.items():
-            if name not in _DEFERRED:
-                raise TypeError(f"Partitioner() got an unexpected keyword "
-                                f"argument {name!r}")
-            default, item = _DEFERRED[name]
-            if value != default:
-                _later(f"{name}={value!r}", item)
+                 sharded: bool = False, shard_devices=None,
+                 device=None):
         cfg = cfg or EngineConfig()
         if policy not in POLICIES:
             raise ValueError(
@@ -214,6 +219,19 @@ class Partitioner:
                 "collect_trace=True needs the per-event loop (the window "
                 "engines do not produce traces) — use engine='scan' or "
                 "'auto'")
+        if sharded:
+            if use_kernel:
+                raise ValueError(
+                    "sharded=True launches its kernels by the device of its "
+                    "row blocks (the CUDA kernels on a card, their plain "
+                    "versions on the CPU) — use_kernel does not apply to "
+                    "it; drop use_kernel")
+            if collect_trace or engine == "scan":
+                raise ValueError(
+                    "sharded=True processes every slice as (padded) "
+                    "windows on the vertices mesh — the per-event loop "
+                    "(engine='scan' / collect_trace=True) has no sharded "
+                    "counterpart")
         if shrink_every <= 0:
             raise ValueError(
                 f"shrink_every={shrink_every} must be > 0: it is the "
@@ -245,8 +263,13 @@ class Partitioner:
                     "rebalance_drift with rebalance_m=0 and "
                     "rebalance_passes=0 would fire empty passes — give "
                     "it a migration budget and/or LPA iterations")
-        _check_kernel_limits(device, use_kernel=use_kernel, engine=engine,
-                             window=window, k_max=cfg.k_max)
+        self._sharded = bool(sharded)
+        self._mesh = None
+        if self._sharded:
+            self._mesh = resolve_vertices_mesh(shard_devices, device)
+            device = self._mesh.lead
+        _check_kernel_limits(device, use_kernel=use_kernel or self._sharded,
+                             engine=engine, window=window, k_max=cfg.k_max)
         self.cfg = cfg
         self.policy = policy
         self.engine = engine
@@ -280,9 +303,13 @@ class Partitioner:
         self._fallback_windows = 0
         self._add_windows = 0
         self._mixed_windows = 0
-        self._state = init_state(int(n or 1), int(max_deg or 1), cfg.k_max,
-                                 cfg.k_init, seed, device=self.device)
-        self._knobs = knob_tensor(cfg, self.n, self.device)
+        # the semantic geometry: what a dense session would allocate — what
+        # the knobs (LDG capacity) and checkpoints see; a sharded session's
+        # row count is this, padded to a multiple of the mesh
+        self._sem_geom: Geometry | None = None
+        self._set_state(init_state(int(n or 1), int(max_deg or 1),
+                                   cfg.k_max, cfg.k_init, seed,
+                                   device=self.device))
         self._regeometries = 0
         self._shrinks = 0
         self._compactions = 0
@@ -356,10 +383,22 @@ class Partitioner:
         """Global index of the next event (== events ingested so far)."""
         return self._cursor
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the state lives in row blocks over a vertices mesh."""
+        return self._sharded
+
+    @property
+    def mesh(self):
+        """The vertices mesh of a sharded session (None when dense)."""
+        return self._mesh
+
     def __repr__(self) -> str:
         return (f"Partitioner(policy={self.policy!r}, engine={self.engine!r},"
                 f" n={self.n}, max_deg={self.max_deg}, events={self._cursor},"
-                f" device={self.device})")
+                f" device={self.device}"
+                + (f", shards={n_shards(self._mesh)})" if self._sharded
+                   else ")"))
 
     # -- geometry -----------------------------------------------------------
 
@@ -367,11 +406,25 @@ class Partitioner:
                 max_deg: int | None = None) -> "Partitioner":
         """Explicitly pre-size the session geometry (exact, no tier
         rounding); never shrinks."""
-        cur = geometry_of(self._state)
+        cur = self._sem_geometry()
         target = cur.union(Geometry(int(n or 1), int(max_deg or 1)))
         if target != cur:
             self._grow(cur, target)
         return self
+
+    def _sem_geometry(self) -> Geometry:
+        """The session's semantic geometry: what a dense session would
+        allocate. A sharded session's rows are this, padded to a multiple
+        of the mesh."""
+        return self._sem_geom if self._sharded else geometry_of(self._state)
+
+    def _dense(self) -> PartitionState:
+        """The state in the dense layout on the session's device: a sharded
+        session's rows gathered at the semantic n (a new state; the
+        session's own is unchanged), a dense session's state itself."""
+        if self._sharded:
+            return unshard_state(self._state, n=self._sem_geom.n)
+        return self._state
 
     def _record_geometry(self, kind: str, before: Geometry,
                          after: Geometry) -> None:
@@ -380,19 +433,28 @@ class Partitioner:
              "to": after})
 
     def _set_state(self, state: PartitionState) -> None:
-        """Adopt a state of another geometry (the LDG knob reads ``n``)."""
-        self._state = state
-        self._knobs = knob_tensor(self.cfg, self.n, self.device)
+        """Adopt a dense state of another geometry (the LDG knob reads the
+        semantic ``n``); a sharded session places it on its mesh, rows
+        padded to a multiple of the shard count."""
+        if self._sharded:
+            self._sem_geom = geometry_of(state)
+            self._state = shard_state(state, self._mesh)
+        else:
+            self._state = state
+        self._knobs = knob_tensor(self.cfg, self._sem_geometry().n,
+                                  self.device)
 
     def _grow(self, cur: Geometry, target: Geometry) -> None:
-        self._set_state(grow_state(self._state, target))
+        self._set_state(grow_state(self._dense(), target))
         self._regeometries += 1
         self._record_geometry("grow", cur, target)
 
     def _ensure_geometry(self, required: Geometry) -> None:
         """Grow along power-of-two tiers until the state covers
-        ``required`` — the feed-time auto-grow (a semantics no-op)."""
-        cur = geometry_of(self._state)
+        ``required`` — the feed-time auto-grow (a semantics no-op). The tier
+        trigger compares the semantic geometry, so a sharded session grows
+        at exactly the cursors its dense twin would."""
+        cur = self._sem_geometry()
         if not cur.covers(required):
             self._grow(cur, grow_tier(cur, required))
 
@@ -401,13 +463,15 @@ class Partitioner:
         (``shrink_state``) when the live slots fit below ``target.n``, else
         the relabelling re-pack (``compact_state``), folding its
         permutation into the id maps. Callers guarantee that ``target``
-        covers the packed extent."""
-        cur = geometry_of(self._state)
+        covers the packed extent. A sharded session repacks its gathered
+        dense rows and re-shards."""
+        cur = self._sem_geometry()
         if target == cur:
             return
-        _, prefix = live_extent(self._state)
+        dense = self._dense()
+        _, prefix = live_extent(dense)
         if prefix.n <= target.n and prefix.max_deg <= target.max_deg:
-            self._set_state(shrink_state(self._state, target))
+            self._set_state(shrink_state(dense, target))
         else:
             if self.policy == "hash":
                 raise ValueError(
@@ -416,7 +480,7 @@ class Partitioner:
                     "decision — only id-preserving shrinks are legal "
                     "(shrink_to a geometry the current slot ids fit, or "
                     "accept the current tier)")
-            state, perm = compact_state(self._state, target)
+            state, perm = compact_state(dense, target)
             self._set_state(state)
             self._apply_perm(perm)
         self._regeometries += 1
@@ -448,8 +512,8 @@ class Partitioner:
         and keeps the external-id map, so ``feed`` and ``to_internal`` go
         on speaking original ids. Counters are untouched. Reads the device
         (ordered on the current stream after every enqueued feed)."""
-        cur = geometry_of(self._state)
-        packed, _ = live_extent(self._state)
+        cur = self._sem_geometry()
+        packed, _ = live_extent(self._dense())
         target = Geometry(min(next_pow2(packed.n), cur.n),
                           min(next_pow2(packed.max_deg), cur.max_deg),
                           cur.k_max)
@@ -465,7 +529,7 @@ class Partitioner:
         Truncates when the live slot ids fit, else re-packs (relabelling,
         see ``compact``). Raises if the live content cannot fit even
         packed, or if a dimension would grow."""
-        cur = geometry_of(self._state)
+        cur = self._sem_geometry()
         target = Geometry(int(n if n is not None else cur.n),
                           int(max_deg if max_deg is not None
                               else cur.max_deg), cur.k_max)
@@ -474,7 +538,7 @@ class Partitioner:
                 f"shrink_to target (n={target.n}, max_deg={target.max_deg})"
                 f" exceeds the current geometry (n={cur.n}, "
                 f"max_deg={cur.max_deg}) — growing is grow_to's job")
-        packed, _ = live_extent(self._state)
+        packed, _ = live_extent(self._dense())
         if not Geometry(target.n, target.max_deg).covers(
                 Geometry(packed.n, packed.max_deg)):
             raise ValueError(
@@ -491,11 +555,15 @@ class Partitioner:
         it) and re-pack if any dimension qualifies. Returns True iff the
         geometry changed. A one-scalar device read (the present count)
         gates the scan of the live content."""
-        cur = geometry_of(self._state)
-        n_present = int(self._state.present.sum())
+        cur = self._sem_geometry()
+        if self._sharded:
+            n_present = int(sum(b.sum().to(self.device)
+                                for b in self._state.present.blocks))
+        else:
+            n_present = int(self._state.present.sum())
         if (n_present + 1) * 2 * hysteresis > cur.n:
             return False
-        packed, _ = live_extent(self._state)
+        packed, _ = live_extent(self._dense())
         target = shrink_tier(cur, packed, hysteresis=hysteresis)
         if target == cur:
             return False
@@ -510,7 +578,13 @@ class Partitioner:
         to the device moves or is remade: the state's tensors (the RNG key
         among them), ``device``, the knobs tensor and any collected traces.
         Syncs. Returns ``self``. A kernel session moving onto the card
-        checks the kernels' shape limits first."""
+        checks the kernels' shape limits first. A sharded session moves with
+        ``reshard`` instead (this raises)."""
+        if self._sharded:
+            raise ValueError(
+                "this session is vertex-sharded across a device mesh — "
+                "single-device place() does not apply; use "
+                "reshard(devices=...) to move it onto a different mesh")
         _check_kernel_limits(device, use_kernel=self.use_kernel,
                              engine=self.engine, window=self.window,
                              k_max=int(self._state.edge_load.shape[0]))
@@ -521,6 +595,30 @@ class Partitioner:
         self._set_state(PartitionState(*(t.to(dev) for t in host)))
         self._traces = [EventTrace(*(x.to(dev) for x in tr))
                         for tr in self._traces]
+        return self
+
+    def reshard(self, devices=None) -> "Partitioner":
+        """Move a ``sharded=True`` session onto another vertices mesh
+        (``devices``: an int, a device sequence, or None for every CUDA
+        card) — the sharded re-mesh after a device-count change: gather the
+        canonical dense rows, build the mesh, re-pad the rows to the new
+        shard count and re-place. Placement is not semantics, so the
+        session goes on bit-identically. A card mesh checks the kernels'
+        shape limits first. Syncs. Returns ``self``."""
+        if not self._sharded:
+            raise ValueError(
+                "reshard() applies to sharded=True sessions only — a "
+                "dense session moves with place(device)")
+        mesh = resolve_vertices_mesh(devices)
+        _check_kernel_limits(mesh.lead, use_kernel=True, engine=self.engine,
+                             window=self.window,
+                             k_max=int(self._state.edge_load.shape[0]))
+        self.sync()
+        dense = unshard_state(self._state, n=self._sem_geom.n,
+                              device=mesh.lead)
+        self._mesh = mesh
+        self.device = mesh.lead
+        self._set_state(dense)
         return self
 
     # -- external ids -------------------------------------------------------
@@ -641,7 +739,8 @@ class Partitioner:
                 self._feed_scan(et_d[t:], vx[t:], nb[t:])
             else:
                 end = min(t + self.window, T)
-                if end - t < self.window and self.engine == "auto":
+                if end - t < self.window and self.engine == "auto" \
+                        and not self._sharded:
                     # small tail: the per-event loop beats padding a
                     # nearly-empty window through the window engines
                     end = T
@@ -680,15 +779,24 @@ class Partitioner:
     def _feed_window(self, et_host, et, vx, nb):
         """One (possibly right-padded) window. Pad slots are no-ops that
         occupy RNG indices past the true events; the cursor advances by
-        the true count only."""
-        if self.use_kernel:
+        the true count only. A sharded session takes every window through
+        ``shard_session.sharded_window`` (the mixed path, as the JAX
+        package's)."""
+        if self.use_kernel or (self._sharded and self.device.type == "cuda"):
             self._kernel_windows += 1
         else:
             self._fallback_windows += 1
         w = self.window
         vs_w = wnd._pad_to(vx, w, -1)
         rows_w = wnd._pad_to(nb, w, -1)
-        if np.all(et_host == EVENT_ADD):
+        if self._sharded:
+            from repro_torch.runtime.shard_session import sharded_window
+            self._mixed_windows += 1
+            self._state = sharded_window(
+                self._state, wnd._pad_to(et, w, EVENT_PAD), vs_w, rows_w,
+                self._cursor, n_sem=self._sem_geom.n, policy=self.policy,
+                cfg=self.cfg, knobs=self._knobs)
+        elif np.all(et_host == EVENT_ADD):
             self._add_windows += 1
             self._state = self._adds_fn(
                 self._state, vs_w, rows_w, self._cursor, policy=self.policy,
@@ -701,9 +809,12 @@ class Partitioner:
                 knobs=self._knobs)
 
     def sync(self) -> "Partitioner":
-        """Block until every enqueued feed has executed on the device."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Block until every enqueued feed has executed on the device (on
+        every card of a sharded session's mesh)."""
+        devices = set(self._mesh.devices) if self._sharded else {self.device}
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
     # -- rebalancing --------------------------------------------------------
@@ -742,7 +853,10 @@ class Partitioner:
         (``repro_torch.rebalance``); defaults from the constructor. Never
         touches ``state.key`` or the cursor; with ``m=0`` and ``passes=0``
         the state is not touched at all. Returns the recorded event (also
-        appended to ``rebalance_events``). Reads the device."""
+        appended to ``rebalance_events``). Reads the device. A sharded
+        session rebalances its gathered dense rows on the lead device, the
+        histograms on ``partition_affinity`` there when it is a card, and
+        re-shards."""
         m = self.rebalance_m if m is None else int(m)
         passes = self.rebalance_passes if passes is None else int(passes)
         slack = self.rebalance_slack if slack is None else float(slack)
@@ -751,11 +865,16 @@ class Partitioner:
         load0 = self._state.edge_load.cpu().numpy()
         act0 = self._state.active.cpu().numpy()
         dev = self.device
-        self._state, stats = rebalance_state(
-            self._state, self._cursor,
+        state, stats = rebalance_state(
+            self._dense(), self._cursor,
             torch.tensor(slack, dtype=torch.float32, device=dev),
             torch.tensor(self.cfg.max_cap, dtype=torch.float32, device=dev),
-            True, m=min(m, self.n), passes=passes, use_kernel=self.use_kernel)
+            True, m=min(m, self._sem_geometry().n), passes=passes,
+            use_kernel=self.use_kernel or self._sharded)
+        if self._sharded:
+            self._set_state(state)
+        else:
+            self._state = state
         ev = {"cursor": self._cursor, "m": m, "passes": passes,
               "moved": int(stats.moved),
               "cut_before": int(stats.cut_before),
@@ -798,6 +917,11 @@ class Partitioner:
         m["rebalances"] = self._rebalances
         m["rebalance_moves"] = self._rebalance_moves
         m["rebalance_drift_fires"] = self._drift_fires
+        # vertex sharding: how many row blocks carry the session, and the
+        # peak resident bytes of one mesh entry (its blocks, and the lead
+        # entry's unsplit leaves too; state_bytes on a dense session)
+        m["shard_devices"] = n_shards(self._mesh) if self._sharded else 1
+        m["per_device_state_bytes"] = per_device_state_bytes(self._state)
         return m
 
     def trace(self) -> EventTrace:
@@ -845,8 +969,13 @@ class Partitioner:
                                                   np.int64)
         if self._drift_base is not None:
             extras["drift_base"] = np.asarray(self._drift_base, np.float64)
-        mgr.save_now(self._cursor, self._state, blocking=blocking,
-                     geometry=geometry_of(self._state),
+        tree, geom = self._state, geometry_of(self._state)
+        if self._sharded:
+            # the canonical dense rows at the semantic geometry, so dense
+            # and sharded sessions of any width restore each other's
+            tree, geom = gather_state(self._state, n=self._sem_geom.n), \
+                self._sem_geom
+        mgr.save_now(self._cursor, tree, blocking=blocking, geometry=geom,
                      extras=extras or None)
         return self._cursor
 
@@ -872,7 +1001,9 @@ class Partitioner:
         policy and engine knobs the session ran with (they are not
         stored). Traces are not checkpointed. The session is built first,
         so its knobs (the kernels' shape limits among them) are checked
-        before the checkpoint is read."""
+        before the checkpoint is read. ``sharded=True`` restores into row
+        blocks on the session's mesh, whichever layout and width wrote
+        the checkpoint."""
         cfg = cfg or EngineConfig()
         # the session starts tier-minimal: its placeholder state is
         # replaced below
@@ -933,7 +1064,7 @@ class Partitioner:
         if "drift_base" in ext:
             base = np.asarray(ext["drift_base"])
             part._drift_base = (float(base[0]), float(base[1]))
-        part._record_geometry("restore", ck, geometry_of(part._state))
+        part._record_geometry("restore", ck, part._sem_geometry())
         want_n = int(n) if n is not None and n < target.n else None
         want_d = int(max_deg) if max_deg is not None \
             and max_deg < target.max_deg else None

@@ -75,6 +75,7 @@ import torch
 from repro_torch.api.partitioner import Partitioner, PreparedChunk
 from repro_torch.core.geometry import Geometry
 from repro_torch.graph.stream import normalize_rows
+from repro_torch.launch.mesh import RowBlocks
 
 _POLICIES = ("block", "drop")
 _STOP = object()
@@ -519,7 +520,12 @@ class PartitionService:
         self._raise_pending()
         done = None
         with self._lock, self._on_stream():
-            out = build(self._part.state)
+            state = self._part.state
+            if isinstance(state.assignment, RowBlocks):
+                # a vertex-sharded session: the labels gathered on the
+                # lead device, stream-ordered like the gather itself
+                state = state._replace(assignment=state.assignment.gather())
+            out = build(state)
             if self._stream is not None:
                 host = torch.empty(out.shape, dtype=out.dtype,
                                    pin_memory=True)

@@ -14,7 +14,8 @@ card with ``.kernel()`` the kernels' shape limits too
 to ``run_stream`` on that lane's stream. The lanes live on ``device``
 (``None``: the CUDA card, raising without one; ``"cpu"``: the plain
 versions). ``sharded()`` keeps JAX's surface and runs the same one-card
-path; ``sharded_vertices()`` is ROADMAP A16 and raises.
+path; ``sharded_vertices()`` runs each lane as one vertex-sharded session
+over a mesh of row blocks (``runtime.shard_session``).
 """
 from __future__ import annotations
 
@@ -45,6 +46,8 @@ class Sweep:
         self._shard: bool | None = None
         self._use_kernel = False
         self._rebalance: dict | None = None
+        self._shard_vertices = False
+        self._shard_devices = None
 
     # -- lanes --------------------------------------------------------------
 
@@ -117,13 +120,20 @@ class Sweep:
         self._shard = bool(shard)
         return self
 
-    def sharded_vertices(self, shard: bool = True) -> "Sweep":
-        """Vertex-sharded lanes are not ported yet: raises (ROADMAP A16)
-        unless ``shard`` is False."""
-        if shard:
-            raise NotImplementedError(
-                "sharded_vertices() (vertex-sharded sweep lanes) is not "
-                "ported to the PyTorch sweep yet — ROADMAP A16")
+    def sharded_vertices(self, shard: bool = True, *,
+                         devices=None) -> "Sweep":
+        """Shard each lane's vertex axis instead of the lane axis: lanes
+        run one after another, each as one vertex-sharded session over the
+        mesh (``runtime.shard_session``) — the big-graph regime, where one
+        lane's (n, max_deg) state does not fit a device. ``devices`` is the
+        mesh: None (``[device]`` of a sweep that names its device, else
+        every CUDA card), an int or a device sequence (entries may repeat).
+        Windowed engine only; bit-identical per lane to ``run_stream``.
+        Mutually exclusive with ``.sharded()``: to get both at once, build
+        a 2-D mesh with ``repro_torch.launch.mesh.make_grid_mesh`` and run
+        lane groups as separate sweeps."""
+        self._shard_vertices = bool(shard)
+        self._shard_devices = devices
         return self
 
     # -- execution ----------------------------------------------------------
@@ -138,6 +148,37 @@ class Sweep:
                 "lax.scan over windows — its window IS the chunk. Drop "
                 ".chunked() (or the chunk= argument) or use the scan "
                 "engine.")
+        if self._shard_vertices:
+            if self._shard:
+                raise ValueError(
+                    "sharded() and sharded_vertices() are mutually "
+                    "exclusive: lane-parallel lanes each claim a device "
+                    "while vertex-parallel lanes each claim the WHOLE "
+                    "mesh — combining them would silently oversubscribe "
+                    "the device pool. Run lane groups as separate sweeps, "
+                    "or build an explicit 2-D lanes×vertices mesh with "
+                    "repro_torch.launch.mesh.make_grid_mesh and drive the "
+                    "session runtime directly.")
+            if self._engine != "windowed":
+                raise ValueError(
+                    "sharded_vertices() requires the windowed engine: the "
+                    "vertex-sharded runtime processes streams as windows "
+                    "with two int32 sums per window (the per-event loop "
+                    "has no sharded counterpart) — chain .windowed() "
+                    "before .sharded_vertices()")
+            if self._use_kernel:
+                raise ValueError(
+                    "sharded_vertices() cannot run the kernel lanes: a "
+                    "vertex-sharded lane launches its kernels by the device "
+                    "of its row blocks, one session at a time — drop "
+                    ".kernel()")
+            if self._rebalance is not None:
+                raise ValueError(
+                    "sharded_vertices() does not interleave rebalance "
+                    "passes (the rebalance cadence is a lane-parallel "
+                    "program) — drop .rebalance(), or use a "
+                    "Partitioner(sharded=True) session with "
+                    "auto_rebalance/rebalance_drift")
         if self._use_kernel and self._engine != "windowed":
             raise ValueError(
                 "kernel() requires the windowed engine: the fused Pallas "
@@ -201,6 +242,11 @@ class Sweep:
         dev = torch.device("cuda" if self._device is None else self._device)
         if self._use_kernel and dev.type == "cuda":
             check_shape_limits(self._window, cfg0.k_max)
+        if self._shard_vertices:
+            from repro_torch.launch.mesh import resolve_vertices_mesh
+            mesh = resolve_vertices_mesh(self._shard_devices, self._device)
+            if mesh.lead.type == "cuda":
+                check_shape_limits(self._window, cfg0.k_max)
 
     def run(self) -> list[SweepResult]:
         """Validate and execute; lane results in lane order, each
@@ -212,4 +258,5 @@ class Sweep:
             self._stream, self._runs, chunk=self._chunk,
             engine=self._engine, window=self._window, shard=self._shard,
             use_kernel=self._use_kernel, rebalance=self._rebalance,
-            device=self._device)
+            shard_vertices=self._shard_vertices,
+            shard_devices=self._shard_devices, device=self._device)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack
+from repro_torch.launch.mesh import RowBlocks, place_tree, split_rows
 
 # numpy dtypes of the torch dtypes a state holds (torch.uint32 included)
 _NP = {torch.bool: np.bool_, torch.int8: np.int8, torch.uint8: np.uint8,
@@ -116,14 +117,17 @@ def _read_meta(path: str) -> dict:
         return msgpack.unpackb(f.read())
 
 
-def restore_pytree(path: str, like, *, fill_missing: bool = False,
-                   device=None):
+def restore_pytree(path: str, like, *, shardings=None,
+                   fill_missing: bool = False, device=None):
     """Restore into the structure of ``like``: each leaf takes ``like``'s
-    dtype and lands on ``device`` (default: the device of ``like``'s
-    leaf). ``fill_missing=True`` aligns leaves by their saved keys instead
-    of requiring the same leaf count: leaves of ``like`` absent from the
-    checkpoint keep ``like``'s value — how a state that gained trailing
-    fields (``cut_matrix``) restores from an older checkpoint."""
+    dtype and lands on ``device`` (default: where ``like``'s leaf lives —
+    a ``RowBlocks`` leaf restores into blocks on the same devices), or,
+    given ``shardings`` (a matching tree of ``launch.mesh.Placement``s),
+    where its placement says — the elastic re-shard. ``fill_missing=True``
+    aligns leaves by their saved keys instead of requiring the same leaf
+    count: leaves of ``like`` absent from the checkpoint keep ``like``'s
+    value — how a state that gained trailing fields (``cut_matrix``)
+    restores from an older checkpoint."""
     meta = _read_meta(path)
     with np.load(path) as data:
         vals = [data[f"a{i}"] for i in range(len(meta["keys"]))]
@@ -139,13 +143,19 @@ def restore_pytree(path: str, like, *, fill_missing: bool = False,
         vals = [saved.get(k, to_numpy(lv)) for k, lv in pairs]
     out = []
     for v, lv in zip(vals, flat_like):
-        if isinstance(lv, torch.Tensor):
+        if isinstance(lv, (torch.Tensor, RowBlocks)):
             t = torch.from_numpy(np.array(v, dtype=_NP[lv.dtype],
                                           order="C"))
-            out.append(t.to(lv.device if device is None else device))
+            if shardings is not None:
+                out.append(t)
+            elif isinstance(lv, RowBlocks) and device is None:
+                out.append(split_rows(t, lv.devices))
+            else:
+                out.append(t.to(lv.device if device is None else device))
         else:
             out.append(np.asarray(v).astype(np.asarray(lv).dtype))
-    return _rebuild(like, iter(out))
+    tree = _rebuild(like, iter(out))
+    return tree if shardings is None else place_tree(tree, shardings)
 
 
 def checkpoint_extras(path: str) -> dict[str, np.ndarray]:

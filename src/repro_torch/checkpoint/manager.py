@@ -187,13 +187,15 @@ class CheckpointManager:
             return {}
         return checkpoint_extras(self._path(step))
 
-    def restore(self, like, *, step: int | None = None,
+    def restore(self, like, *, step: int | None = None, shardings=None,
                 fill_missing: bool = False, device=None):
         """``(tree, step)`` of the checkpoint at ``step`` (default: latest),
-        or ``(None, None)`` when there is none; see ``restore_pytree``."""
+        or ``(None, None)`` when there is none; ``shardings`` (a tree of
+        ``launch.mesh.Placement``s matching ``like``) places each leaf for
+        an elastic re-shard. See ``restore_pytree``."""
         step = step if step is not None else self.latest()
         if step is None:
             return None, None
-        return restore_pytree(self._path(step), like,
+        return restore_pytree(self._path(step), like, shardings=shardings,
                               fill_missing=fill_missing,
                               device=device), step

@@ -8,7 +8,10 @@
 //
 // Ports no Pallas kernel: in the JAX package this is a lax.scan inside the
 // jitted window program (src/repro/kernels/fused_chooser/ops.py:113,
-// _prepare_window).
+// _prepare_window). Its row-block form (window_prep_rows_kernel, at the
+// end) is round 1 of the vertex-sharded window, the shard-local scan of
+// src/repro/runtime/shard_session.py:113-157: the same tables and chains,
+// over one block of rows, writing the owner-masked emissions the mesh sums.
 //
 // The serial scan carries three things from slot to slot: presence,
 // last_touch and the adjacency. The first two follow from the window's
@@ -58,14 +61,15 @@
 // is written twice, and none is read by another block, so the blocks need
 // no order among themselves.
 //
-// Bound: bytes. It must read the events, each slot's row (W D ints), the
-// adjacency rows the chains own and the gathered labels, and write the
-// tables (2 W D ints), the scalar rows and the two (n,) arrays: ~0.6 MB at
-// the twitter session's (256, 192) and n = 81,306, ~0.2 us of HBM time. An
-// estimate, not measured: one block's critical path is the event loads and
-// the shared tables (~2,000 cycles), one round of row loads and one of label
-// gathers (~1,000), and the chains (a global round per fresh ADD and
-// DEL_VERTEX on them): ~4,000 cycles, ~2 us at 1.98 GHz, past a launch.
+// Bound: bytes. It must read the events, each slot's u and each ADD's row,
+// the adjacency rows the chains own and the gathered labels, and write the
+// tables (2 W D ints), the scalar rows and the two (n,) arrays
+// (chip_smoke.py's _prep_bytes counts a window's; PERF.md has the twitter
+// session's). An estimate of the time, not measured: one block's critical
+// path is the event loads and the shared tables (~2,000 cycles), one round
+// of row loads and one of label gathers (~1,000), and the chains (a global
+// round per fresh ADD and DEL_VERTEX on them): ~4,000 cycles, ~2 us at
+// 1.98 GHz, past a launch.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -108,7 +112,7 @@ struct Window {
   __device__ unsigned hash(int x) const {
     return (static_cast<unsigned>(x) * 2654435769u) >> (32 - hbits);
   }
-  __device__ int insert(int x) {
+  __device__ int insert(int x) const {
     const unsigned mask = (1u << hbits) - 1u;
     for (unsigned h = hash(x);; h = (h + 1u) & mask) {
       const int prev = atomicCAS(&key[h], -1, x);
@@ -153,16 +157,22 @@ __device__ __forceinline__ int committed(const int* __restrict__ assign,
 }
 
 // Row x's chain, walked by the block that owns it (its first chain slot is
-// the block's slot i).
+// the block's slot i); the row is row ri of adj (x itself in the dense
+// form, x - lo in the row-block form). A DEL_VERTEX slot scores
+// its current row: the dense form writes the row's committed labels and
+// touch indices (src_lbl, touch), the row-block form (kRows) the row itself,
+// +2, into rows_dv (src_lbl's place; touch unused).
+template <bool kRows>
 __device__ void walk_chain(const Window& win, int x, int i, int d,
+                           int* __restrict__ adj, int ri,
                            const int* __restrict__ rows,
                            const int* __restrict__ assign,
                            const unsigned char* __restrict__ present0,
-                           int* __restrict__ adj, int* __restrict__ src_lbl,
+                           int* __restrict__ src_lbl,
                            int* __restrict__ touch) {
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
   const int steps = win.cnt[win.find(x)] / kChainOne;
-  int* row_x = adj + static_cast<size_t>(x) * d;
+  int* row_x = adj + static_cast<size_t>(ri) * d;
   for (int c0 = 0; c0 < d; c0 += nt * kCols) {
     int row[kCols];
 #pragma unroll
@@ -193,8 +203,12 @@ __device__ void walk_chain(const Window& win, int x, int i, int d,
             const int c = c0 + tid + k * nt;
             if (c >= d) continue;
             const int r = row[k];
-            src_lbl[off + c] = r >= 0 ? committed(assign, present0, r) : -1;
-            touch[off + c] = r >= 0 ? win.touch_before(r, s) : -1;
+            if (kRows) {
+              src_lbl[off + c] = r + 2;
+            } else {
+              src_lbl[off + c] = r >= 0 ? committed(assign, present0, r) : -1;
+              touch[off + c] = r >= 0 ? win.touch_before(r, s) : -1;
+            }
           }
         } else if (win.v[s] == x) {            // DEL_EDGE, write 1 (u >= 0)
           const int us = win.u[s];
@@ -227,15 +241,9 @@ __device__ void walk_chain(const Window& win, int x, int i, int d,
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
-window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in,
-                   const int* __restrict__ rows, const int* __restrict__ assign,
-                   const unsigned char* __restrict__ present0,
-                   int* __restrict__ adj, int* __restrict__ label0,
-                   int* __restrict__ last_touch, int* __restrict__ ev,
-                   int* __restrict__ src_lbl, int* __restrict__ touch, int w,
-                   int d, int n, int hbits) {
-  extern __shared__ int smem[];
+// The window's tables in shared memory, the same in every block: five (w,)
+// slot arrays, then the hash table.
+__device__ Window window_layout(int* smem, int w, int hbits) {
   const int hsize = 1 << hbits;
   Window win;
   win.w = w;
@@ -250,22 +258,19 @@ window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in
   win.last = win.first + hsize;
   win.cnt = win.last + hsize;
   win.head = win.cnt + hsize;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int i = blockIdx.x;                    // this block's slot
+  return win;
+}
 
-  // the events, and the committed presence of each slot's two vertices
-  for (int j = tid; j < w; j += nt) {
-    const int vj = __ldg(vs_in + j);
-    const int uj = __ldg(rows + static_cast<size_t>(j) * d);
-    const int sv = vj >= 0 ? vj : 0, su = uj >= 0 ? uj : 0;
-    win.et[j] = vj >= 0 ? __ldg(ets_in + j) : kEventPad;
-    win.v[j] = sv;
-    win.u[j] = uj;
-    win.fl[j] = (__ldg(present0 + sv) ? F_PV : 0)
-        | (__ldg(present0 + su) ? F_PU : 0);
-    win.hit[j] = 0;
-  }
-  for (int h = tid; h < hsize; h += nt) {
+// The rest of the tables, built by every block from the event list once
+// each thread has loaded its slots' et, v, u, fl (the subjects' presence at
+// the window's start, F_PV and F_PU) and hit (0) — each kernel loads them
+// itself: routing the dense form's presence reads through a shared loader
+// cost it 8 / 36 bytes more spills and 0.5-1.6 % of its time (PERF.md, PR
+// 22). Builds the hash table of touches and row chains, and each slot's F_*
+// flags.
+__device__ void build_tables(const Window& win) {
+  const int tid = threadIdx.x, nt = blockDim.x, w = win.w;
+  for (int h = tid; h < (1 << win.hbits); h += nt) {
     win.key[h] = -1;
     win.first[h] = INT_MAX;
     win.last[h] = -1;
@@ -317,6 +322,34 @@ window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in
         | (cv ? F_CV : 0) | (cu ? F_CU : 0);
   }
   __syncthreads();
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in,
+                   const int* __restrict__ rows, const int* __restrict__ assign,
+                   const unsigned char* __restrict__ present0,
+                   int* __restrict__ adj, int* __restrict__ label0,
+                   int* __restrict__ last_touch, int* __restrict__ ev,
+                   int* __restrict__ src_lbl, int* __restrict__ touch, int w,
+                   int d, int n, int hbits) {
+  extern __shared__ int smem[];
+  const Window win = window_layout(smem, w, hbits);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i = blockIdx.x;                    // this block's slot
+
+  // the events, and the committed presence of each slot's two vertices
+  for (int j = tid; j < w; j += nt) {
+    const int vj = __ldg(vs_in + j);
+    const int uj = __ldg(rows + static_cast<size_t>(j) * d);
+    const int sv = vj >= 0 ? vj : 0, su = uj >= 0 ? uj : 0;
+    win.et[j] = vj >= 0 ? __ldg(ets_in + j) : kEventPad;
+    win.v[j] = sv;
+    win.u[j] = uj;
+    win.fl[j] = (__ldg(present0 + sv) ? F_PV : 0)
+        | (__ldg(present0 + su) ? F_PU : 0);
+    win.hit[j] = 0;
+  }
+  build_tables(win);
 
   const int e = win.et[i], vi = win.v[i], ui = win.u[i];
   const int su = ui >= 0 ? ui : 0;
@@ -352,9 +385,11 @@ window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in
     }
   }
   if ((f & F_CV) && win.head[win.find(vi)] == i)
-    walk_chain(win, vi, i, d, rows, assign, present0, adj, src_lbl, touch);
+    walk_chain<false>(win, vi, i, d, adj, vi, rows, assign, present0, src_lbl,
+                      touch);
   if ((f & F_CU) && win.head[win.find(ui)] == i)
-    walk_chain(win, ui, i, d, rows, assign, present0, adj, src_lbl, touch);
+    walk_chain<false>(win, ui, i, d, adj, ui, rows, assign, present0, src_lbl,
+                      touch);
 
   // the (n,) outputs, over the grid
   for (int x = blockIdx.x * nt + tid; x < n; x += gridDim.x * nt) {
@@ -368,6 +403,78 @@ window_prep_kernel(const int* __restrict__ ets_in, const int* __restrict__ vs_in
     if (hit & 2)
       ev[static_cast<size_t>(j) * EV_COLS + EV_EXISTS] =
           (hit & 1) && (win.fl[j] & F_PV) && (win.fl[j] & F_PU);
+  }
+}
+
+// The row-block form: one block of a vertex-sharded state — rows [lo, lo +
+// n_loc) of the adjacency and presence — against the whole window. The same
+// tables as the dense form; a block walks only the chains of rows it owns
+// (so the adjacency writes of other rows are dropped) and writes, for each
+// slot, the owner-masked emissions the mesh sums: the deleted vertex's row
+// +2 (rows_dv, 0 unless this block owns it) and flags (w, 4) = [fresh, was,
+// the DEL_EDGE's half at row v (present and in_adj), u present], each 0
+// unless this block owns the vertex it reads. A row's state at a slot is its
+// chain's state there, so a DEL_VERTEX's row and a DEL_EDGE's in_adj come
+// from the walk, as in the dense form. Bound: bytes — each slot's event,
+// subject and u in, and the rows of the fresh ADDs the block owns; the
+// emissions (W D + 4 W ints) out; the block's chain rows read and written
+// (chip_smoke.py's _rows_bytes counts a window's). Its critical path is the
+// dense form's (the shared tables, then the chains).
+__global__ void __launch_bounds__(kMaxThreads)
+window_prep_rows_kernel(const int* __restrict__ ets_in,
+                        const int* __restrict__ vs_in,
+                        const int* __restrict__ rows,
+                        const unsigned char* __restrict__ present_blk,
+                        int* __restrict__ adj_blk, int* __restrict__ rows_dv,
+                        int* __restrict__ flags, int w, int d, int lo,
+                        int n_loc, int hbits) {
+  extern __shared__ int smem[];
+  const auto owned = [&](int x) { return x >= lo && x - lo < n_loc; };
+  const Window win = window_layout(smem, w, hbits);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int i = blockIdx.x;                    // this block's slot
+
+  // the events, and the presence at the window's start of each slot's two
+  // vertices: false for a row another block of the mesh owns
+  for (int j = tid; j < w; j += nt) {
+    const int vj = __ldg(vs_in + j);
+    const int uj = __ldg(rows + static_cast<size_t>(j) * d);
+    const int sv = vj >= 0 ? vj : 0, su = uj >= 0 ? uj : 0;
+    win.et[j] = vj >= 0 ? __ldg(ets_in + j) : kEventPad;
+    win.v[j] = sv;
+    win.u[j] = uj;
+    win.fl[j] = (owned(sv) && __ldg(present_blk + (sv - lo)) ? F_PV : 0)
+        | (owned(su) && __ldg(present_blk + (su - lo)) ? F_PU : 0);
+    win.hit[j] = 0;
+  }
+  build_tables(win);
+
+  const int e = win.et[i], vi = win.v[i], ui = win.u[i];
+  const int f = win.fl[i];
+  const bool ov = owned(vi), ou = owned(ui >= 0 ? ui : 0);
+  if (tid == 0) {
+    int* r = flags + static_cast<size_t>(i) * 4;
+    r[0] = ov && (f & F_FRESH);
+    r[1] = ov && e == kEventDelVertex && (f & F_PV);
+    // the v half of a DEL_EDGE waits for in_adj, from the owner of row v
+    if (!(ov && (f & F_CV) && e == kEventDelEdge)) r[2] = 0;
+    r[3] = ou && (f & F_PU);
+  }
+  if (!(ov && e == kEventDelVertex)) {         // the row's owner writes it
+    const size_t off = static_cast<size_t>(i) * d;
+    for (int c = tid; c < d; c += nt) rows_dv[off + c] = 0;
+  }
+  if ((f & F_CV) && ov && win.head[win.find(vi)] == i)
+    walk_chain<true>(win, vi, i, d, adj_blk, vi - lo, rows, nullptr, nullptr,
+                     rows_dv, nullptr);
+  if ((f & F_CU) && owned(ui) && win.head[win.find(ui)] == i)
+    walk_chain<true>(win, ui, i, d, adj_blk, ui - lo, rows, nullptr, nullptr,
+                     rows_dv, nullptr);
+  __syncthreads();                             // the chains' in_adj ORs
+  for (int j = tid; j < w; j += nt) {
+    const int hit = win.hit[j];
+    if (hit & 2)
+      flags[static_cast<size_t>(j) * 4 + 2] = (hit & 1) && (win.fl[j] & F_PV);
   }
 }
 
@@ -421,5 +528,30 @@ extern "C" int window_prep_launch(const int* ets, const int* vs,
   window_prep_kernel<<<w, threads_for(d), smem, stream>>>(
       ets, vs, rows, assign, present0, adj, label0, last_touch, ev, src_lbl,
       touch, w, d, n, hash_bits(w));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One block of a vertex-sharded state against one mixed window: ets, vs (w,),
+// rows (w, d), present_blk (n_loc,) in; adj_blk (n_loc, d), rows lo ..
+// lo + n_loc - 1 of the adjacency, updated in place; rows_dv (w, d) and
+// flags (w, 4) out.
+extern "C" int window_prep_rows_launch(const int* ets, const int* vs,
+                                       const int* rows,
+                                       const unsigned char* present_blk,
+                                       int* adj_blk, int* rows_dv, int* flags,
+                                       int w, int d, int lo, int n_loc,
+                                       cudaStream_t stream) {
+  if (w <= 0 || d <= 0 || n_loc <= 0 || lo < 0 || smem_bytes(w) > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(w);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_prep_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  window_prep_rows_kernel<<<w, threads_for(d), smem, stream>>>(
+      ets, vs, rows, present_blk, adj_blk, rows_dv, flags, w, d, lo, n_loc,
+      hash_bits(w));
   return static_cast<int>(cudaGetLastError());
 }

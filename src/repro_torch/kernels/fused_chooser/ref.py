@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the mixed window's kernels: the prep scan
-(``prepare_window_ref``, a Python loop over the slots) and the fused
+(``prepare_window_ref``, a Python loop over the slots; its row-block form
+``prepare_rows_ref`` for vertex-sharded states) and the fused
 window chooser (the slot step ``fused_chooser.make_slot_step`` driven by a
 Python loop; its sweep form ``fused_window_choose_lanes_ref``, that loop
 once per lane); and CPU models of how their CUDA kernels split the work, for
@@ -99,6 +100,72 @@ def prepare_window_ref(state: PartitionState, ets, vs, rows) -> WindowPrep:
         tx._write(adj, safe_u, de_i,
                   torch.where((row_u == v) & (u >= 0), -1, row_u))
     return WindowPrep(ev, src_lbl, touch, label0, last_touch, adj)
+
+
+class RowPrep(NamedTuple):
+    """One row block's emissions of a mixed window (``prepare_rows_ref``),
+    each 0 unless the block owns the vertex it reads; summed over the
+    blocks they are the whole state's."""
+    rows_dv: torch.Tensor     # (W, D) a DEL_VERTEX's row at its slot, +2
+    flags: torch.Tensor       # (W, 4) fresh, was, exists' v half, u present
+
+
+def prepare_rows_ref(adj, present, ets, vs, rows, lo: int) -> RowPrep:
+    """The row-block prep loop: rows ``lo`` .. ``lo + n_loc - 1`` of a
+    vertex-sharded state (``adj`` (n_loc, D), ``present`` (n_loc,))
+    against a whole window, op for op the shard-local scan of
+    ``src/repro/runtime/shard_session.py:117-149``. The block applies the
+    faithful adjacency and presence writes to its own rows (writes to
+    other rows are dropped; the self-loop order of the two DEL_EDGE writes
+    kept) and emits, owner-masked, the deleted vertex's row +2, ``fresh``,
+    ``was`` and the two DEL_EDGE halves (``exists`` is their product).
+    ``adj`` is updated in place; ``present`` is not written."""
+    n_loc = adj.shape[0]
+    w, d = rows.shape
+    dev = vs.device
+    ets = torch.where(vs >= 0, ets, EVENT_PAD)
+    is_add = ets == EVENT_ADD
+    is_dv = ets == EVENT_DEL_VERTEX
+    is_de = ets == EVENT_DEL_EDGE
+    safe_vs = torch.where(vs >= 0, vs, 0)
+    present = present.clone()
+    rows_dv = torch.empty((w, d), dtype=_I32, device=dev)
+    flags = torch.empty((w, 4), dtype=_I32, device=dev)
+
+    def owned(g):
+        return (g >= lo) & (g < lo + n_loc)
+
+    def loc(g):                      # clamped local index
+        return torch.clamp(g - lo, 0, n_loc - 1)
+
+    for i in range(w):
+        v = safe_vs[i]
+        row = rows[i]
+        add_i, dv_i, de_i = is_add[i], is_dv[i], is_de[i]
+        lv = loc(v)
+        own_row = tx._take(adj, lv)
+        u = row[0]
+        safe_u = torch.clamp(u, min=0)
+        lu = loc(safe_u)
+        o_v, o_u = owned(v), owned(safe_u)
+
+        pv = tx._take(present, lv)
+        fresh = add_i & ~pv
+        was = dv_i & pv
+        in_adj = (own_row == u).any() & (u >= 0)
+        rows_dv[i] = torch.where(dv_i & o_v, own_row + 2, 0)
+        flags[i] = torch.stack([
+            fresh & o_v, was & o_v, de_i & pv & in_adj & o_v,
+            tx._take(present, lu) & o_u]).to(_I32)
+
+        tx._write(present, lv, (add_i | dv_i) & o_v, add_i)
+        row_v_de = torch.where((own_row == u) & (u >= 0), -1, own_row)
+        w1_val = torch.where(add_i, row, torch.where(de_i, row_v_de, own_row))
+        tx._write(adj, lv, (fresh | de_i) & o_v, w1_val)
+        row_u = tx._take(adj, lu)    # after write 1 (self-loops)
+        tx._write(adj, lu, de_i & o_u,
+                  torch.where((row_u == v) & (u >= 0), -1, row_u))
+    return RowPrep(rows_dv, flags)
 
 
 def prepare_window_chains(state: PartitionState, ets, vs, rows

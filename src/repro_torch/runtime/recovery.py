@@ -29,10 +29,10 @@ in-place feed cannot tear a snapshot.
 
 Device loss with the process alive is ``remesh(device)``: the live
 session moves to a surviving device through ``Partitioner.place`` (a host
-round-trip). Re-sharding a vertex-sharded session belongs to a later
-slice of the port (ROADMAP A16). If the process died, ``recover`` rebuilds
-on whatever device the fresh process names (``device=`` among its
-keywords; ``None`` is the card).
+round-trip); a vertex-sharded session rebuilds its mesh over the
+surviving devices through ``Partitioner.reshard``. If the process died,
+``recover`` rebuilds on whatever device the fresh process names
+(``device=`` among its keywords; ``None`` is the card).
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from repro_torch.api.partitioner import Partitioner, PreparedChunk, _later
+from repro_torch.api.partitioner import Partitioner, PreparedChunk
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.geometry import Geometry
 
@@ -274,20 +274,24 @@ class RecoverableSession:
         return self.part.rebalance(m=m, passes=passes, slack=slack)
 
     def remesh(self, device=None, *, devices=None) -> "RecoverableSession":
-        """Move the live session onto ``device`` after a (simulated) device
-        loss with the process alive (``Partitioner.place``, a host
-        round-trip — bit-preserving); if the process died too, use
-        :meth:`recover`. ``devices=`` (re-sharding a vertex-sharded session
-        across the survivors) belongs to a later slice and raises."""
-        if devices is not None:
-            _later(f"remesh(devices={devices!r})",
-                   "A16 (vertex-sharded sessions: reshard and the sharded "
-                   "remesh)")
-        if device is None:
-            raise ValueError(
-                "remesh() of a single-device session needs the target "
-                "device (devices= is the vertex-sharded form)")
-        self.part.place(device)
+        """Re-mesh after a (simulated) device loss with the process alive —
+        bit-preserving either way; if the process died too, use
+        :meth:`recover`. A single-device session moves onto ``device``
+        (``Partitioner.place``, a host round-trip); a vertex-sharded
+        session rebuilds its mesh over ``devices`` (or ``[device]``, or
+        every CUDA card when neither is given) through
+        ``Partitioner.reshard`` — the gather / re-pad round trip, so the
+        mesh may change width."""
+        if self.part.sharded:
+            if devices is None and device is not None:
+                devices = [device]
+            self.part.reshard(devices)
+        else:
+            if device is None:
+                raise ValueError(
+                    "remesh() of a single-device session needs the target "
+                    "device (devices= is the vertex-sharded form)")
+            self.part.place(device)
         return self
 
     # -- snapshots ----------------------------------------------------------

@@ -26,9 +26,11 @@ capacity knob reads ``n``).
 
 One card holds every lane: ``shard`` is accepted and runs the same
 one-device path (JAX's one-device mesh, zero lane padding); lanes over
-several cards are ROADMAP A23. ``shard_vertices`` (vertex-sharded lanes)
-is ROADMAP A16 and ``cut_fn`` (fig12's scale-in baseline) A22; both
-raise.
+several cards are ROADMAP A23. ``shard_vertices`` runs the lanes one after
+another, each a vertex-sharded session over the whole mesh
+(``runtime.shard_session.run_stream_sharded``) at its own stream's
+geometry. ``cut_fn`` (fig12's scale-in baseline) is ROADMAP A22 and
+raises.
 """
 from __future__ import annotations
 
@@ -173,6 +175,7 @@ def _execute_sweep(
     use_kernel: bool = False,
     rebalance: dict | None = None,
     shard_vertices: bool = False,
+    shard_devices=None,
     device=None,
 ) -> list[SweepResult]:
     """Executor behind ``repro_torch.api.Sweep`` (and the deprecated
@@ -194,19 +197,30 @@ def _execute_sweep(
       ``Sweep.rebalance()`` — after every full ``every`` processed events,
       ``lane_rebalance`` over the lanes (per-lane ``max_cap``, shared
       slack, lanes outside ``lanes`` gated off).
+    shard_vertices: run each lane as one vertex-sharded session over the
+      mesh of ``shard_devices`` (windowed engine; lanes in turn, each at
+      its own stream's geometry, bit-identical to ``run_stream``).
+    shard_devices: that mesh — None (``[device]`` when ``device`` is
+      given, else every CUDA card), an int (the first N cards) or a device
+      sequence (entries may repeat).
     device: where the lanes live; ``None`` is the CUDA card (raises
       without one), ``"cpu"`` runs the plain versions.
     """
     runs = [r if isinstance(r, SweepRun) else SweepRun(*r) for r in runs]
     if not runs:
         return []
-    if shard_vertices:
-        raise NotImplementedError(
-            "shard_vertices=True (vertex-sharded sweep lanes) is not ported "
-            "to the PyTorch sweep yet — ROADMAP A16")
-    dev = resolve_device(device)
     shared = not isinstance(stream, (list, tuple))
     streams = [stream] * len(runs) if shared else list(stream)
+    if shard_vertices:
+        from repro_torch.launch.mesh import resolve_vertices_mesh
+        from repro_torch.runtime.shard_session import run_stream_sharded
+        mesh = resolve_vertices_mesh(shard_devices, device)
+        return [SweepResult(r.policy, r.cfg, r.seed,
+                            run_stream_sharded(s, policy=r.policy, cfg=r.cfg,
+                                               seed=r.seed, window=window,
+                                               mesh=mesh), None)
+                for r, s in zip(runs, streams)]
+    dev = resolve_device(device)
     cfg0 = runs[0].cfg
     autoscale_mode = (
         "dynamic"
@@ -318,6 +332,8 @@ def run_sweep(
     engine: str = "scan",
     window: int = 256,
     shard: bool | None = None,
+    shard_vertices: bool = False,
+    shard_devices=None,
     device=None,
 ) -> list[SweepResult]:
     """Deprecated batch entry — use the fluent ``Sweep``::
@@ -327,7 +343,8 @@ def run_sweep(
 
     This shim makes the equivalent ``Sweep`` (so its lane
     validation applies — e.g. ``engine="windowed"`` with ``chunk``
-    raises) and runs it on ``device``."""
+    raises) and runs it on ``device``; ``shard_vertices`` is
+    ``.sharded_vertices(devices=shard_devices)``."""
     warnings.warn(
         "run_sweep is deprecated: use repro_torch.api.Sweep — e.g. "
         "Sweep(stream).lanes(runs).windowed().sharded().run()",
@@ -343,4 +360,6 @@ def run_sweep(
         sw.chunked(chunk)
     if shard is not None:
         sw.sharded(shard)
+    if shard_vertices:
+        sw.sharded_vertices(devices=shard_devices)
     return sw.run()

@@ -49,8 +49,11 @@ from repro_torch.kernels.fused_chooser import sweep as fsweep
 from repro_torch.kernels.fused_chooser.sweep import WINDOW_SETUPS
 from repro_torch.kernels.fused_chooser.ref import prepare_window_ref
 from repro_torch.kernels.fused_chooser.window_prep import (
-    prep_max_w, window_prep,
+    prep_max_w, window_prep, window_prep_rows,
 )
+from repro_torch.kernels.fused_chooser.ref import prepare_rows_ref
+from repro_torch.core.sharded_state import shard_state, unshard_state
+from repro_torch.launch.mesh import make_vertices_mesh
 from repro_torch.kernels.partition_affinity.ops import scores_for_state
 from repro_torch.kernels.window_rng.ops import window_rng
 from repro_torch.kernels.window_rng.ref import window_rng_ref
@@ -673,6 +676,72 @@ def test_window_prep_limit_matches_the_build(cuda):
     with pytest.raises(ValueError, match="up to 2048 slots"):
         window_prep(state, ets, ets, rows)
     assert window_prep.launches == before
+
+
+def _row_window(cuda, setup, w, window):
+    state, _, (et, vx, nb) = _setup(cuda, setup)
+    warm = WINDOW_SETUPS[setup][7]
+    if window == "stream":
+        sl = slice(warm, warm + w)
+        return state, (et[sl], vx[sl], nb[sl])
+    if window.startswith("chain"):
+        return state, fsweep.chain_window(state, w, int(window[5:]))
+    return state, fsweep.crafted_window(state, w, int(window[7:]))
+
+
+@pytest.mark.parametrize("window", ["stream", "crafted0", "crafted3",
+                                    "chain1"])
+@pytest.mark.parametrize("blocks", [1, 3, 4])
+@pytest.mark.parametrize("w", [64, 256])
+@pytest.mark.parametrize("setup", ["session", "grqc_wide"])
+def test_window_prep_rows_kernel_matches_plain(cuda, setup, w, blocks,
+                                               window):
+    """The row-block form on every block of a P-block state (D = 192 and
+    2,843): its emissions and the block's adjacency after it equal the
+    plain loop's, block by block; presence is never written."""
+    state, (ets, vs, rows) = _row_window(cuda, setup, w, window)
+    sharded = shard_state(state, make_vertices_mesh(devices=[cuda] * blocks))
+    n_loc = sharded.adj.blocks[0].shape[0]
+    for b, (adj, prs) in enumerate(zip(sharded.adj.blocks,
+                                       sharded.present.blocks)):
+        got_adj, want_adj, prs0 = adj.clone(), adj.clone(), prs.clone()
+        before = window_prep_rows.launches
+        got = window_prep_rows(got_adj, prs, ets, vs, rows, b * n_loc)
+        assert window_prep_rows.launches == before + 1
+        want = prepare_rows_ref(want_adj, prs, ets, vs, rows, b * n_loc)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (f, b)
+        assert torch.equal(got_adj, want_adj), b
+        assert torch.equal(prs, prs0)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 4])
+def test_sharded_session_on_card_matches_dense(cuda, blocks):
+    """A sharded card session (P blocks on one card) equals the dense card
+    session with the kernels on a churn stream (a last partial window
+    too), and launched the row-block prep P times a window and the chooser
+    and RNG once."""
+    g = cap_degree(load_dataset("twitter", scale=0.03), 192)
+    s = interleaved_churn(g, **fsweep.CHURN)
+    t = s.num_events - 100
+    chunk = (s.etype[:t], s.vertex[:t], s.nbrs[:t])
+    cfg = EngineConfig(k_max=16, k_init=1, max_cap=400, autoscale=True)
+    dense = Partitioner(cfg, n=s.n, max_deg=192, engine="windowed",
+                        use_kernel=True, device=cuda).feed(chunk)
+    before = (window_prep_rows.launches, fk.fused_window_choose.launches,
+              window_rng.launches)
+    part = Partitioner(cfg, n=s.n, max_deg=192, sharded=True,
+                       shard_devices=[cuda] * blocks).feed(chunk)
+    part.sync()
+    windows = part.metrics()["mixed_windows"]
+    assert windows == -(-t // 256) == part.metrics()["kernel_windows"]
+    assert (window_prep_rows.launches - before[0],
+            fk.fused_window_choose.launches - before[1],
+            window_rng.launches - before[2]) == (blocks * windows, windows,
+                                                 windows)
+    got = unshard_state(part.state, n=s.n)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(dense.state, f)), f
 
 
 def _assert_add_matches(n, args, policy, autos):

@@ -11,7 +11,6 @@ from repro.core import EngineConfig as JCfg
 from repro.core import run_stream as jrun
 from repro.graph import stream as jstream
 from repro_torch.api import Partitioner
-from repro_torch.api.partitioner import _DEFERRED
 from repro_torch.core import engine as teng
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.state import state_from_numpy
@@ -130,27 +129,35 @@ def test_jax_state_carried_across_mid_stream():
     assert_same(whole, st)
 
 
-# the constructor arguments the port once deferred; all but the sharding
-# pair are ported now
+# the constructor arguments the port once deferred; all are ported now
 _ONCE_DEFERRED = ("auto_rebalance", "auto_shrink", "rebalance_drift",
                   "rebalance_every", "rebalance_m", "rebalance_passes",
                   "rebalance_slack", "shard_devices", "sharded",
                   "shrink_every")
 
 
+# named when these arguments raised; the name is kept, what it checks is
+# that each is accepted and kept as the JAX session keeps it
 @pytest.mark.parametrize("name", _ONCE_DEFERRED)
 def test_deferred_arguments_raise(name):
-    """An argument of a later slice raises at any value but its default; one
-    this port has taken in is accepted and kept as the JAX session keeps
-    it."""
-    if name in _DEFERRED:
-        default, item = _DEFERRED[name]
-        value = {bool: True, int: 7, float: 0.5}.get(type(default), 0.5)
-        if name == "shard_devices":
-            value = 2
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Partitioner(EngineConfig(), device="cpu", **{name: value})
-        Partitioner(EngineConfig(), device="cpu", **{name: default})
+    """No argument of the JAX session raises any more: each the port once
+    deferred is accepted and kept as the JAX session keeps it. The sharding
+    pair: ``sharded=True`` on the session's device is a one-block mesh, as
+    the JAX session on its one CPU device is; ``shard_devices`` without it
+    is ignored by both."""
+    if name == "sharded":
+        part = Partitioner(EngineConfig(), device="cpu", sharded=True)
+        jp = JPartitioner(JCfg(), sharded=True)
+        assert part.sharded and jp._sharded
+        assert part.metrics()["shard_devices"] \
+            == jp.metrics()["shard_devices"] == 1
+        return
+    if name == "shard_devices":
+        part = Partitioner(EngineConfig(), device="cpu", shard_devices=2)
+        jp = JPartitioner(JCfg(), shard_devices=2)
+        assert part.mesh is None and jp._mesh is None
+        assert part.metrics()["shard_devices"] \
+            == jp.metrics()["shard_devices"] == 1
         return
     value = {"auto_rebalance": True, "auto_shrink": True,
              "rebalance_drift": 0.5, "rebalance_slack": 0.5}.get(name, 7)

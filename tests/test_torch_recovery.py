@@ -443,13 +443,35 @@ def test_place_moves_everything_and_continues_like_jax():
     assert_same(jp.trace(), tp.trace())
 
 
+# named when remesh(devices=) raised; the name is kept, what it checks is
+# that the sharded remesh goes on equal to JAX's run
 def test_remesh_devices_is_a_later_slice(tmp_path):
-    _, s_t = _streams()
-    sess = RecoverableSession(_tp(s_t), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A16"):
-        sess.remesh(devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A16"):
-        sess.remesh("cpu", devices=["cpu", "cpu"])
+    """``devices=`` is the vertex-sharded form (ported since): a dense
+    session still needs its target device, and ignores ``devices`` beside
+    it, as the JAX session does; a sharded one re-meshes over ``devices``
+    (or ``[device]``) and goes on equal to JAX's uninterrupted run."""
+    s_j, s_t = _streams()
+    sess = RecoverableSession(_tp(s_t), str(tmp_path / "dense"))
+    jsess = JRS(JP.from_stream(s_j, JCfg(**CFG), seed=0, window=32),
+                str(tmp_path / "jax"))
+    for s in (sess, jsess):
+        with pytest.raises(ValueError, match="needs the target device"):
+            s.remesh(devices=["cpu"])
+    sess.remesh("cpu", devices=["cpu", "cpu"])
+    assert sess.part.device == torch.device("cpu")
+    half = s_t.num_events // 2
+    sharded = RecoverableSession(
+        _tp(s_t, sharded=True, shard_devices=["cpu"] * 3),
+        str(tmp_path / "sharded"))
+    sharded.feed(_span(s_t, 0, half))
+    sharded.remesh(devices=["cpu"] * 2)
+    assert sharded.part.metrics()["shard_devices"] == 2
+    sharded.remesh("cpu")
+    assert sharded.part.metrics()["shard_devices"] == 1
+    sharded.feed(_span(s_t, half, None))
+    want, _ = jrun(s_j, cfg=JCfg(**CFG), seed=0)
+    from repro_torch.core.sharded_state import unshard_state
+    assert_same(want, unshard_state(sharded.part.state, n=s_t.n))
 
 
 # ---------------------------------------------------------------------------

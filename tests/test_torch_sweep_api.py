@@ -11,12 +11,14 @@ import pytest
 
 from repro.api import Sweep as JSweep
 from repro.core import EngineConfig as JCfg
+from repro.core import run_stream as jrun
 from repro.runtime.sweep import run_sweep as jrun_sweep
 from repro_torch.api import Sweep
 from repro_torch.core import transition as tx
 from repro_torch.core.config import EngineConfig, POLICIES
 from repro_torch.runtime import run_sweep
 
+from test_torch_engine import assert_same
 from test_torch_sweep import _assert_lanes, _pair, _runs
 
 
@@ -96,9 +98,14 @@ def test_validation_messages_equal_jax():
 
 
 def test_later_options_raise_naming_their_roadmap_items():
-    _, s_t = _pair("build_stream", ("mesh", 40, 100, 8), seed=9)
-    with pytest.raises(NotImplementedError, match="A16"):
-        Sweep(s_t, device="cpu").lane("sdp").windowed().sharded_vertices()
+    """``cut_fn`` (A22) still raises; ``sharded_vertices()`` (A16) is
+    ported: one vertex-sharded session a lane, equal to JAX's
+    ``run_stream``."""
+    s_j, s_t = _pair("build_stream", ("mesh", 40, 100, 8), seed=9)
+    (got,) = (Sweep(s_t, device="cpu").lane("sdp").windowed(32)
+              .sharded_vertices(devices=["cpu"] * 3).run())
+    want, _ = jrun(s_j, cfg=JCfg(), seed=0)
+    assert_same(want, got.state)
     Sweep(s_t, device="cpu").sharded_vertices(False)
     kn = tx.make_knobs(EngineConfig(), 10, "cpu")
     with pytest.raises(NotImplementedError, match="A22"):
