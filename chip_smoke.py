@@ -43,6 +43,11 @@ poisoned and an ``ElasticRunner`` 4 -> 2 -> 4 round trip (phase
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
+trains it at full width (phase ``train``: ``launch.train``'s ``--full``
+config, f32 with 4,194,304 rows a table, batches of 16,384, through
+``FaultTolerantLoop``; every bag's backward on the
+``embedding_bag_backward`` kernel, the first step's table gradients held
+bit for bit to the plain backward on the host; the trainer CLI resumed),
 aggregates twitter's ELL adjacency through ``ell_aggregate`` with the
 ``segment_spmm`` kernel on the path, and serves gemma2-9b at its full
 width and depth (bf16, 18.48 GB of params, an 11.32 GB KV cache) through
@@ -98,7 +103,10 @@ from repro_torch.graph.stream import (  # noqa: E402
 )
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_backward_ref, embedding_bag_ref,
+)
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
@@ -118,6 +126,12 @@ from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref  # noqa: E402
 from repro_torch.kernels.window_rng import ops as rops  # noqa: E402
 from repro_torch.kernels.window_rng.ref import window_rng_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as trainer  # noqa: E402
+from repro_torch.data import pipeline as dp  # noqa: E402
+from repro_torch.optim.optimizers import (  # noqa: E402
+    adamw, apply_updates, linear_warmup_cosine, tree_leaves, tree_map,
+)
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -222,6 +236,23 @@ SHARD_CHUNKS = (30_001, 77_777)
 FAULT_FROM, FAULT_WINDOWS = 200, 16
 SHARD_PROFILE_WINDOWS = 32
 SHARD_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_shard")
+# phase train: the two-tower trainer at full width (launch.train's --full
+# config: every width of CONFIG, f32, 4,194,304 rows a table) on batches of
+# 16,384 (configs/shapes.py's train_batch of 65,536 makes 17.2 GB of
+# in-batch logits); 10 steps on fresh batches through FaultTolerantLoop,
+# then steps split by CUDA events, profiled steps and 10 steps on one fixed
+# batch; the trainer CLI at the smoke config (3 steps, resumed to 6)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_FIXED_STEPS = 16_384, 10, 10
+TRAIN_SPLIT_STEPS, TRAIN_PROFILE_STEPS = 3, 3
+TRAIN_LR = 3e-4                    # launch.train's --lr default
+TRAIN_CLI_STEPS, TRAIN_CLI_BATCH, TRAIN_CLI_SEED = (3, 6), 256, 2
+TRAIN_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_train")
+# backward cases beyond the training step's own (V, D, B, L, kind): V = 1,
+# a ragged width, long bags, half the bags all padding, hot rows (long runs
+# of one row), one id a bag
+BWD_CASES = ((1, 16, 40, 3, "random"), (7, 130, 300, 37, "random"),
+             (300, 5, 45, 2000, "padded"), (50, 256, 4096, 8, "hot"),
+             (1000, 24, 512, 9, "dup"))
 
 
 _T0 = time.perf_counter()
@@ -1003,6 +1034,7 @@ _WRAPPERS = {"partition_affinity": pa.partition_affinity,
              "window_rng": rops.window_rng,
              "add_window_choose": fk.add_window_choose,
              "embedding_bag": eb.embedding_bag,
+             "embedding_bag_backward": eb.embedding_bag_backward,
              "flash_attention": fa.flash_attention,
              "segment_spmm": ss.segment_spmm}
 SESSION_KERNELS = ("partition_affinity", "fused_chooser", "window_prep",
@@ -3161,6 +3193,341 @@ def phase_recsys(dev) -> dict:
     return out
 
 
+def _same_bits(a, b) -> bool:
+    """Equal as bit patterns (+0.0 and -0.0 told apart)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def _plain_backward_on_host(g, idx, v: int, mode: str) -> torch.Tensor:
+    return on_host(lambda *a, **kw: (embedding_bag_backward_ref(*a, **kw),),
+                   g, idx, v, mode=mode)[0]
+
+
+def _check_backward(g, idx, v: int, mode: str, got, what: str) -> dict:
+    """``got`` (the kernel's table gradient for cotangent ``g`` over bags
+    ``idx``) bit-equal to the plain backward on host copies, and a second
+    launch (uncounted: ``backward_launch`` on a fresh order and zero
+    table) bit-equal to it."""
+    want = _plain_backward_on_host(g, idx, v, mode)
+    same = _same_bits(got, want)
+    err = 0.0 if same else float((got - want).abs().max())
+    del want
+    keys, counts = eb.backward_order(idx, v)
+    again = torch.zeros_like(got)
+    eb.backward_launch(g, keys, counts, again, idx.shape[1], mode == "mean")
+    torch.cuda.synchronize()
+    same_again = _same_bits(again, got)
+    del again, keys, counts
+    if not same or not same_again:
+        raise AssertionError(f"embedding_bag_backward {what}: bit-equal to "
+                             f"the plain backward on the host: {same} (max "
+                             f"abs {err}); to a second launch: {same_again}")
+    return {"shape": [v, g.shape[1], idx.shape[0], idx.shape[1]],
+            "mode": mode, "max_abs_err": err, "bit_equal_to_host": True,
+            "two_launches_equal": same_again,
+            "padding_slots": int((idx < 0).sum())}
+
+
+def _bwd_inputs(dev, v, d, b, l, kind, seed):
+    """(idx, g): ids in [-1, V) (``padded``: half the bags all -1; ``hot``:
+    ids from 3 rows; ``dup``: one id a bag), a bag gradient spread over
+    e^±9 with -0.0 entries."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(-1, v, (b, l), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if kind == "padded":
+        idx[::2] = -1
+    elif kind == "hot":
+        idx = torch.randint(0, min(v, 3), (b, l), generator=gen, device=dev,
+                            dtype=torch.int32)
+    elif kind == "dup":
+        idx[:] = idx[:, :1].clamp(min=0)
+    idx[0, 0] = -1
+    g = torch.randn((b, d), generator=gen, device=dev) * torch.exp(
+        torch.rand((b, 1), generator=gen, device=dev) * 18 - 9)
+    g[torch.rand((b, d), generator=gen, device=dev) < 0.05] = -0.0
+    return idx, g
+
+
+def _time_backward(g, idx, v: int, mode: str) -> dict:
+    """The backward kernel alone (its walk over a built order into a
+    zeroed table), the order's preparation (``backward_order``: the int64
+    keys' sort and the counts), the zero fill, the whole wrapper, the plain
+    version and ``index_add_`` of the slot gradients into a zero table
+    (the library call), at the training step's bags; and the bounds."""
+    torch.cuda.empty_cache()
+    b, l = idx.shape
+    d = g.shape[1]
+    keys, counts = eb.backward_order(idx, v)
+    out = torch.zeros((v, d), dtype=torch.float32, device=g.device)
+    mean = mode == "mean"
+    ms = eager_ms(lambda: eb.backward_launch(g, keys, counts, out, l, mean),
+                  20)
+    order_ms = eager_ms(lambda: eb.backward_order(idx, v), 20)
+    zero_ms = eager_ms(out.zero_, 20)
+    function_ms = eager_ms(
+        lambda: eb.embedding_bag_backward(g, idx, v, mode=mode), 10)
+    valid = idx >= 0
+    gs = g / torch.clamp(counts, min=1)[:, None].float() if mean else g
+    slots = torch.where(valid[..., None], gs[:, None, :].expand(b, l, d),
+                        0.0).reshape(-1, d)
+    safe = torch.where(valid, idx, 0).reshape(-1).to(torch.int64)
+    library_ms = eager_ms(lambda: out.index_add_(0, safe, slots), 20)
+    del slots, safe, gs
+    plain_ms = eager_ms(
+        lambda: embedding_bag_backward_ref(g, idx, v, mode=mode), 2)
+    touched = torch.unique(idx[valid]).numel()
+    kernel_bytes = (g.numel() * 4 + keys.numel() * 8
+                    + (counts.numel() * 4 if mean else 0) + touched * d * 4)
+    fn_bytes = g.numel() * 4 + idx.numel() * 4 + v * d * 4
+    del out, keys, counts
+    torch.cuda.empty_cache()
+    return {"shape": [v, d, b, l], "mode": mode, "touched_rows": touched,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "Tensor.index_add_ of the (B*L, D) slot gradients "
+                       "into a zero table (atomics, no fixed order)",
+            "bound_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "kernel_bytes": kernel_bytes,
+            "order_ms": order_ms, "zero_ms": zero_ms,
+            "function_ms": function_ms,
+            "function_bound_ms": fn_bytes / HBM_BYTES_PER_S * 1e3,
+            "function_bytes": fn_bytes,
+            "gb_per_s": kernel_bytes / (ms * 1e-3) / 1e9}
+
+
+def _split_step(params, opt_state, batch, opt, cfg):
+    """One train step (``launch.steps.train_step``'s ops) with CUDA events
+    between its forward, backward and optimizer: returns the new params
+    and state, and the three times in ms."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    tree = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    loss, _ = RS.loss_fn(tree, batch, cfg)
+    ev[1].record()
+    grads = iter(torch.autograd.grad(loss, tree_leaves(tree)))
+    ev[2].record()
+    upd, opt_state = opt.update(tree_map(lambda _: next(grads), tree),
+                                opt_state, params)
+    params = apply_updates(params, upd)
+    ev[3].record()
+    torch.cuda.synchronize()
+    names = ("forward_ms", "backward_ms", "optimizer_ms")
+    return params, opt_state, {n: ev[i].elapsed_time(ev[i + 1])
+                               for i, n in enumerate(names)}
+
+
+def _train_cli(dev) -> dict:
+    """``launch.train.main`` on the card at the smoke config: 3 steps with
+    a checkpoint, then resumed to 6 — and the JAX package's resume
+    semantics (the batches start again from 0) held to in-process steps
+    on batches 0, 1, 2, 0, 1, 2 with each run's own schedule, exactly."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    arch = get_arch("two-tower-retrieval")
+    cfg = trainer.training_config(arch, full=False)
+    first, last = TRAIN_CLI_STEPS
+    args = ["--arch", arch.arch_id, "--ckpt-dir", TRAIN_DIR,
+            "--ckpt-interval", str(first), "--batch", str(TRAIN_CLI_BATCH),
+            "--seed", str(TRAIN_CLI_SEED)]
+    t = time.perf_counter()
+    for n in TRAIN_CLI_STEPS:
+        if trainer.main(args + ["--steps", str(n)]) != 0:
+            raise AssertionError(f"train: the CLI's run to {n} failed")
+    cli_s = time.perf_counter() - t
+    params = RS.init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(TRAIN_CLI_SEED), device=dev)
+    batches = [trainer.batch_tensors(RS.make_batch(
+        cfg, TRAIN_CLI_BATCH, seed=TRAIN_CLI_SEED + i), dev)
+        for i in range(first)]
+    state = None
+    for n in TRAIN_CLI_STEPS:
+        opt = adamw(linear_warmup_cosine(TRAIN_LR, n // 10 + 1, n))
+        step = train_steps.train_step(RS.loss_fn, cfg, opt)
+        state = opt.init(params) if state is None else state
+        for b in batches:
+            params, state, _ = step(params, state, b)
+    got, at = CheckpointManager(TRAIN_DIR).restore((params, state))
+    same = at == last and all(
+        _same_bits(x, y) for x, y in zip(tree_leaves(got[0]),
+                                         tree_leaves(params))) \
+        and int(got[1]["count"]) == int(state["count"]) == last
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if not same:
+        raise AssertionError("train: the CLI's resumed run differs from "
+                             "batches 0..2 stepped twice")
+    return {"steps": list(TRAIN_CLI_STEPS), "batch": TRAIN_CLI_BATCH,
+            "resumed_at": first, "cli_s": cli_s,
+            "equals_replayed_batches": same}
+
+
+def phase_train(dev, card: str) -> dict:
+    """Two-tower training at full width through the port's trainer:
+    ``launch.steps.train_step`` (AdamW, the CLI's linear warmup and cosine)
+    over ``data.recsys_batches`` in ``FaultTolerantLoop``, every bag's
+    forward on ``embedding_bag`` and backward on ``embedding_bag_backward``.
+    The first step's table gradients are held bit for bit to the plain
+    backward on host copies of its cotangents and bags, and its loss to
+    the plain bag's (``use_kernel=False``)."""
+    arch = get_arch("two-tower-retrieval")
+    cfg = trainer.training_config(arch, full=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = RS.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10 + 1,
+                                     TRAIN_STEPS))
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      tree_leaves(params) + tree_leaves(opt_state["mu"])
+                      + tree_leaves(opt_state["nu"]))
+    step = train_steps.train_step(RS.loss_fn, cfg, opt)
+    with torch.no_grad():
+        plain_loss = float(RS.loss_fn(params, trainer.batch_tensors(
+            RS.make_batch(cfg, TRAIN_BATCH, seed=0), dev), cfg,
+            use_kernel=False)[0])
+
+    losses, step_s, first = [], [], {}
+    hook = _Hook(bag_ops, "embedding_bag_backward",
+                 lambda i: i if i < 2 else None, clone=False)
+
+    def stepper(state, batch):
+        params, opt_state = state
+        t0 = time.perf_counter()
+        if not losses:
+            with hook:
+                params, opt_state, metrics = step(
+                    params, opt_state, trainer.batch_tensors(batch, dev))
+        else:
+            params, opt_state, metrics = step(
+                params, opt_state, trainer.batch_tensors(batch, dev))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if len(losses) == 1:             # the first step's gradients
+            first["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            for (g, idx, v), kw, got, _ in hook.kept.values():
+                table = "user" if idx.shape[0] == TRAIN_BATCH * \
+                    cfg.user_fields else "item"
+                first[table] = _check_backward(g, idx, v, kw["mode"], got,
+                                               f"first step, {table} table")
+                first[f"{table}_inputs"] = (g, idx, v, kw["mode"])
+            hook.kept.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+        return (params, opt_state), metrics
+
+    loop = FaultTolerantLoop(CheckpointManager(
+        os.path.join(TRAIN_DIR, "loop"), interval=10 ** 9))
+    _reset_launches()
+    t = time.perf_counter()
+    (params, opt_state), final = loop.run(
+        (params, opt_state), itertools.islice(dp.recsys_batches(
+            cfg, TRAIN_BATCH, seed=0), TRAIN_STEPS), stepper)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = _read_launches(("embedding_bag", "embedding_bag_backward"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    failures = [e for e in loop.events if e["event"] == "failure"]
+    if failures or final != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"train: the loop failed: {failures}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if losses[0] != plain_loss:
+        raise AssertionError(f"train: the first step's loss {losses[0]} "
+                             f"differs from the plain bag's {plain_loss}")
+    want = {"embedding_bag": 2 * TRAIN_STEPS,
+            "embedding_bag_backward": 2 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+
+    # the step split into forward, backward and optimizer; then profiled
+    batches = dp.recsys_batches(cfg, TRAIN_BATCH, seed=0,
+                                start_step=TRAIN_STEPS)
+    split = []
+    for _ in range(TRAIN_SPLIT_STEPS):
+        batch = trainer.batch_tensors(next(batches), dev)
+        params, opt_state, ms = _split_step(params, opt_state, batch, opt,
+                                            cfg)
+        split.append(ms)
+    profiled = [trainer.batch_tensors(next(batches), dev)
+                for _ in range(TRAIN_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        t = time.perf_counter()
+        for batch in profiled:
+            params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+    busy = _profiled_busy(prof, traced_s)
+    del prof, profiled
+
+    # one fixed batch, a fresh optimizer state: the loss must fall
+    del opt_state
+    opt_state = opt.init(params)
+    fixed = trainer.batch_tensors(RS.make_batch(cfg, TRAIN_BATCH, seed=10_000),
+                                  dev)
+    fixed_losses = []
+    for _ in range(TRAIN_FIXED_STEPS):
+        params, opt_state, m = step(params, opt_state, fixed)
+        fixed_losses.append(float(m["loss"]))
+    if not all(np.isfinite(fixed_losses)) \
+            or not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"train: the fixed batch's loss did not fall: "
+                             f"{fixed_losses}")
+    del params, opt_state, fixed, step
+    torch.cuda.empty_cache()
+
+    g, idx, v, mode = first.pop("user_inputs")
+    kernel = {"user": _time_backward(g, idx, v, mode)}
+    g, idx, v, mode = first.pop("item_inputs")
+    kernel["item"] = _time_backward(g, idx, v, mode)
+    del g, idx
+    cases = []
+    for i, (v, d, b, l, kind) in enumerate(BWD_CASES):
+        idx, g = _bwd_inputs(dev, v, d, b, l, kind, seed=100 + i)
+        for mode in ("sum", "mean"):
+            got = eb.embedding_bag_backward(g, idx, v, mode=mode)
+            cases.append({"kind": kind, **_check_backward(
+                g, idx, v, mode, got, f"{kind} {v}x{d} {b}x{l}")})
+    del idx, g, got
+    cli = _train_cli(dev)
+    torch.cuda.empty_cache()
+
+    after_first = np.asarray(step_s[1:])
+    split_p50 = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    step_ms = _ms_pct(after_first, 50)
+    out = {"phase": "train", "arch": cfg.name, "config": vars(cfg),
+           "reduced": {"user_vocab": [arch.config.user_vocab, cfg.user_vocab],
+                       "item_vocab": [arch.config.item_vocab, cfg.item_vocab],
+                       "batch": [RECSYS_SHAPES["train_batch"].batch,
+                                 TRAIN_BATCH]},
+           "card": card, "batch": TRAIN_BATCH, "init_s": init_s,
+           "params_and_moments_bytes": state_bytes,
+           "steps": TRAIN_STEPS, "loop_s": loop_s,
+           "step_ms_p50": step_ms, "step_ms_max": float(after_first.max()
+                                                      * 1e3),
+           "first_step_s": step_s[0],
+           "samples_per_s": TRAIN_BATCH / (step_ms * 1e-3),
+           "losses": losses, "plain_first_loss": plain_loss,
+           "first_loss_equals_plain": losses[0] == plain_loss,
+           "split_ms_p50": split_p50, "split_ms": split,
+           "launches": launches,
+           "launches_per_step": {k: n / TRAIN_STEPS
+                                 for k, n in launches.items()},
+           "max_memory_allocated": peak,
+           "max_memory_allocated_first_step": first.pop("peak_bytes"),
+           "busy": busy, "fixed_batch_losses": fixed_losses,
+           "first_step": first, "kernel": kernel, "cases": cases,
+           "cli": cli,
+           "backward_share_of_step": {
+               "kernels_ms": kernel["user"]["ms"] + kernel["item"]["ms"],
+               "functions_ms": (kernel["user"]["function_ms"]
+                                + kernel["item"]["function_ms"]),
+               "step_ms_p50": step_ms}}
+    emit(out)
+    return out
+
+
 def _load_widths_by_alignment(rows, f: int, elem_size: int) -> dict:
     """{bytes: count}, derived on the host, not read from the kernel: the
     load width csrc/segment_spmm.cu's alignment rule gives each gathered
@@ -3637,9 +4004,32 @@ def _shard_launches(shard: dict, name: str) -> dict:
             if "launches" in r}
 
 
+def _backward_row(train: dict) -> dict:
+    """The backward kernel's row: launches on the training steps, timed at
+    the first step's user-table bags (the item table's beside them)."""
+    bk = train["kernel"]
+    checks = train["cases"] + [train["first_step"][t] for t in ("user", "item")]
+    return {"name": "embedding_bag_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/ops.py:24",
+            "form": "no Pallas counterpart: the XLA scatter of bag_lookup's "
+                    "custom_vjp backward (_bwd)",
+            "launches": train["launches"]["embedding_bag_backward"],
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "cases": len(checks),
+            "mismatches": sum(c["max_abs_err"] != 0 for c in checks),
+            **{k: bk["user"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "order_ms", "zero_ms", "function_ms",
+                "function_bound_ms", "touched_rows", "gb_per_s")},
+            "item": {k: bk["item"][k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms",
+                "order_ms", "zero_ms", "function_ms", "function_bound_ms")}}
+
+
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict, rebalance: dict, serve: dict, sweep: dict,
-                shard: dict) -> dict:
+                shard: dict, train: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -3705,6 +4095,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "library_ms": eb_p99["library_ms"],
          "library": "torch.nn.functional.embedding_bag (bf16 output)",
          "launches_by_kernel": recsys["launches_by_kernel"],
+         "train": {"launches": train["launches"]["embedding_bag"]},
          "all_slot_bound_ms": eb_p99["all_slot_bound_ms"],
          "all_slot_gb_per_s": eb_p99["all_slot_gb_per_s"],
          "requests_in_turn": eb_p99["requests"],
@@ -3713,6 +4104,7 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                         **{k: eb_bulk[k] for k in timed + (
                             "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
+    rows.append(_backward_row(train))
     # the sweep form: its launches on the twitter lanes' sweep (the grqc
     # lanes' beside them); ms, plain ms and bound at one lane of twitter's
     # shape, and 1, 16 (the twitter sweep's launch) and 64 lanes on both
@@ -3879,9 +4271,10 @@ def main() -> int:
                         grqc_host, info["nvidia_smi"])
     del twitter_g, twitter_s, cases, twitter_host, grqc_host
     recsys = phase_recsys(dev)
+    train = phase_train(dev, info["nvidia_smi"])
     lm = phase_lm(dev)
     emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
-                     sweep, shard))
+                     sweep, shard, train))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-// EmbeddingBag forward (gather + bag reduce) for Hopper (sm_90a).
+// EmbeddingBag forward (gather + bag reduce) for Hopper (sm_90a), and its
+// backward (the dense table gradient) at the end of the file.
 //
 //   out[b, :] = sum over l with idx[b, l] >= 0 of float(table[idx[b, l], :])
 //               (mode mean: divided by max(#valid, 1))
@@ -211,3 +212,118 @@ extern "C" int embedding_bag_launch(const void* table, const int* indices,
                                             width, stream);
   return static_cast<int>(err);
 }
+
+// ---------------------------------------------------------------------------
+// Backward: the dense f32 table gradient of a bag lookup
+//
+//   dtable[r, :] = sum over flat positions p = b * L + l, in ascending order,
+//                  with idx[b, l] == r of g'[b, :]
+//   g'[b, :]     = g[b, :]                      (mode sum)
+//                = g[b, :] / max(#valid_b, 1)   (mode mean)
+//
+// Replaces the XLA scatter of `bag_lookup`'s custom_vjp backward
+// (src/repro/kernels/embedding_bag/ops.py:24, `_bwd`): the bag gradient
+// broadcast to every slot, zeroed on -1 slots (whose index becomes 0) and
+// scatter-added with `.at[].add` into a zero (V, d) table. It has no Pallas
+// counterpart. XLA's CPU scatter and torch's `index_add_` on the host add a
+// row's contributions in ascending position order, starting from +0.0; the
+// card's `index_add_` adds them with atomics in no fixed order.
+//
+// Design: deterministic, in that order, so bit-equal to the plain version
+// run on the host and to JAX's `_bwd`.
+// * The wrapper builds the order: the int64 keys row << 32 | position
+//   (a -1 slot keyed to the sentinel row V) sorted with torch.sort, which
+//   puts each row's positions in one ascending run; and each bag's count
+//   of valid slots. That is index preparation, timed apart in PERF.md.
+//   It also zero-fills the dense gradient (one torch.zeros).
+// * One warp a sorted key; the warp at the head of a run (its row differs
+//   from the key before) walks the run in order and writes the row, the
+//   others return at once. Each lane owns columns lane, lane + 32, ...:
+//   every load of a g row and every store of the output row is one
+//   128-byte line a warp instruction, kBwdCols of them in flight a lane.
+// * A -1 slot is skipped. JAX adds +0.0 for it into row 0, which never
+//   changes a sum that starts at +0.0 (such a sum is never -0.0, and
+//   x + +0.0 == x for every other x, NaN and infinities included), so
+//   skipping it gives the same bits, and a bag padded to a long L does not
+//   pile every pad onto row 0's warp.
+// * Mean divides with IEEE division (__fdiv_rn, never a reciprocal
+//   multiply) as JAX divides g by the count before broadcasting: the same
+//   quotient for each of the bag's slots.
+// Bound by bytes: g read (rows read again by each of their slots mostly hit
+// L2 at the recsys config), the keys, and the touched rows written; the
+// zero fill of the untouched rows is the dense gradient's own cost.
+namespace {
+
+constexpr int kBwdWarps = 8;       // warps (sorted keys) a block
+constexpr int kBwdCols = 8;        // columns a lane owns a pass: 256 a warp
+
+template <bool kMean>
+__global__ void __launch_bounds__(32 * kBwdWarps)
+embedding_bag_backward_kernel(const float* __restrict__ g,
+                              const long long* __restrict__ keys,
+                              const int* __restrict__ counts,
+                              float* __restrict__ dtable, int n, int l,
+                              int d, int v) {
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  if (w >= n) return;                                  // warp-uniform
+  const long long head = keys[w];
+  const int row = static_cast<int>(head >> 32);
+  if (row >= v) return;                                // -1 slots' sentinel
+  if (w > 0 && static_cast<int>(keys[w - 1] >> 32) == row) return;
+  float* dst = dtable + static_cast<int64_t>(row) * d;
+  for (int c0 = 0; c0 < d; c0 += 32 * kBwdCols) {
+    float acc[kBwdCols];
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) acc[e] = 0.0f;
+    long long key = head;
+    for (int i = w; ; ) {
+      const int pos = static_cast<int>(key & 0xffffffffll);
+      const int bag = pos / l;
+      const float* src = g + static_cast<int64_t>(bag) * d + c0 + lane;
+      float x[kBwdCols];
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e)
+        x[e] = c0 + lane + 32 * e < d ? __ldg(src + 32 * e) : 0.0f;
+      if (kMean) {
+        const int cnt = counts[bag];
+        const float denom = static_cast<float>(cnt > 1 ? cnt : 1);
+#pragma unroll
+        for (int e = 0; e < kBwdCols; ++e) x[e] = __fdiv_rn(x[e], denom);
+      }
+#pragma unroll
+      for (int e = 0; e < kBwdCols; ++e) acc[e] = __fadd_rn(acc[e], x[e]);
+      if (++i >= n) break;
+      key = keys[i];
+      if (static_cast<int>(key >> 32) != row) break;
+    }
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e)
+      if (c0 + lane + 32 * e < d) dst[c0 + lane + 32 * e] = acc[e];
+  }
+}
+
+}  // namespace
+
+// g: (B, d) f32 bag gradient; keys: the n = B * L sorted int64 keys
+// row << 32 | position (row V for a -1 slot); counts: (B,) int32 valid
+// slots a bag (read for mean only); dtable: (V, d) f32, zero-filled by the
+// caller. n < 2^31.
+extern "C" int embedding_bag_backward_launch(const float* g,
+                                             const long long* keys,
+                                             const int* counts, float* dtable,
+                                             int n, int l, int d, int v,
+                                             int mean, cudaStream_t stream) {
+  if (n <= 0 || l <= 0 || d <= 0 || v <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kBwdWarps - 1) / kBwdWarps;
+  if (mean)
+    embedding_bag_backward_kernel<true><<<blocks, 32 * kBwdWarps, 0, stream>>>(
+        g, keys, counts, dtable, n, l, d, v);
+  else
+    embedding_bag_backward_kernel<false><<<blocks, 32 * kBwdWarps, 0,
+                                           stream>>>(
+        g, keys, counts, dtable, n, l, d, v);
+  return static_cast<int>(cudaGetLastError());
+}
+

@@ -1,1 +1,2 @@
-"""Launch entry points of the port (recsys serving so far)."""
+"""Launch entry points of the port: serving (LM and recsys) and recsys
+training."""

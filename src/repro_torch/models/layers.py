@@ -1,6 +1,8 @@
 """Shared neural layers of the port (the counterpart of
-``repro.models.layers``): the recsys towers' ``dense``/``mlp``, and the
-LM's norms, rotary embeddings, attention, gated MLP and layer stacking.
+``repro.models.layers``): the recsys towers' ``dense``/``mlp``, the
+LM's norms, rotary embeddings, attention, gated MLP and layer stacking,
+and the token cross-entropy ``softmax_xent`` (the two-tower loss's; the
+chunked LM loss comes with LM training, ROADMAP A18.4).
 
 Params are nested dicts of tensors, laid out as in the JAX package
 (``{"l0": {"w": (d_in, d_out)}, ...}``; an LM's layer stack carries a
@@ -192,3 +194,19 @@ def stack_layer_params(init_fn, n_layers: int) -> dict:
             stacked = tree_map(alloc, layer)
         fill(stacked, layer, i)
     return stacked
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, *, label_mask=None):
+    """Token cross-entropy; logits (..., V) f32-accumulated."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = lse - ll
+    if label_mask is not None:
+        return torch.sum(nll * label_mask) / torch.clamp(
+            torch.sum(label_mask), min=1)
+    return torch.mean(nll)

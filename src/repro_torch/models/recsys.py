@@ -5,9 +5,11 @@ Each tower mean-pools its multi-hot id fields through ``bag_lookup`` (the
 ``embedding_bag`` CUDA kernel on the card), runs an f32 ReLU MLP and
 L2-normalises; ``serve_score`` dots a user with an item, and
 ``score_candidates`` one user with a precomputed corpus of item
-embeddings. Params are a dict laid out as the JAX package's pytree
-(``params_from_jax`` carries one across). Training (``loss_fn`` and the
-bag's backward) comes with the recsys training slice, ROADMAP A18.2.
+embeddings. ``loss_fn`` is the training loss, in-batch sampled softmax
+with the logQ correction; its table gradients come from ``bag_lookup``'s
+backward (the ``embedding_bag_backward`` CUDA kernel on the card, the
+dense f32 table gradient). Params are a dict laid out as the JAX package's
+pytree (``params_from_jax`` carries one across).
 """
 from __future__ import annotations
 
@@ -118,10 +120,19 @@ def item_embed(params, batch, cfg: TwoTowerConfig, use_kernel=True):
                   batch["item_ids"], cfg.item_fields, use_kernel)
 
 
-def loss_fn(params, batch, cfg: TwoTowerConfig):
-    raise NotImplementedError(
-        "the two-tower training loss (in-batch sampled softmax with logQ "
-        "correction) comes with the recsys training slice, ROADMAP A18.2")
+def loss_fn(params, batch, cfg: TwoTowerConfig, use_kernel=True):
+    """In-batch sampled softmax with logQ correction (RecSys'19 eq. 5):
+    ``(loss, {"xent", "in_batch_acc"})``. The JAX package trains through
+    its jnp bag; here the bags take ``bag_lookup`` (``use_kernel=False``:
+    the plain bag, differentiated by autograd)."""
+    u = user_embed(params, batch, cfg, use_kernel)           # (B, d)
+    v = item_embed(params, batch, cfg, use_kernel)           # (B, d)
+    logits = (u @ v.T) / cfg.temperature                     # (B, B)
+    logits = logits - batch["log_q"][None, :]                # logQ correction
+    labels = torch.arange(u.shape[0], device=u.device)
+    loss = L.softmax_xent(logits, labels)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, {"xent": loss, "in_batch_acc": acc}
 
 
 def score_candidates(params, batch, cfg: TwoTowerConfig, use_kernel=True):

@@ -23,9 +23,16 @@ from repro_torch.graph.stream import EVENT_ADD, interleaved_churn
 from repro_torch.api import Partitioner
 from repro_torch.kernels import common
 from repro_torch.kernels.embedding_bag.embedding_bag import (
-    embedding_bag, load_width,
+    embedding_bag, embedding_bag_backward, load_width,
 )
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ops import bag_lookup
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_backward_ref, embedding_bag_ref,
+)
+from repro_torch.launch import steps as train_steps
+from repro_torch.launch import train
+from repro_torch.models import recsys as RS
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.kernels.fused_chooser import fused_chooser as fk
 from repro_torch.kernels.fused_chooser.ops import _prepare_window
 from repro_torch.kernels.fused_chooser.ref import fused_window_choose_ref
@@ -236,6 +243,124 @@ def test_embedding_bag_kernel_all_padding(cuda):
     for mode in ("sum", "mean"):
         got = embedding_bag(table, idx, mode=mode)
         assert torch.equal(got, torch.zeros((70, 256), device=cuda))
+
+
+# the backward: (V, D, B, L, kind) — the two-tower training shape's user
+# bags (131,072 bags of 8 at D = 256 over 2^22 rows), rows past 2^23 at
+# D = 256, V = 1, ragged widths, long bags, heavy padding and hot rows
+# (long runs of one row)
+BWD_CASES = [((1 << 22), 256, 131_072, 8, "random"),
+             ((1 << 23) + 4096, 256, 1024, 8, "random"),
+             (1, 16, 40, 3, "random"), (7, 130, 300, 37, "random"),
+             (300, 5, 45, 2000, "padded"), (50, 256, 4096, 8, "hot"),
+             (1000, 24, 512, 9, "dup")]
+
+
+def bwd_case(dev, v, d, b, l, kind, seed):
+    """(idx, g) on the card: ids in [-1, V) (``padded``: half the bags all
+    -1; ``hot``: ids from 3 rows; ``dup``: one id a bag), a bag gradient
+    spread over e^±9 with -0.0 entries."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(-1, v, (b, l), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if kind == "padded":
+        idx[::2] = -1
+    elif kind == "hot":
+        idx = torch.randint(0, min(v, 3), (b, l), generator=gen, device=dev,
+                            dtype=torch.int32)
+    elif kind == "dup":
+        idx[:] = idx[:, :1].clamp(min=0)
+    idx[0, 0] = -1
+    g = torch.randn((b, d), generator=gen, device=dev) * torch.exp(
+        torch.rand((b, 1), generator=gen, device=dev) * 18 - 9)
+    g[torch.rand((b, d), generator=gen, device=dev) < 0.05] = -0.0
+    return idx, g
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,l,kind", BWD_CASES)
+def test_embedding_bag_backward_kernel_matches_plain_on_host(cuda, v, d, b, l,
+                                                            kind, mode):
+    """The kernel's dense table gradient equals the plain backward run on
+    host copies of the same inputs bit for bit (-0.0 and +0.0 told apart),
+    and a second launch equals the first."""
+    idx, g = bwd_case(cuda, v, d, b, l, kind, seed=v + b + l)
+    before = embedding_bag_backward.launches
+    got = embedding_bag_backward(g, idx, v, mode=mode)
+    again = embedding_bag_backward(g, idx, v, mode=mode)
+    assert embedding_bag_backward.launches == before + 2
+    want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, mode=mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (v, d)
+    assert _same_bits(got.cpu(), want), mode
+    assert _same_bits(again, got)
+
+
+def test_embedding_bag_backward_all_padding_and_limits(cuda):
+    idx = torch.full((70, 9), -1, dtype=torch.int32, device=cuda)
+    g = torch.randn((70, 256), device=cuda)
+    for mode in ("sum", "mean"):
+        got = embedding_bag_backward(g, idx, 20, mode=mode)
+        assert _same_bits(got, torch.zeros((20, 256), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        embedding_bag_backward(g.half(), idx, 20)
+    with pytest.raises(ValueError, match="num_rows"):
+        embedding_bag_backward(g, idx, 0)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_lookup_autograd_on_card(cuda, mode):
+    """bag_lookup's forward and backward through the two kernels: the
+    table gradient equals the plain backward of the same cotangent on the
+    host, bit for bit."""
+    v, d, b, l = 5000, 256, 2048, 8
+    table = torch.randn((v, d), device=cuda).requires_grad_(True)
+    idx, g = bwd_case(cuda, v, d, b, l, "random", seed=3)
+    fwd, bwd = embedding_bag.launches, embedding_bag_backward.launches
+    out = bag_lookup(table, idx, mode)
+    (grad,) = torch.autograd.grad(out, table, g)
+    assert embedding_bag.launches == fwd + 1
+    assert embedding_bag_backward.launches == bwd + 1
+    assert torch.equal(out, embedding_bag_ref(table.detach(), idx, mode=mode))
+    want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, mode=mode)
+    assert _same_bits(grad.cpu(), want)
+
+
+def test_two_tower_training_on_card(cuda, tmp_path):
+    """The train step at the smoke config on the card, through both bag
+    kernels, against the same steps on the CPU (the towers' products and
+    sums run other kernels there: tests/test_recsys.py's tolerance), and
+    the trainer CLI on the card with a resume."""
+    cfg = get_arch("two-tower-retrieval").smoke_config
+    host = RS.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    out = {}
+    for name, params, dev in (("cpu", host, "cpu"), ("cuda", card, cuda)):
+        step, opt = train_steps._train_step_fn(RS.loss_fn, cfg)
+        state = opt.init(params)
+        losses = []
+        for t in range(4):
+            batch = train.batch_tensors(RS.make_batch(cfg, 16, seed=t), dev)
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        out[name] = (params, losses)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4)
+    for x, y in zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    before = embedding_bag_backward.launches
+    args = ["--arch", "two-tower-retrieval", "--steps", "4", "--batch", "32",
+            "--ckpt-dir", str(tmp_path), "--ckpt-interval", "2"]
+    assert train.main(args) == 0
+    assert embedding_bag_backward.launches == before + 8
+    assert train.main(args[:3] + ["8"] + args[4:]) == 0
+    assert embedding_bag_backward.launches == before + 16
 
 
 def _assert_fused_matches(n, args, policy):

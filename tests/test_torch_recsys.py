@@ -240,9 +240,3 @@ def test_unported_archs_and_training_raise():
         serve.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    cfg = ARCHS["two-tower-retrieval"].smoke_config
-    with pytest.raises(NotImplementedError, match="A18.2"):
-        RS.loss_fn({}, {}, cfg)
-    table = torch.zeros((4, 2), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A18.2"):
-        bag_lookup(table, torch.zeros((1, 1), dtype=torch.int32))
