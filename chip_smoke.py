@@ -53,15 +53,24 @@ aggregates twitter's ELL adjacency through ``ell_aggregate`` with the
 width and depth (bf16, 18.48 GB of params, an 11.32 GB KV cache) through
 ``LMServer`` — 8 requests of 8,192-token prompts, 32 tokens each — with
 every attention call of prefill and decode on the ``flash_attention``
-kernel (prefill on the tensor cores, decode split over the keys). One
-JSON line per phase; the last line is ``{"ok": true,
-"device": {...}}``.
+kernel (prefill on the tensor cores, decode split over the keys), serves
+the MoE LM moonshot-v1-16b-a3b at its full config the same way (bf16,
+56.12 GB of params, a 12.94 GB cache; phase ``moe``: its dispatch held
+to the host's, its combine to a dense sum of the kept experts, its
+logits to the plain attention's), and trains it at every width with 4 of
+its 48 layers through ``launch.train --full`` (phase ``lm_train``: 2 x
+4,096-token batches, the first step's loss and gradients held to the
+plain attention's, the CLI resumed). One JSON line per phase; the last
+line is ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero without that line. Needs one CUDA
 card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import functools
+import gc
 import itertools
 import json
 import os
@@ -85,7 +94,7 @@ from repro_torch.api.serve import PartitionService  # noqa: E402
 from repro_torch.api.sweep import Sweep, SweepRun  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.configs.shapes import RECSYS_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import LM_SHAPES, RECSYS_SHAPES  # noqa: E402
 from repro_torch.core import engine, windowed as wnd  # noqa: E402
 from repro_torch.core.rng import prng_key  # noqa: E402
 from repro_torch.core.state import PartitionState, init_state  # noqa: E402
@@ -133,6 +142,7 @@ from repro_torch.optim.optimizers import (  # noqa: E402
     adamw, apply_updates, linear_warmup_cosine, tree_leaves, tree_map,
 )
 from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.rebalance import passes as rpasses  # noqa: E402
@@ -247,6 +257,52 @@ TRAIN_SPLIT_STEPS, TRAIN_PROFILE_STEPS = 3, 3
 TRAIN_LR = 3e-4                    # launch.train's --lr default
 TRAIN_CLI_STEPS, TRAIN_CLI_BATCH, TRAIN_CLI_SEED = (3, 6), 256, 2
 TRAIN_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_train")
+# phase moe: moonshot-v1-16b-a3b's CONFIG served as phase lm serves gemma2
+# (the same slots, requests, prompts and max_len); the layer whose MoE input
+# the dispatch check takes (its input has been through a full layer); the
+# combine against a per-token dense f32 sum of the kept experts: the path
+# rounds to bf16 after each of the three expert products and the
+# activation, and once more after the combine, each within 2^-9 relative,
+# so a few 2^-9 at most; a wrong position, gate or expert moves a token's
+# output by O(1). Limit on the relative L2 error:
+MOE_ARCH, MOE_DISPATCH_LAYER, MOE_SPLIT_REPS = "moonshot-v1-16b-a3b", 1, 5
+MOE_DENSE_REL = 2.0 ** -6
+# phase lm_train: launch.train --full on moonshot-v1-16b-a3b (CONFIG at
+# every width, n_layers cut to FULL_TRAIN_LAYERS = 4) on batches of 2 x
+# 4,096 tokens (train_4k's length; its global batch of 256 sequences cut to
+# 2, which with the 35.4 GB of params, gradients and moments fits the card)
+LM_TRAIN_ARCH = MOE_ARCH
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 4096, 10
+LM_TRAIN_SPLIT_STEPS, LM_TRAIN_PROFILE_STEPS = 3, 2
+LM_TRAIN_FIXED_STEPS = 6
+# the first step against the plain attention's (use_kernel=False), the same
+# params and batch: loss and xent are means over 8,192 tokens of two bf16
+# paths 4 layers deep, so they differ far below a bf16 ulp (2^-8); limit on
+# the relative difference:
+LM_TRAIN_LOSS_REL = 2.0 ** -10
+# the relative L2 of the router, expert (wi, wg, wo) and wq gradients: bf16
+# gradients of two forwards whose routing differs where a bf16 difference
+# flips a top-6 choice; a flipped (token, choice) moves its share of the
+# gradient to another expert, about sqrt(2 x flip share) of the whole, so
+# 0.25 allows a 3 % flip share, where a wrong combine, gate or attention
+# gradient moves them by O(1). Limit:
+LM_TRAIN_GRAD_REL = 2.0 ** -2
+LM_TRAIN_GRADS = ("moe/router", "moe/wi", "moe/wg", "moe/wo", "attn/wq")
+# the witness that separates routing flips from attention error: the plain
+# attention's step fed the kernel step's own expert choices (the same
+# experts, kept masks and capacity drops; its gates its own probs at them),
+# so the two differ only by the attention forwards' bf16 roundings carried
+# through 4 bf16 layers and the backward. Limit on each gradient's relative
+# L2 against the kernel step's:
+LM_TRAIN_SAME_ROUTES_REL = 2.0 ** -4
+# the CLI's resume at moonshot's smoke config (f32): the embedding's
+# gradient is an indexed scatter-add whose atomics may add in another order
+# from run to run, so each param leaf is held to 1e-6 of its largest
+# magnitude; replaying other batches moves the params by the learning rate
+# (3e-4)
+LM_CLI_BATCH, LM_CLI_SEQ, LM_CLI_TOL = 2, 64, 1e-6
+LM_TRAIN_DIR = os.path.join(ROOT, "build", "repro_torch", "smoke_lm_train")
+LM_TRAIN_RESULT = LM_TRAIN_DIR + "_result.json"
 # backward cases beyond the training step's own (V, D, B, L, kind): V = 1,
 # a ragged width, long bags, half the bags all padding, hot rows (long runs
 # of one row), one id a bag
@@ -3296,14 +3352,14 @@ def _time_backward(g, idx, v: int, mode: str) -> dict:
             "gb_per_s": kernel_bytes / (ms * 1e-3) / 1e9}
 
 
-def _split_step(params, opt_state, batch, opt, cfg):
+def _split_step(loss_fn, params, opt_state, batch, opt, cfg):
     """One train step (``launch.steps.train_step``'s ops) with CUDA events
     between its forward, backward and optimizer: returns the new params
     and state, and the three times in ms."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     tree = tree_map(lambda x: x.detach().requires_grad_(True), params)
-    loss, _ = RS.loss_fn(tree, batch, cfg)
+    loss, _ = loss_fn(tree, batch, cfg)
     ev[1].record()
     grads = iter(torch.autograd.grad(loss, tree_leaves(tree)))
     ev[2].record()
@@ -3317,47 +3373,56 @@ def _split_step(params, opt_state, batch, opt, cfg):
                                for i, n in enumerate(names)}
 
 
-def _train_cli(dev) -> dict:
-    """``launch.train.main`` on the card at the smoke config: 3 steps with
-    a checkpoint, then resumed to 6 — and the JAX package's resume
-    semantics (the batches start again from 0) held to in-process steps
-    on batches 0, 1, 2, 0, 1, 2 with each run's own schedule, exactly."""
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    arch = get_arch("two-tower-retrieval")
-    cfg = trainer.training_config(arch, full=False)
+def _train_cli(dev, arch_id: str, directory: str, tol: float = 0.0) -> dict:
+    """``launch.train.main`` on the card at the arch's smoke config: 3
+    steps with a checkpoint, then resumed to 6 — and the JAX package's
+    resume semantics (the batches start again from 0) held to in-process
+    steps, from the CLI's own ``build_*`` function, on batches 0, 1, 2,
+    0, 1, 2 with each run's own schedule: every param leaf within ``tol``
+    of its largest magnitude (0: bit for bit)."""
+    shutil.rmtree(directory, ignore_errors=True)
+    arch = get_arch(arch_id)
     first, last = TRAIN_CLI_STEPS
-    args = ["--arch", arch.arch_id, "--ckpt-dir", TRAIN_DIR,
-            "--ckpt-interval", str(first), "--batch", str(TRAIN_CLI_BATCH),
-            "--seed", str(TRAIN_CLI_SEED)]
+    args = ["--arch", arch_id, "--ckpt-dir", directory,
+            "--ckpt-interval", str(first), "--seed", str(TRAIN_CLI_SEED)]
+    shape = ({"batch": TRAIN_CLI_BATCH, "seq": None} if arch.family == "recsys"
+             else {"batch": LM_CLI_BATCH, "seq": LM_CLI_SEQ})
+    args += ["--batch", str(shape["batch"])]
+    if shape["seq"] is not None:
+        args += ["--seq", str(shape["seq"])]
     t = time.perf_counter()
     for n in TRAIN_CLI_STEPS:
         if trainer.main(args + ["--steps", str(n)]) != 0:
-            raise AssertionError(f"train: the CLI's run to {n} failed")
+            raise AssertionError(f"{arch_id}: the CLI's run to {n} failed")
     cli_s = time.perf_counter() - t
-    params = RS.init_params(cfg, generator=torch.Generator(
-        device=dev).manual_seed(TRAIN_CLI_SEED), device=dev)
-    batches = [trainer.batch_tensors(RS.make_batch(
-        cfg, TRAIN_CLI_BATCH, seed=TRAIN_CLI_SEED + i), dev)
-        for i in range(first)]
+    build = {"lm": trainer.build_lm, "recsys": trainer.build_recsys}
+    cfg, loss_fn, params, batches = build[arch.family](
+        arch, argparse.Namespace(full=False, seed=TRAIN_CLI_SEED, **shape),
+        dev)
+    batches = [trainer.batch_tensors(next(batches), dev)
+               for _ in range(first)]
     state = None
     for n in TRAIN_CLI_STEPS:
         opt = adamw(linear_warmup_cosine(TRAIN_LR, n // 10 + 1, n))
-        step = train_steps.train_step(RS.loss_fn, cfg, opt)
+        step = train_steps.train_step(loss_fn, cfg, opt)
         state = opt.init(params) if state is None else state
         for b in batches:
             params, state, _ = step(params, state, b)
-    got, at = CheckpointManager(TRAIN_DIR).restore((params, state))
-    same = at == last and all(
-        _same_bits(x, y) for x, y in zip(tree_leaves(got[0]),
-                                         tree_leaves(params))) \
+    got, at = CheckpointManager(directory).restore((params, state))
+    pairs = list(zip(tree_leaves(got[0]), tree_leaves(params)))
+    worst = max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+                for x, y in pairs)
+    bits = all(_same_bits(x, y) for x, y in pairs)
+    same = at == last and (bits if tol == 0 else worst <= tol) \
         and int(got[1]["count"]) == int(state["count"]) == last
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(directory, ignore_errors=True)
     if not same:
-        raise AssertionError("train: the CLI's resumed run differs from "
-                             "batches 0..2 stepped twice")
-    return {"steps": list(TRAIN_CLI_STEPS), "batch": TRAIN_CLI_BATCH,
-            "resumed_at": first, "cli_s": cli_s,
-            "equals_replayed_batches": same}
+        raise AssertionError(f"{arch_id}: the CLI's resumed run differs from "
+                             f"batches 0..2 stepped twice (worst leaf "
+                             f"{worst}, limit {tol})")
+    return {"steps": list(TRAIN_CLI_STEPS), **shape, "resumed_at": first,
+            "cli_s": cli_s, "equals_replayed_batches": same,
+            "bit_equal": bits, "worst_leaf_rel_diff": worst, "limit": tol}
 
 
 def phase_train(dev, card: str) -> dict:
@@ -3446,8 +3511,8 @@ def phase_train(dev, card: str) -> dict:
     split = []
     for _ in range(TRAIN_SPLIT_STEPS):
         batch = trainer.batch_tensors(next(batches), dev)
-        params, opt_state, ms = _split_step(params, opt_state, batch, opt,
-                                            cfg)
+        params, opt_state, ms = _split_step(RS.loss_fn, params, opt_state,
+                                            batch, opt, cfg)
         split.append(ms)
     profiled = [trainer.batch_tensors(next(batches), dev)
                 for _ in range(TRAIN_PROFILE_STEPS)]
@@ -3490,7 +3555,7 @@ def phase_train(dev, card: str) -> dict:
             cases.append({"kind": kind, **_check_backward(
                 g, idx, v, mode, got, f"{kind} {v}x{d} {b}x{l}")})
     del idx, g, got
-    cli = _train_cli(dev)
+    cli = _train_cli(dev, "two-tower-retrieval", TRAIN_DIR)
     torch.cuda.empty_cache()
 
     after_first = np.asarray(step_s[1:])
@@ -3665,14 +3730,14 @@ def _attn_bound(q, k, window: int, q_offset: int):
 
 class _Recorder(_Hook):
     """Keeps the arguments, as given, of the calls of
-    ``models.layers.attention`` (what every LM layer calls) of layers 0 and
-    1 — gemma2's first local and first global layer — of the latest
-    step."""
+    ``models.layers.attention`` (what every LM layer calls) of layers 0 to
+    ``keep`` - 1 — by default 0 and 1, gemma2's first local and first
+    global layer — of the latest step."""
 
-    def __init__(self, n_layers: int):
+    def __init__(self, n_layers: int, keep: int = 2):
         super().__init__(layers, "attention",
-                         lambda i: i % n_layers if i % n_layers < 2 else None,
-                         clone=False)
+                         lambda i: i % n_layers if i % n_layers < keep
+                         else None, clone=False)
 
     @property
     def step(self) -> dict:
@@ -3705,9 +3770,12 @@ def _time_attention_at(rec: dict, reps: int, plain_reps: int,
                        chunk: int, graph: bool) -> dict:
     """The kernel (which of them ran, its split count, its achieved rates),
     the plain version (query-chunked as the model's plain path runs it) and
-    ``scaled_dot_product_attention`` (it has no softcap: timed with softcap
-    0 and the layer's mask, a yardstick only) at the model's own q/k/v of
-    layers 0 and 1."""
+    ``scaled_dot_product_attention`` at the model's own q/k/v of the
+    recorded layers: with the layer's mask, ``is_causal`` where the query
+    and key lengths match and there is no window, else a boolean mask. It
+    has no softcap: at a softcap layer it is timed with softcap 0, a
+    yardstick only (``library_softcap0_ms``); at a layer without one it
+    computes the same function (``library_ms``)."""
     out = {}
     for i, (q, k, v, kw) in sorted(rec.items()):
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -3746,11 +3814,16 @@ def _time_attention_at(rec: dict, reps: int, plain_reps: int,
             def library():
                 return torch.nn.functional.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask[None, None], enable_gqa=True)
-        row["library_softcap0_ms"] = (graph_ms(library, reps) if graph
-                                      else eager_ms(library, reps))
-        row["library"] = ("none (softcap); F.scaled_dot_product_attention "
-                          "timed at the same shape and mask with softcap 0 "
-                          "(is_causal, else a boolean mask)")
+        lib_ms = graph_ms(library, reps) if graph else eager_ms(library, reps)
+        if cap > 0:
+            row["library_softcap0_ms"] = lib_ms
+            row["library"] = ("none (softcap); F.scaled_dot_product_attention "
+                              "timed at the same shape and mask with softcap "
+                              "0 (is_causal, else a boolean mask)")
+        else:
+            row["library_ms"] = lib_ms
+            row["library"] = ("F.scaled_dot_product_attention (is_causal, "
+                              "else a boolean mask)")
         out[f"layer{i}"] = row
     return out
 
@@ -3836,26 +3909,16 @@ def _logit_check(got, want, what: str) -> dict:
             "top1_margin": margin}
 
 
-def phase_lm(dev) -> dict:
-    """gemma2-9b's CONFIG (bf16, 42 layers, d 3584, vocab 256,000, tied
-    head) served by the port's LMServer as the JAX package's serve_lm
-    serves it: 4 slots, 8 requests of 8,192-token prompts from numpy's
-    seeded generator, 32 tokens each, max_len 8,225 — every attention call
-    of every prefill and decode round on the flash_attention kernel."""
-    cfg = get_arch(LM_ARCH).config
-    torch.cuda.empty_cache()
-    free_before = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t = time.perf_counter()
-    params = T.init_params(cfg, generator=torch.Generator(device=dev)
-                           .manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t
-    param_bytes = sum(x.numel() * x.element_size()
-                      for _, x in layers.leaves(params))
-    server = serve.LMServer(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    cache_bytes = 2 * server.cache_k.numel() * server.cache_k.element_size()
-
+def _serve_lm(server, cfg, what: str) -> dict:
+    """``serve_requests`` on ``server`` at the LM phases' schedule (4 slots,
+    8 requests of 8,192-token prompts from numpy's seeded generator, 32
+    tokens each), each prefill and decode round timed on the host's clock
+    (each ends in a host read of its argmax) with its flash_attention
+    launches counted, the last decode round's attention arguments of
+    layers 0 and 1 kept (``decode_rec``). Checks the token streams, that
+    every prefill and round ran the kernel in each layer, and that every
+    prefill call took the tensor-core kernel and every decode call the
+    split one."""
     prefill_s, prefill_l, round_s, round_l = [], [], [], []
     add, rnd = server.add_request, server.decode_round
 
@@ -3879,30 +3942,64 @@ def phase_lm(dev) -> dict:
             server, requests=LM_REQUESTS, prompt_len=LM_PROMPT, gen=LM_GEN,
             rng=np.random.default_rng(0))
         serve_s = time.perf_counter() - t
+    # the wrappers hold the server's bound methods: as its attributes they
+    # would make a cycle that keeps the server (its cache, its params)
+    # alive until a garbage collection
+    del server.add_request, server.decode_round
     launches = _read_launches(("flash_attention",))
     by_kernel = dict(fa.flash_attention.kernel_launches)
-    peak = torch.cuda.max_memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    n_tokens = sum(len(v) for v in outputs.values())
     expect = cfg.n_layers * (len(prefill_s) + len(round_s))
     if sorted(outputs) != list(range(LM_REQUESTS)) \
             or any(len(v) != LM_GEN or min(v) < 0 or max(v) >= cfg.vocab
                    for v in outputs.values()):
-        raise AssertionError("lm: the requests' token streams are incomplete")
+        raise AssertionError(f"{what}: the requests' token streams are "
+                             f"incomplete")
     if len(prefill_s) != LM_REQUESTS or launches["flash_attention"] != expect \
             or set(prefill_l + round_l) != {cfg.n_layers}:
-        raise AssertionError(f"lm: not every prefill and decode round ran the "
-                             f"kernel in each layer: {launches}, prefills "
+        raise AssertionError(f"{what}: not every prefill and decode round ran "
+                             f"the kernel in each layer: {launches}, prefills "
                              f"{prefill_l}, rounds {round_l}")
     # every prefill call on the tensor-core kernel, every decode call split
     if by_kernel != {"f32": 0, "prefill": cfg.n_layers * len(prefill_s),
                      "split": cfg.n_layers * len(round_s)}:
-        raise AssertionError(f"lm: the bf16 calls did not take the prefill "
-                             f"and split kernels: {by_kernel}")
+        raise AssertionError(f"{what}: the bf16 calls did not take the "
+                             f"prefill and split kernels: {by_kernel}")
+    return {"outputs": outputs, "serve_s": serve_s, "prefill_s": prefill_s,
+            "round_s": round_s, "launches": launches,
+            "launches_by_kernel": by_kernel, "decode_rec": dict(rec.step)}
+
+
+def phase_lm(dev) -> dict:
+    """gemma2-9b's CONFIG (bf16, 42 layers, d 3584, vocab 256,000, tied
+    head) served by the port's LMServer as the JAX package's serve_lm
+    serves it: 4 slots, 8 requests of 8,192-token prompts from numpy's
+    seeded generator, 32 tokens each, max_len 8,225 — every attention call
+    of every prefill and decode round on the flash_attention kernel."""
+    cfg = get_arch(LM_ARCH).config
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    param_bytes = sum(x.numel() * x.element_size()
+                      for _, x in layers.leaves(params))
+    server = serve.LMServer(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    cache_bytes = 2 * server.cache_k.numel() * server.cache_k.element_size()
+
+    run = _serve_lm(server, cfg, "lm")
+    prefill_s, round_s = run["prefill_s"], run["round_s"]
+    outputs, serve_s = run["outputs"], run["serve_s"]
+    launches, by_kernel = run["launches"], run["launches_by_kernel"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_tokens = sum(len(v) for v in outputs.values())
 
     with torch.inference_mode():
         # the kernel at a decode round's own q/k/v (4 slots, the last round)
-        decode_rec = dict(rec.step)
+        decode_rec = run.pop("decode_rec")
         timing = {"decode": _time_attention_at(decode_rec, 20, 5,
                                                cfg.attn_chunk, graph=True)}
         if any(row["kernel"] != "split" or row["n_split"] < 2
@@ -3912,7 +4009,7 @@ def phase_lm(dev) -> dict:
         step = _decode_step_breakdown(params, cfg, server.cache_k,
                                       server.cache_v,
                                       decode_rec[1][3]["q_offset"])
-        del server, decode_rec, rec
+        del server, decode_rec, run
         torch.cuda.empty_cache()
 
         # the first request again: its prompt is the generator's first draw
@@ -3997,6 +4094,655 @@ def phase_lm(dev) -> dict:
     return out
 
 
+def _routing_diff(kernel: list, plain: list) -> dict:
+    """The share of (token, layer) top-k sets that two paths route
+    differently, from each layer's (T, k) expert choices."""
+    diff = [(torch.sort(a, dim=1).values != torch.sort(b, dim=1).values)
+            .any(dim=1) for a, b in zip(kernel, plain)]
+    per_layer = [float(d.float().mean()) for d in diff]
+    return {"share": float(torch.stack(diff).float().mean()),
+            "layers": len(diff), "tokens": int(diff[0].numel()),
+            "max_layer_share": max(per_layer),
+            "first_layer_differing": next(
+                (i for i, x in enumerate(per_layer) if x > 0), None)}
+
+
+def _route_hook() -> _Hook:
+    """Keeps every ``models.moe.route`` call's outputs (probs, gate,
+    expert), by call: one a layer."""
+    return _Hook(moe, "route", lambda i: i, clone=False)
+
+
+def _choices(hook: _Hook) -> list:
+    return [hook.kept[i][2][2] for i in sorted(hook.kept)]
+
+
+def _check_dispatch(p, h, mcfg) -> dict:
+    """One layer's dispatch on the card against the host: from the card's
+    own choices (``route`` at the layer's recorded input), every (token,
+    choice)'s running count at its expert, the kept mask and the kept load
+    recomputed on the host, integer for integer; then ``moe_apply``'s
+    output against a per-token dense f32 sum of the kept experts, each
+    token's chosen experts run on its row alone and weighted by its
+    gates."""
+    b, s, d = h.shape
+    t, e, k = b * s, mcfg.n_experts, mcfg.top_k
+    xf = h.reshape(t, d)
+    _, gate, expert = moe.route(p, xf, mcfg)
+    plan = moe.dispatch_plan(expert, t, mcfg)
+    y, _, load = moe.moe_apply(p, h, mcfg)
+    fe = expert.cpu().numpy().reshape(-1)        # one group: token-major
+    pos = np.empty(fe.size, np.int64)
+    seen = np.zeros(e, np.int64)
+    for j, ex in enumerate(fe):
+        pos[j] = seen[ex]
+        seen[ex] += 1
+    keep = pos < plan.cap
+    want_load = np.bincount(fe[keep], minlength=e).astype(np.float32)
+    exact = {"pos": np.array_equal(plan.pos.cpu().numpy().reshape(-1), pos),
+             "keep": np.array_equal(plan.keep.cpu().numpy().reshape(-1), keep),
+             "load": np.array_equal(load.cpu().numpy(), want_load),
+             "idx_e": np.array_equal(plan.idx_e.cpu().numpy().reshape(-1),
+                                     np.where(keep, fe, e)),
+             "idx_c": np.array_equal(plan.idx_c.cpu().numpy().reshape(-1),
+                                     np.where(keep, pos, 0))}
+    if not all(exact.values()):
+        raise AssertionError(f"moe: the card's dispatch differs from the "
+                             f"host's at layer {MOE_DISPATCH_LAYER}: {exact}")
+    ref = torch.zeros((t, d), dtype=torch.float32, device=h.device)
+    tok = torch.arange(t, device=h.device).repeat_interleave(k)
+    kept = torch.from_numpy(keep).to(h.device)
+    flat_e, flat_g = expert.reshape(-1), gate.reshape(-1)
+    for ex in range(e):
+        sel = torch.nonzero((flat_e == ex) & kept).squeeze(1)
+        rows = tok[sel]
+        x = xf[rows].float()
+        w = {n: p[n][ex].float() for n in ("wi", "wg", "wo")}
+        ye = (torch.nn.functional.silu(x @ w["wg"]) * (x @ w["wi"])) @ w["wo"]
+        ref.index_add_(0, rows, ye * flat_g[sel, None])
+    got = y.reshape(t, d).float()
+    rel = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    if not torch.isfinite(got).all() or rel > MOE_DENSE_REL:
+        raise AssertionError(f"moe: the combined output differs from the "
+                             f"dense sum of the kept experts by {rel}")
+    return {"layer": MOE_DISPATCH_LAYER, "tokens": t, "cap": plan.cap,
+            "exact": exact, "dropped": int((~keep).sum()),
+            "max_load": int(want_load.max()), "min_load": int(want_load.min()),
+            "dense_rel_l2": rel, "limit_rel_l2": MOE_DENSE_REL,
+            "dense_max_abs_err": float((got - ref).abs().max())}
+
+
+class _StageMarks:
+    """Within it, each named ``module.attr`` records a CUDA event as it is
+    entered and as it returns: ``marks`` lists (attr, "in" or "out",
+    event, output) in call order, the output only for the attrs in
+    ``keep`` (a whole step's intermediates would not fit beside a large
+    model). The path runs as it is, only marked."""
+
+    def __init__(self, targets, keep=()):
+        self.targets, self.keep, self.marks = targets, keep, []
+
+    def __enter__(self):
+        self._fns = []
+        for module, attr in self.targets:
+            fn = getattr(module, attr)
+            self._fns.append((module, attr, fn))
+
+            def hooked(*a, _fn=fn, _attr=attr, **kw):
+                self._mark(_attr, "in", None)
+                out = _fn(*a, **kw)
+                self._mark(_attr, "out", out)
+                return out
+
+            setattr(module, attr, hooked)
+        return self
+
+    def _mark(self, attr: str, io: str, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((attr, io, ev, out if attr in self.keep else None))
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self._fns:
+            setattr(module, attr, fn)
+
+
+# the MoE layer's stages on the real path, each between two marks: the
+# q/k/v projections and rope; the attention (the kernel); the output
+# projection, residual and ln2 (to the router's entry); router + dispatch
+# (route, the aux loss, the positions, the buffer scatter); the expert
+# GEMMs (three batched products over the experts); the combine (gather,
+# gates, sum) and the kept load
+MOE_STAGES = {"qkv_ms": (("_qkv", "in"), ("_qkv", "out")),
+              "attention_ms": (("attention", "in"), ("attention", "out")),
+              "out_ln2_ms": (("attention", "out"), ("route", "in")),
+              "router_dispatch_ms": (("route", "in"), ("dispatch", "out")),
+              "expert_gemms_ms": (("experts", "in"), ("experts", "out")),
+              "combine_ms": (("combine", "in"), ("kept_load", "out"))}
+
+
+def _moe_layer_split(run, reps: int = MOE_SPLIT_REPS) -> dict:
+    """The MoE layers of ``run`` (the real prefill or decode step) cut by
+    CUDA events into ``MOE_STAGES``, marked where the path calls
+    ``transformer._qkv``, ``layers.attention`` and ``moe``'s stage
+    functions (``_StageMarks``): each stage the median over every layer of
+    ``reps`` runs after a warm-up. Where the host issues slower than the
+    card runs, a stage's time includes the card's wait for it."""
+    targets = [(T, "_qkv"), (layers, "attention"),
+               *((moe, f) for f in ("route", "dispatch_plan", "dispatch",
+                                    "experts", "combine", "kept_load"))]
+    rows, cap = [], None
+    for rep in range(reps + 1):
+        with _StageMarks(targets, keep=("dispatch_plan",)) as sm:
+            run()
+        torch.cuda.synchronize()
+        if rep == 0:
+            continue
+        layer = None
+        for attr, io, ev, out in sm.marks:
+            if (attr, io) == ("_qkv", "in"):
+                layer = {}
+                rows.append(layer)
+            layer[(attr, io)] = ev
+            if (attr, io) == ("dispatch_plan", "out"):
+                cap = out.cap
+    med = {name: float(np.median([r[a].elapsed_time(r[b]) for r in rows]))
+           for name, (a, b) in MOE_STAGES.items()}
+    return {**med, "layer_ms": sum(med.values()), "cap": cap, "reps": reps,
+            "layers_timed": len(rows) // reps}
+
+
+def _moe_bytes(cfg) -> dict:
+    """Bytes a token's MoE layer must read at the least: the router, and
+    the chosen experts' weights (each expert's once per step however many
+    tokens take it)."""
+    m = cfg.moe
+    expert = 3 * cfg.d_model * m.d_ff_expert * 2
+    return {"expert_bytes": expert, "all_experts_bytes": m.n_experts * expert,
+            "router_bytes": cfg.d_model * m.n_experts * 4}
+
+
+def phase_moe(dev, card: str) -> dict:
+    """moonshot-v1-16b-a3b's CONFIG (bf16, 48 layers, d 2048, 64 experts
+    top 6 with expert ff 1408, vocab 163,840: 56.12 GB) served by the
+    port's LMServer as phase lm serves gemma2 — 4 slots, 8 requests of
+    8,192-token prompts from numpy's seeded generator, 32 tokens each,
+    max_len 8,225 (a 12.94 GB cache) — every attention call of every
+    prefill and decode round on the flash_attention kernel, the router,
+    dispatch and expert products as plain ops (``models/moe.py``; the JAX
+    package's MoE is XLA ops with no Pallas kernel).
+
+    Checks: every attention call of one prefill and one decode round
+    against the plain attention, to one bf16 ulp; the prefill and decode
+    logits against the ``use_kernel=False`` path at LOGIT_REL, with the
+    share of (token, layer) top-k sets the two paths route differently;
+    one layer's dispatch recomputed on the host from the card's own
+    choices and its combine against a dense sum (``_check_dispatch``).
+    Phase lm's "prefill + decode vs forward" check is left out: the
+    capacity depends on the token count, so a forward over S + 1 tokens
+    dispatches with another capacity than the prefill over S and the
+    one-token decode (the JAX package's own test skips it for MoE,
+    tests/test_models_lm.py:39-40)."""
+    cfg = get_arch(MOE_ARCH).config
+    gc.collect()                  # phase lm's model must be gone
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    param_bytes = sum(x.numel() * x.element_size()
+                      for _, x in layers.leaves(params))
+    server = serve.LMServer(params, cfg, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    cache_bytes = 2 * server.cache_k.numel() * server.cache_k.element_size()
+    run = _serve_lm(server, cfg, "moe")
+    prefill_s, round_s = run["prefill_s"], run["round_s"]
+    serve_s, launches = run["serve_s"], run["launches"]
+    by_kernel = run["launches_by_kernel"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_tokens = sum(len(v) for v in run["outputs"].values())
+
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, LM_PROMPT) \
+        .astype(np.int32)            # the first request's prompt
+    toks = torch.from_numpy(prompt[None]).to(dev)
+    with torch.inference_mode():
+        decode_rec = run.pop("decode_rec")
+        timing = {"decode": _time_attention_at(decode_rec, 20, 5,
+                                               cfg.attn_chunk, graph=True)}
+        if any(row["kernel"] != "split" or row["n_split"] < 2
+               for row in timing["decode"].values()):
+            raise AssertionError(f"moe: a decode call did not split over the "
+                                 f"keys: {timing['decode']}")
+        pos = decode_rec[1][3]["q_offset"]
+        step = _decode_step_breakdown(params, cfg, server.cache_k,
+                                      server.cache_v, pos)
+        last = torch.from_numpy(server.tokens[:, None].copy()).to(dev)
+        split = {"decode": _moe_layer_split(lambda: T.decode_step_inplace(
+            params, last, server.cache_k, server.cache_v, pos, cfg))}
+        split["decode"]["tokens"] = LM_SLOTS
+        del server, decode_rec, run, last
+        torch.cuda.empty_cache()
+        split["prefill"] = _moe_layer_split(
+            lambda: T.prefill_step(params, toks, cfg))
+        split["prefill"]["tokens"] = LM_PROMPT
+        torch.cuda.synchronize()
+        with _profiler() as prof:
+            t = time.perf_counter()
+            T.prefill_step(params, toks, cfg)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t
+        prefill_busy = _profiled_busy(prof, traced)
+        del prof
+
+        # every layer's attention call of one prefill, its routing, and
+        # the dispatch layer's MoE input
+        with _Recorder(cfg.n_layers, keep=cfg.n_layers) as rec, \
+                _route_hook() as routes, \
+                _Hook(T, "moe_apply", lambda i: 0 if i == MOE_DISPATCH_LAYER
+                      else None, clone=False) as moe_in:
+            logits, ck, cv = T.prefill_step(params, toks, cfg)
+        checks = {"attention_prefill": _check_attention_at(
+            rec.step, "moe prefill", cfg.attn_chunk)}
+        timing["prefill"] = _time_attention_at({0: rec.step[0]}, 10, 1,
+                                               cfg.attn_chunk, graph=False)
+        if timing["prefill"]["layer0"]["kernel"] != "prefill":
+            raise AssertionError(f"moe: a prefill call did not take the "
+                                 f"tensor-core kernel: {timing['prefill']}")
+        del rec
+        kernel_routes = _choices(routes)
+        del routes
+        (mp, h, _), _, _, _ = moe_in.kept[0]
+        checks["dispatch"] = _check_dispatch(mp, h, cfg.moe)
+        del moe_in, mp, h
+        with _route_hook() as routes:
+            plain, _, _ = T.prefill_step(params, toks, cfg, use_kernel=False)
+        checks["prefill_logits"] = _logit_check(logits, plain, "moe prefill")
+        checks["prefill_routing"] = _routing_diff(kernel_routes,
+                                                  _choices(routes))
+        del plain, routes, kernel_routes
+        shape = (cfg.n_layers, 1, LM_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+        cache_k = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+        cache_v = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+        cache_k[:, :, :LM_PROMPT] = ck
+        cache_v[:, :, :LM_PROMPT] = cv
+        del ck, cv
+        torch.cuda.empty_cache()
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        with _Recorder(cfg.n_layers, keep=cfg.n_layers) as rec, \
+                _route_hook() as routes:
+            dec, _, _ = T.decode_step_inplace(params, tok, cache_k.clone(),
+                                              cache_v.clone(), LM_PROMPT, cfg)
+        checks["attention_decode"] = _check_attention_at(
+            rec.step, "moe decode", cfg.attn_chunk)
+        del rec
+        kernel_routes = _choices(routes)
+        with _route_hook() as routes:
+            dec_plain, _, _ = T.decode_step_inplace(
+                params, tok, cache_k, cache_v, LM_PROMPT, cfg,
+                use_kernel=False)
+        checks["decode_logits"] = _logit_check(dec, dec_plain, "moe decode")
+        checks["decode_routing"] = _routing_diff(kernel_routes,
+                                                 _choices(routes))
+        del cache_k, cache_v, dec_plain, routes, kernel_routes
+    checks_peak = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+
+    kernel_prefill = timing["prefill"]["layer0"]["ms"] * cfg.n_layers
+    kernel_decode = timing["decode"]["layer0"]["ms"] * cfg.n_layers
+    prefill_p50, round_p50 = _ms_pct(prefill_s, 50), _ms_pct(round_s, 50)
+    out = {"phase": "moe", "arch": cfg.name, "card": card, "config": {
+               **{k: v for k, v in vars(cfg).items() if k != "moe"},
+               "moe": vars(cfg.moe)},
+           "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
+           "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+           "memory_allocated_before": before, "init_s": init_s,
+           "slots": LM_SLOTS, "requests": LM_REQUESTS,
+           "prompt_len": LM_PROMPT, "gen": LM_GEN, "max_len": LM_MAX_LEN,
+           "prefills": len(prefill_s), "decode_rounds": len(round_s),
+           "prefill_ms_p50": prefill_p50,
+           "prefill_ms_p99": _ms_pct(prefill_s, 99),
+           "decode_round_ms_p50": round_p50,
+           "decode_round_ms_p99": _ms_pct(round_s, 99),
+           "serve_s": serve_s, "generated_tokens": n_tokens,
+           "tokens_per_s": n_tokens / serve_s,
+           "decode_tokens_per_s": LM_SLOTS * len(round_s) / sum(round_s),
+           "prefill_tokens_per_s": LM_PROMPT / (prefill_p50 * 1e-3),
+           "decode_step": step, "prefill_busy": prefill_busy,
+           "layer_split": split, "moe_bytes": _moe_bytes(cfg),
+           "max_memory_allocated": peak,
+           "max_memory_allocated_checks": checks_peak,
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "kernel_ms_per_prefill": kernel_prefill,
+           "kernel_ms_per_decode_round": kernel_decode,
+           "kernel_share": {"prefill": kernel_prefill / prefill_p50,
+                            "decode_round": kernel_decode / round_p50},
+           "kernel": timing, "checks": checks}
+    emit(out)
+    return out
+
+
+class _ForcedRoutes(_Hook):
+    """Within it, ``models.moe.route``'s call i (one a layer) routes to
+    ``choices[i]``: its experts those, its gates the call's own probs at
+    them, normalised as ``route`` normalises its top k — a path fed
+    another path's expert choices."""
+
+    def __init__(self, choices: list):
+        super().__init__(moe, "route", lambda i: i, clone=False)
+        self.choices = choices
+
+    def __enter__(self):
+        fn = self._fn = getattr(self.module, self.attr)
+
+        def forced(p, xf, cfg, expert_load=None):
+            i = self.calls
+            self.calls += 1
+            expert = self.choices[i]
+            probs, _, _ = fn(p, xf, cfg, expert_load)
+            gate = torch.gather(probs, 1, expert)
+            out = (probs, gate / torch.sum(gate, dim=-1, keepdim=True),
+                   expert)
+            self.kept[i] = ((p, xf, cfg), {}, out, None)
+            return out
+
+        setattr(self.module, self.attr, forced)
+        return self
+
+
+def _lm_first_step(loss_fn, params, batch, cfg) -> dict:
+    """The first step's loss, xent, aux and gradients of the router, the
+    experts and wq, with the kernel, with the plain attention
+    (``use_kernel=False``, query-chunked), and with the plain attention fed
+    the kernel step's expert choices (``_ForcedRoutes``: the witness that
+    separates routing flips from attention error), on the same params and
+    batch — before the optimizer's moments exist, so they fit beside each
+    other. Every attention call of the kernel step's forward against the
+    plain attention at its own q/k/v (``_check_attention_at``); its
+    flash_attention launches (the forward's only: the backward recomputes
+    through the plain version), and the share of (token, layer) top-k sets
+    the kernel and plain forwards route differently."""
+    got = {}
+    runs = (("kernel", True), ("plain", False), ("plain_kernel_routes", False))
+    for name, use_kernel in runs:
+        l0 = fa.flash_attention.launches
+        hook = (_ForcedRoutes(got["kernel"]["choices"])
+                if name == "plain_kernel_routes" else _route_hook())
+        with hook as routes, _Recorder(cfg.n_layers, keep=cfg.n_layers) \
+                as rec:
+            loss, metrics, grads = train_steps.value_and_grad(
+                functools.partial(loss_fn, use_kernel=use_kernel), params,
+                batch, cfg)
+        launched = fa.flash_attention.launches - l0   # not the check's
+        if name == "kernel":
+            with torch.no_grad():
+                attention = _check_attention_at(
+                    {i: (*(x.detach() for x in a[:3]), a[3])
+                     for i, a in rec.step.items()},
+                    "lm_train forward", cfg.attn_chunk)
+        del rec
+        keep = {}
+        for path in LM_TRAIN_GRADS:
+            a, b = path.split("/")
+            keep[path] = grads["layers"][a][b]
+        got[name] = {"loss": float(loss),
+                     **{k: float(v) for k, v in metrics.items()},
+                     "launches": launched,
+                     "grads": keep, "choices": _choices(routes)}
+        del grads, routes, keep
+        torch.cuda.empty_cache()
+    k, p, f = got["kernel"], got["plain"], got["plain_kernel_routes"]
+
+    def rel_l2(a, b):
+        return {path: float(torch.linalg.vector_norm(
+                    a["grads"][path].float() - b["grads"][path].float())
+                    / torch.linalg.vector_norm(b["grads"][path].float()))
+                for path in LM_TRAIN_GRADS}
+
+    scalars = ("loss", "xent", "aux", "launches")
+    out = {"kernel": {n: k[n] for n in scalars},
+           "plain": {n: p[n] for n in scalars},
+           "plain_kernel_routes": {n: f[n] for n in scalars},
+           "attention_forward": attention,
+           "routing": _routing_diff(k["choices"], p["choices"]),
+           "loss_rel": {n: abs(k[n] - p[n]) / abs(p[n])
+                        for n in ("loss", "xent")},
+           "limit_loss_rel": LM_TRAIN_LOSS_REL,
+           "grad_rel_l2": rel_l2(k, p),
+           "limit_grad_rel_l2": LM_TRAIN_GRAD_REL,
+           "same_routes": {
+               "routes_equal": len(f["choices"]) == cfg.n_layers and all(
+                   torch.equal(a, b) for a, b in zip(f["choices"],
+                                                     k["choices"])),
+               "loss_rel": {n: abs(k[n] - f[n]) / abs(f[n])
+                            for n in ("loss", "xent")},
+               "grad_rel_l2": rel_l2(k, f),
+               "limit_grad_rel_l2": LM_TRAIN_SAME_ROUTES_REL}}
+    same = out["same_routes"]
+    finite = all(np.isfinite([x[n] for x in (k, p, f)]).all()
+                 for n in ("loss", "xent", "aux"))
+    if not finite or max(out["loss_rel"].values()) > LM_TRAIN_LOSS_REL \
+            or max(same["loss_rel"].values()) > LM_TRAIN_LOSS_REL:
+        raise AssertionError(f"lm_train: the first step's loss differs from "
+                             f"the plain attention's: {out}")
+    if max(out["grad_rel_l2"].values()) > LM_TRAIN_GRAD_REL \
+            or not all(np.isfinite(list(out["grad_rel_l2"].values()))):
+        raise AssertionError(f"lm_train: the first step's gradients differ "
+                             f"from the plain attention's: {out}")
+    if not same["routes_equal"] \
+            or max(same["grad_rel_l2"].values()) > LM_TRAIN_SAME_ROUTES_REL \
+            or not all(np.isfinite(list(same["grad_rel_l2"].values()))):
+        raise AssertionError(f"lm_train: on the same expert choices the "
+                             f"first step's gradients differ from the plain "
+                             f"attention's: {out}")
+    if k["launches"] != cfg.n_layers or p["launches"] != 0 \
+            or f["launches"] != 0:
+        raise AssertionError(f"lm_train: flash_attention launched "
+                             f"{k['launches']} / {p['launches']} / "
+                             f"{f['launches']} times in the kernel / plain "
+                             f"steps, not {cfg.n_layers} / 0 / 0")
+    return out
+
+
+def phase_lm_train(dev, card: str) -> dict:
+    """LM training at full width through the port's trainer:
+    ``launch.train.build_lm`` for ``--arch moonshot-v1-16b-a3b --full``
+    (CONFIG at every width, n_layers cut to FULL_TRAIN_LAYERS: bf16, 2.95 B
+    params) on ``token_batches`` of 2 x 4,096 tokens, AdamW with the CLI's
+    warmup and cosine, ``FaultTolerantLoop`` over 10 steps; every layer's
+    attention forward on flash_attention (its backward recomputes through
+    the plain version, as the JAX package's custom_vjp does), the MoE and
+    the vocab-chunked loss as plain ops. The first step is held to the
+    plain attention's (``_lm_first_step``); every loss finite; a fixed
+    batch's loss falls; the trainer CLI at the smoke config resumes as
+    its replayed batches (``_train_cli``). Runs in a process of its own
+    (``phase_lm_train_process``) whose allocator grows its segments in
+    place, as the trainer CLI's ``--full`` LM run has it; the phase checks
+    that it does."""
+    arch = get_arch(LM_TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    cfg, loss_fn, params, batches = trainer.build_lm(arch, argparse.Namespace(
+        full=True, seed=0, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    if cfg != dataclasses.replace(arch.config,
+                                  n_layers=trainer.FULL_TRAIN_LAYERS):
+        raise AssertionError(f"lm_train: --full built {cfg}")
+    first = trainer.batch_tensors(dp.lm_batch(
+        cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0, step=0), dev)
+    checked = _lm_first_step(loss_fn, params, first, cfg)
+    first_peak = torch.cuda.max_memory_allocated(dev)
+    del first
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, LM_TRAIN_STEPS // 10 + 1,
+                                     LM_TRAIN_STEPS))
+    opt_state = opt.init(params)
+    state_bytes = sum(x.numel() * x.element_size() for x in
+                      tree_leaves(params) + tree_leaves(opt_state["mu"])
+                      + tree_leaves(opt_state["nu"]))
+    step = train_steps.train_step(loss_fn, cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    losses, step_s = [], []
+
+    def stepper(state, batch):
+        params, opt_state = state
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(
+            params, opt_state, trainer.batch_tensors(batch, dev))
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        return (params, opt_state), metrics
+
+    loop = FaultTolerantLoop(CheckpointManager(
+        os.path.join(LM_TRAIN_DIR, "loop"), interval=10 ** 9))
+    _reset_launches()
+    t = time.perf_counter()
+    (params, opt_state), final = loop.run(
+        (params, opt_state), itertools.islice(batches, LM_TRAIN_STEPS),
+        stepper)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches = _read_launches(("flash_attention",))
+    by_kernel = dict(fa.flash_attention.kernel_launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the segments grow in place, as launch.train.grow_segments has them
+    expandable = [seg.get("is_expandable")
+                  for seg in torch.cuda.memory_snapshot()]
+    if not expandable or not all(expandable):
+        raise AssertionError(f"lm_train: the allocator's segments are fixed "
+                             f"({len(expandable)} segments): "
+                             f"launch.train.grow_segments did not take")
+    failures = [e for e in loop.events if e["event"] == "failure"]
+    if failures or final != LM_TRAIN_STEPS or len(losses) != LM_TRAIN_STEPS:
+        raise AssertionError(f"lm_train: the loop failed: {failures}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train: a loss is not finite: {losses}")
+    # forward only, on the tensor-core kernel
+    if launches["flash_attention"] != cfg.n_layers * LM_TRAIN_STEPS \
+            or by_kernel["prefill"] != launches["flash_attention"]:
+        raise AssertionError(f"lm_train: launches {launches} {by_kernel}, "
+                             f"expected {cfg.n_layers} a step on prefill")
+
+    batches = dp.token_batches(cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                               seed=0, start_step=LM_TRAIN_STEPS)
+    split = []
+    for _ in range(LM_TRAIN_SPLIT_STEPS):
+        batch = trainer.batch_tensors(next(batches), dev)
+        params, opt_state, ms = _split_step(loss_fn, params, opt_state,
+                                            batch, opt, cfg)
+        split.append(ms)
+    profiled = [trainer.batch_tensors(next(batches), dev)
+                for _ in range(LM_TRAIN_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        t = time.perf_counter()
+        for batch in profiled:
+            params, opt_state, _ = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+    busy = _profiled_busy(prof, traced_s)
+    del prof, profiled
+
+    # one fixed batch, a fresh optimizer state: the loss must fall
+    del opt_state
+    opt_state = opt.init(params)
+    fixed = trainer.batch_tensors(dp.lm_batch(
+        cfg.vocab, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=10_000, step=0), dev)
+    fixed_losses = []
+    for _ in range(LM_TRAIN_FIXED_STEPS):
+        params, opt_state, m = step(params, opt_state, fixed)
+        fixed_losses.append(float(m["loss"]))
+    if not all(np.isfinite(fixed_losses)) \
+            or not fixed_losses[-1] < fixed_losses[0]:
+        raise AssertionError(f"lm_train: the fixed batch's loss did not "
+                             f"fall: {fixed_losses}")
+    del params, opt_state, fixed, step
+    torch.cuda.empty_cache()
+    cli = _train_cli(dev, LM_TRAIN_ARCH, LM_TRAIN_DIR, tol=LM_CLI_TOL)
+    torch.cuda.empty_cache()
+
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    after_first = np.asarray(step_s[1:])
+    step_ms = _ms_pct(after_first, 50)
+    split_p50 = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    flops = 3 * train_steps._lm_flops_fwd(cfg, tokens,
+                                          kv_len=LM_TRAIN_SEQ // 2)
+    shape = LM_SHAPES["train_4k"]
+    out = {"phase": "lm_train", "arch": cfg.name, "card": card,
+           "config": {**{k: v for k, v in vars(cfg).items() if k != "moe"},
+                      "moe": vars(cfg.moe)},
+           "reduced": {"n_layers": [arch.config.n_layers, cfg.n_layers],
+                       "batch": [shape.global_batch, LM_TRAIN_BATCH],
+                       "seq": [shape.seq_len, LM_TRAIN_SEQ]},
+           "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
+           "memory_allocated_before": before, "init_s": init_s,
+           "params_grads_moments_bytes": trainer.lm_state_bytes(cfg),
+           "params_and_moments_bytes": state_bytes,
+           "steps": LM_TRAIN_STEPS, "loop_s": loop_s,
+           "step_ms_p50": step_ms,
+           "step_ms_max": float(after_first.max() * 1e3),
+           "first_step_s": step_s[0],
+           "tokens_per_s": tokens / (step_ms * 1e-3),
+           "losses": losses, "first_step": checked,
+           "loop_first_loss_equals_checked":
+               losses[0] == checked["kernel"]["loss"],
+           "split_ms_p50": split_p50, "split_ms": split,
+           "model_flops_per_step": flops,
+           "model_flop_share": flops / (step_ms * 1e-3) / BF16_FLOPS,
+           "launches": launches, "launches_by_kernel": by_kernel,
+           "launches_per_step": {k: n / LM_TRAIN_STEPS
+                                 for k, n in launches.items()},
+           "max_memory_allocated": peak,
+           "max_memory_allocated_first_step_checks": first_peak,
+           "expandable_segments": len(expandable),
+           "busy": busy, "fixed_batch_losses": fixed_losses, "cli": cli}
+    emit(out)
+    return out
+
+
+def phase_lm_train_process(card: str) -> dict:
+    """Phase lm_train in a child process, started as ``python -m
+    repro_torch.launch.train --arch moonshot-v1-16b-a3b --full`` starts:
+    ``launch.train.grow_segments`` before the process first uses CUDA, so
+    the phase runs on the allocator settings the CLI gives such a run,
+    with the card this process has freed. The child prints the phase's
+    line; its dict comes back through a file."""
+    gc.collect()                  # phase moe's model must be gone
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(LM_TRAIN_RESULT), exist_ok=True)
+    if os.path.exists(LM_TRAIN_RESULT):
+        os.remove(LM_TRAIN_RESULT)
+    rc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase", "lm_train",
+         "--card", card, "--t0", repr(_T0)], cwd=ROOT).returncode
+    if rc != 0 or not os.path.exists(LM_TRAIN_RESULT):
+        raise AssertionError(f"lm_train: the phase's process exited with "
+                             f"{rc}")
+    with open(LM_TRAIN_RESULT) as f:
+        return json.load(f)
+
+
+def lm_train_main(card: str) -> int:
+    """The child of ``phase_lm_train_process``."""
+    trainer.grow_segments()       # before this process first uses CUDA
+    dev = torch.device("cuda", 0)
+    torch.cuda.init()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = phase_lm_train(dev, card)
+    with open(LM_TRAIN_RESULT, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def _shard_launches(shard: dict, name: str) -> dict:
     """A kernel's launches in each sharded run of phase shard."""
     runs = {**shard["twitter"], "grqc": shard["grqc"]}
@@ -4029,7 +4775,8 @@ def _backward_row(train: dict) -> dict:
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict, rebalance: dict, serve: dict, sweep: dict,
-                shard: dict, train: dict) -> dict:
+                shard: dict, train: dict, moe_run: dict,
+                lm_train: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -4213,6 +4960,21 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "library_softcap0_ms": fa_main["library_softcap0_ms"],
          "kernel": fa_main["kernel"], "tflop_per_s": fa_main["tflop_per_s"],
          "launches_by_kernel": lm["launches_by_kernel"],
+         # moonshot (no softcap, every layer global): its launches on the
+         # moe path and in the training steps, its prefill call at (1, 16,
+         # 8192, 128) bf16 causal beside F.scaled_dot_product_attention
+         "moe": {"launches": moe_run["launches"]["flash_attention"],
+                 "launches_by_kernel": moe_run["launches_by_kernel"],
+                 **{kind: {k: moe_run["kernel"][kind]["layer0"][k]
+                           for k in timed + ("bound_by", "kernel", "n_split",
+                                             "q", "kv", "flops",
+                                             "tflop_per_s", "gb_per_s",
+                                             "library")
+                           if k in moe_run["kernel"][kind]["layer0"]}
+                    for kind in ("prefill", "decode")}},
+         "lm_train": {"launches": lm_train["launches"]["flash_attention"],
+                      "per_step": lm_train["launches_per_step"][
+                          "flash_attention"]},
          **{f"{kind}_{name}": {k: lm["kernel"][kind][layer][k]
                                for k in timed + (
                                    "bound_by", "window", "kernel", "n_split",
@@ -4273,8 +5035,10 @@ def main() -> int:
     recsys = phase_recsys(dev)
     train = phase_train(dev, info["nvidia_smi"])
     lm = phase_lm(dev)
+    moe_run = phase_moe(dev, info["nvidia_smi"])
+    lm_train = phase_lm_train_process(info["nvidia_smi"])
     emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
-                     sweep, shard, train))
+                     sweep, shard, train, moe_run, lm_train))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -4283,4 +5047,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:         # phase_lm_train_process's child
+        p = argparse.ArgumentParser()
+        p.add_argument("--phase", choices=("lm_train",), required=True)
+        p.add_argument("--card", required=True)
+        p.add_argument("--t0", type=float, required=True)
+        child = p.parse_args()
+        _T0 = child.t0            # the parent's start: one clock for t_s
+        sys.exit(lm_train_main(child.card))
     sys.exit(main())

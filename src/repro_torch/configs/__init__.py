@@ -1,13 +1,16 @@
 """Architecture registry of the port: the archs it runs, selectable by
---arch id. The JAX package registers 10 archs; the port runs the three
-dense LMs (``gemma2-9b``, ``phi3-mini-3.8b``, ``deepseek-coder-33b``) and
-``two-tower-retrieval``, and asking for any other raises
+--arch id. The JAX package registers 10 archs; the port runs its five LMs
+(the dense ``gemma2-9b``, ``phi3-mini-3.8b``, ``deepseek-coder-33b`` and
+the MoE ``moonshot-v1-16b-a3b``, ``llama4-scout-17b-a16e``) and
+``two-tower-retrieval``, and asking for a GNN arch raises
 ``NotImplementedError`` naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 from repro_torch.configs import (
     deepseek_coder_33b,
     gemma2_9b,
+    llama4_scout_17b_a16e,
+    moonshot_v1_16b_a3b,
     phi3_mini_3p8b,
     two_tower_retrieval,
 )
@@ -18,17 +21,14 @@ from repro_torch.configs.shapes import (GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
 ARCHS: dict[str, ArchDef] = {
     m.ARCH.arch_id: m.ARCH
     for m in (gemma2_9b, deepseek_coder_33b, phi3_mini_3p8b,
-              two_tower_retrieval)
+              moonshot_v1_16b_a3b, llama4_scout_17b_a16e, two_tower_retrieval)
 }
 
 # the JAX package's other archs, and the ROADMAP item that ports each
 _PENDING = {
-    "moonshot-v1-16b-a3b": "moe", "llama4-scout-17b-a16e": "moe",
     "meshgraphnet": "gnn", "schnet": "gnn", "nequip": "gnn", "pna": "gnn",
 }
 _PENDING_ITEM = {
-    "moe": "ROADMAP A18.4 (the MoE LMs: models/moe.py's router and expert "
-           "dispatch)",
     "gnn": "ROADMAP A18.5 (the GNN slice: models/gnn)",
 }
 

@@ -3,13 +3,16 @@
 continuous batching, and recsys request scoring.
 
     python -m repro_torch.launch.serve --arch gemma2-9b --full
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --full \
+        --prompt-len 8192 --gen 32
     python -m repro_torch.launch.serve --arch gemma2-9b --device cpu
     python -m repro_torch.launch.serve --arch two-tower-retrieval --full
 
 LM serving keeps a fixed pool of ``--slots`` decode slots with a
 preallocated (S_max-slot) KV cache; a finished sequence frees its slot and
 the next queued request is prefilled into it. Every attention call of
-prefill and decode runs the ``flash_attention`` CUDA kernel on the card.
+prefill and decode runs the ``flash_attention`` CUDA kernel on the card;
+the MoE archs go through the same server (their FFN is ``models/moe.py``).
 A recsys request is ``--slots`` (user, item) pairs whose ids come from
 ``make_batch`` on the host; they are copied to the device and scored with
 ``serve_score``.
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -29,7 +33,11 @@ from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
 
 FULL_HELP = ("serve the arch's full config: for an LM the config as it is "
-             "(gemma2-9b: bf16, 18.48 GB of params); for two-tower-retrieval "
+             "(gemma2-9b: bf16, 18.48 GB of params; moonshot-v1-16b-a3b: "
+             "bf16, 56.12 GB of params plus, with 4 slots at max_len 8,225, "
+             "a 12.94 GB KV cache; llama4-scout-17b-a16e's 203.5 GB in bf16 "
+             "do not fit one 80 GB card and are refused); for "
+             "two-tower-retrieval "
              "CONFIG with bf16 tables (its f32 tables, 2 x 50,331,648 x 256 x "
              "4 B = 103.08 GB, do not fit one 80 GB card; in bf16 they take "
              "51.54 GB; the bag kernel widens rows to f32 and the towers stay "
@@ -125,10 +133,29 @@ def serve_requests(server, *, requests: int, prompt_len: int, gen: int,
     return server.outputs
 
 
+def device_bytes(device: torch.device) -> int:
+    """The memory of ``device``: a card's from its properties, the host's
+    physical memory for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def check_fits(cfg, capacity: int) -> None:
+    """Refuse an LM config whose params alone pass ``capacity`` bytes."""
+    need = cfg.param_count() * cfg.torch_dtype.itemsize
+    if need > capacity:
+        raise ValueError(
+            f"{cfg.name}: {need / 1e9:.1f} GB of params in {cfg.dtype} do not "
+            f"fit the device's {capacity / 1e9:.1f} GB; serving it needs the "
+            "model across cards (ROADMAP A18.4)")
+
+
 def serve_lm(args) -> int:
     arch = get_arch(args.arch)
     cfg = arch.config if args.full else arch.smoke_config
     dev = resolve_device(args.device)
+    check_fits(cfg, device_bytes(dev))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, generator=gen, device=dev)
     server = LMServer(params, cfg, slots=args.slots,

@@ -1,12 +1,13 @@
 """Train steps of the port (the counterpart of ``repro.launch.steps``'s
-optimizer plumbing, ``steps.py:71-127``): ``round_to``, ``make_opt`` and
-``_train_step_fn`` with gradient accumulation over microbatches.
+optimizer plumbing, ``steps.py:71-141``): ``round_to``, ``make_opt``,
+``_train_step_fn`` with gradient accumulation over microbatches, and the
+LM cells' model-FLOP count ``_lm_flops_fwd``.
 
 Without ``jit`` a step is eager autograd: ``value_and_grad`` runs the loss
 on views of the param leaves that require a gradient and takes
 ``torch.autograd.grad`` over them. The JAX package's ``StepBundle`` and
-its sharded ``build_*`` step functions come with the training mesh (ROADMAP
-A18.4 and the A18 tail).
+its sharded ``build_*`` step functions come with the training mesh (the
+rest of ROADMAP A18.4).
 """
 from __future__ import annotations
 
@@ -87,3 +88,17 @@ def _train_step_fn(loss_fn, cfg, micro: int = 1):
     opt)``."""
     opt = make_opt()
     return train_step(loss_fn, cfg, opt, micro), opt
+
+
+def _lm_flops_fwd(cfg, tokens: int, kv_len: int | None = None) -> float:
+    """2·N_active·tokens + attention score/AV flops."""
+    n = cfg.active_param_count()
+    kv = kv_len if kv_len is not None else 0
+    attn = 0.0
+    for w in cfg.windows:
+        span = kv if kv else 0
+        if w > 0 and span:
+            span = min(span, int(w))
+        # train/prefill: causal ≈ S/2 per query; decode: full span
+        attn += 4.0 * cfg.n_heads * cfg.head_dim * tokens * (span or 0)
+    return 2.0 * n * tokens + attn

@@ -1,18 +1,24 @@
 """Training entry point of the port (the counterpart of
 ``repro.launch.train``):
-fault-tolerant training of the two-tower recsys model.
+fault-tolerant training of the two-tower recsys model and of the LMs.
 
     python -m repro_torch.launch.train --arch two-tower-retrieval
     python -m repro_torch.launch.train --arch two-tower-retrieval --full
     python -m repro_torch.launch.train --arch two-tower-retrieval --device cpu
+    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --device cpu
+    python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --full \
+        --batch 2 --seq 4096
 
 config → params → eager autograd step (AdamW, linear warmup then cosine)
 → data pipeline → ``FaultTolerantLoop`` with background checkpoints in the
 JAX package's format; a run resumes from the latest checkpoint in
 ``--ckpt-dir``, as the JAX package's does (and, as there, restarts its
 batches from batch 0: ROADMAP C). On the card the bags run the
-``embedding_bag`` kernel forward and ``embedding_bag_backward`` backward.
-LM and GNN training come with ROADMAP A18.4 and A18.5.
+``embedding_bag`` kernel forward and ``embedding_bag_backward`` backward,
+and an LM's attention the ``flash_attention`` kernel forward (its backward
+recomputes through the plain version, as the JAX package's does). The
+data- and model-sharded training mesh is the rest of ROADMAP A18.4; GNN
+training comes with A18.5.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.core.state import resolve_device
 from repro_torch.data import pipeline as dp
 from repro_torch.launch.steps import train_step
 from repro_torch.models import recsys as RS
+from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import (
     adamw, linear_warmup_cosine, tree_leaves,
 )
@@ -41,27 +48,89 @@ from repro_torch.runtime.fault import FaultTolerantLoop
 # dense table gradients and AdamW's f32 mu and nu take 34.4 GB of the
 # card's 80; at the config's, the tables alone take 103 GB.
 FULL_TRAIN_VOCAB = 4_194_304
-FULL_HELP = ("train the arch's full config: two-tower-retrieval's CONFIG "
+# layers of an LM's CONFIG that --full trains on one card. A param costs 12
+# B (bf16 param and gradient, AdamW's f32 mu and nu): a moonshot-v1-16b-a3b
+# layer 6.85 GB, its embedding and head 8.05 GB, so 4 layers hold 35.4 GB
+# and 6 would hold 49.1 GB. That state may take at most FULL_TRAIN_STATE
+# bytes, half the 80 GB card: the other half holds the activations of a 2 x
+# 4,096-token batch, the loss's 8,192 x 163,840 f32 logits (5.4 GB, and its
+# gradient beside them), the plain attention that the backward recomputes
+# (2.1 GB of scores a layer) and the optimizer's f32 temporaries.
+FULL_TRAIN_LAYERS = 4
+FULL_TRAIN_STATE = 40e9
+FULL_HELP = ("train the arch's full config. two-tower-retrieval: CONFIG "
              f"with user_vocab = item_vocab = {FULL_TRAIN_VOCAB:,} (f32 tables "
              "of 2 x 50,331,648 x 256 x 4 B = 103 GB, and AdamW's f32 moments "
              "beside them, do not fit one 80 GB card; training the full "
-             "vocabulary needs the tables across cards)")
+             "vocabulary needs the tables across cards). An LM: CONFIG at "
+             f"every width with n_layers cut to {FULL_TRAIN_LAYERS}: at 12 B a "
+             "param (bf16 param and gradient, AdamW's f32 moments) a "
+             "moonshot-v1-16b-a3b layer takes 6.85 GB and its embedding and "
+             "head 8.05 GB, so 4 layers hold 35.4 GB and 6 would hold 49.1 "
+             "GB, past the 40 GB (half the card) left beside the "
+             "activations, the loss's logits and the optimizer's "
+             "temporaries; an LM whose cut state passes 40 GB "
+             "(llama4-scout-17b-a16e: 124.5 GB) is refused. At that size "
+             "the step's transients fragment the allocator's fixed "
+             "segments, so an LM's --full run has the CUDA allocator grow "
+             "its segments in place (expandable_segments)")
+
+
+def grow_segments() -> None:
+    """Have the CUDA caching allocator grow its segments in place
+    (``expandable_segments:True``), as an LM's ``--full`` run needs: its
+    step's transients (the loss's 5 GiB of f32 logits, 2 GiB of attention
+    scores a layer in the backward) fragment fixed segments until a step
+    fails with 14 GiB reserved but free (H100 80GB HBM3, 700.00 W). The
+    allocator reads ``PYTORCH_ALLOC_CONF`` when the process first uses
+    CUDA, so this must run before that; a setting the caller made there,
+    or in the older ``PYTORCH_CUDA_ALLOC_CONF``, is kept."""
+    for var in ("PYTORCH_ALLOC_CONF", "PYTORCH_CUDA_ALLOC_CONF"):
+        conf = os.environ.get(var)
+        if conf is not None:
+            if "expandable_segments" not in conf:
+                os.environ[var] = f"{conf},expandable_segments:True"
+            return
+    os.environ["PYTORCH_ALLOC_CONF"] = "expandable_segments:True"
+
+
+def lm_state_bytes(cfg) -> int:
+    """Bytes of an LM's params, gradients and AdamW moments: the param and
+    its gradient in ``cfg.dtype``, mu and nu f32."""
+    return cfg.param_count() * (2 * cfg.torch_dtype.itemsize + 8)
 
 
 def training_config(arch, full: bool):
-    """The recsys config ``--full`` trains (``arch.config`` with
-    ``user_vocab = item_vocab = FULL_TRAIN_VOCAB``, the one change from
-    the JAX package's config), else the smoke config."""
+    """The config ``--full`` trains, else the smoke config. Recsys:
+    ``arch.config`` with ``user_vocab = item_vocab = FULL_TRAIN_VOCAB``.
+    LM: ``arch.config`` with ``n_layers = FULL_TRAIN_LAYERS``, refused
+    (ValueError) if its training state passes ``FULL_TRAIN_STATE``. Each
+    is the one change from the JAX package's config."""
     if not full:
         return arch.smoke_config
+    if arch.family == "lm":
+        cfg = dataclasses.replace(arch.config, n_layers=FULL_TRAIN_LAYERS)
+        need = lm_state_bytes(cfg)
+        if need > FULL_TRAIN_STATE:
+            raise ValueError(
+                f"{arch.arch_id} at {FULL_TRAIN_LAYERS} layers holds "
+                f"{need / 1e9:.1f} GB of params, gradients and AdamW moments, "
+                f"more than the {FULL_TRAIN_STATE / 1e9:.0f} GB that leaves "
+                "one 80 GB card room for the step; training it needs the "
+                "sharded training mesh (ROADMAP A18.4)")
+        return cfg
     return dataclasses.replace(arch.config, user_vocab=FULL_TRAIN_VOCAB,
                                item_vocab=FULL_TRAIN_VOCAB)
 
 
 def build_lm(arch, args, device):
-    raise NotImplementedError(
-        f"training {arch.arch_id} is not ported yet: ROADMAP A18.4 (LM and "
-        "MoE training: flash_attention's backward, the training mesh)")
+    cfg = training_config(arch, args.full)
+    params = T.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
+        device=device)
+    batches = dp.token_batches(cfg.vocab, args.batch, args.seq,
+                               seed=args.seed)
+    return cfg, T.loss_fn, params, batches
 
 
 def build_gnn(arch, args, device):
@@ -104,6 +173,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     arch = get_arch(args.arch)
+    if arch.family == "lm" and args.full:
+        grow_segments()
     device = resolve_device(args.device)
     build = {"lm": build_lm, "gnn": build_gnn, "recsys": build_recsys}
     cfg, loss_fn, params, batches = build[arch.family](arch, args, device)

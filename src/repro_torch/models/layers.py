@@ -1,8 +1,8 @@
 """Shared neural layers of the port (the counterpart of
 ``repro.models.layers``): the recsys towers' ``dense``/``mlp``, the
 LM's norms, rotary embeddings, attention, gated MLP and layer stacking,
-and the token cross-entropy ``softmax_xent`` (the two-tower loss's; the
-chunked LM loss comes with LM training, ROADMAP A18.4).
+the token cross-entropy ``softmax_xent`` (the two-tower loss's) and the
+LM loss's vocab-chunked ``chunked_softmax_xent``.
 
 Params are nested dicts of tensors, laid out as in the JAX package
 (``{"l0": {"w": (d_in, d_out)}, ...}``; an LM's layer stack carries a
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import attention as _attention
 
@@ -210,3 +211,44 @@ def softmax_xent(logits, labels, *, label_mask=None):
         return torch.sum(nll * label_mask) / torch.clamp(
             torch.sum(label_mask), min=1)
     return torch.mean(nll)
+
+
+def chunked_softmax_xent(x, head, labels, *, label_mask=None,
+                         final_softcap: float = 0.0, chunk: int = 8192):
+    """Cross-entropy over a huge vocab without materialising (T, V) logits.
+
+    x: (T, d) final hidden states; head: (d, V); labels: (T,). A T that
+    ``chunk`` divides (and that exceeds it) runs chunk by chunk, each
+    chunk's logits recomputed in the backward pass (``checkpoint``, JAX's
+    ``jax.checkpoint``), so one chunk × V of logits is live at a time;
+    any other T is one block, as in the JAX package.
+    """
+    t = x.shape[0]
+    mask = (torch.ones((t,), dtype=torch.float32, device=x.device)
+            if label_mask is None else label_mask.float())
+    if t <= chunk or t % chunk != 0:
+        return _xent_block(x, head, labels, mask, final_softcap)
+    nll, cnt = [], []
+    for c in range(0, t, chunk):
+        args = (x[c:c + chunk], head, labels[c:c + chunk],
+                mask[c:c + chunk], final_softcap, False)
+        if torch.is_grad_enabled():
+            n, m = checkpoint(_xent_block, *args, use_reentrant=False)
+        else:
+            n, m = _xent_block(*args)
+        nll.append(n)
+        cnt.append(m)
+    return torch.sum(torch.stack(nll)) / torch.clamp(
+        torch.sum(torch.stack(cnt)), min=1.0)
+
+
+def _xent_block(x, head, labels, mask, final_softcap, mean: bool = True):
+    logits = (x @ head).float()
+    if final_softcap > 0:
+        logits = final_softcap * torch.tanh(logits / final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - ll) * mask
+    if mean:
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll), torch.sum(mask)

@@ -29,6 +29,7 @@ from repro_torch.kernels.embedding_bag.ops import bag_lookup
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_backward_ref, embedding_bag_ref,
 )
+from repro_torch.data import pipeline as dp
 from repro_torch.launch import steps as train_steps
 from repro_torch.launch import train
 from repro_torch.models import recsys as RS
@@ -720,6 +721,66 @@ def test_lm_layers_launch_the_attention_kernel(cuda):
     want, _, _ = T.decode_step_inplace(params, nxt, ck, cv, 12, cfg,
                                        use_kernel=False)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch_id", ["moonshot-v1-16b-a3b",
+                                     "llama4-scout-17b-a16e"])
+def test_moe_lm_prefill_and_decode_on_card(cuda, arch_id):
+    """The MoE smoke configs (f32) on the card — every layer's attention on
+    flash_attention, the router and dispatch as plain ops — against the
+    same prefill and in-place decode on host copies of the params, cache
+    and tokens (the CPU runs the plain attention): tests/test_models_lm.py's
+    2e-4, and the same expert choices in every layer."""
+    cfg = get_arch(arch_id).smoke_config
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    before = flash_attention.launches
+    logits, ck, cv = T.prefill_step(card, toks.to(cuda), cfg)
+    assert flash_attention.launches == before + cfg.n_layers
+    want, hk, hv = T.prefill_step(host, toks, cfg)
+    for got, ref in ((logits, want), (ck, hk), (cv, hv)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=2e-4, atol=2e-4)
+    pad = (0, 0, 0, 0, 0, 4)
+    ck, cv, hk, hv = (torch.nn.functional.pad(c, pad) for c in (ck, cv, hk, hv))
+    for pos in (12, 13):
+        nxt = torch.randint(0, cfg.vocab, (2, 1),
+                            generator=torch.Generator().manual_seed(pos))
+        before = flash_attention.launches
+        got, _, _ = T.decode_step_inplace(card, nxt.to(cuda), ck, cv, pos, cfg)
+        assert flash_attention.launches == before + cfg.n_layers
+        want, _, _ = T.decode_step_inplace(host, nxt, hk, hv, pos, cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(ck.cpu(), hk, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_lm_train_step_on_card(cuda):
+    """One AdamW step of moonshot's smoke config on the card (attention
+    forward on the kernel, its backward through the plain version) against
+    the same step on the CPU: loss, xent, aux and every param after the
+    step at tests/test_recsys.py's tolerance."""
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke_config
+    host = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = dp.lm_batch(cfg.vocab, 2, 16, seed=0, step=0)
+    out = {}
+    for name, params, dev in (("cpu", host, "cpu"), ("cuda", card, cuda)):
+        step, opt = train_steps._train_step_fn(T.loss_fn, cfg)
+        before = flash_attention.launches
+        params, _, m = step(params, opt.init(params),
+                            train.batch_tensors(batch, dev))
+        launched = flash_attention.launches - before
+        out[name] = (params, {k: float(v) for k, v in m.items()}, launched)
+    assert out["cuda"][2] == cfg.n_layers          # forward only
+    for k in ("loss", "xent", "aux", "gnorm"):
+        np.testing.assert_allclose(out["cuda"][1][k], out["cpu"][1][k],
+                                   rtol=1e-4, err_msg=k)
+    for x, y in zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=1e-4,
+                                   atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
