@@ -39,7 +39,12 @@ are several, grqc at 3; each window one ``window_prep_rows`` launch a
 block, then ``window_rng`` and ``fused_chooser`` once) against the dense
 card sessions, a ``FaultTolerantLoop`` over twitter windows with one
 poisoned and an ``ElasticRunner`` 4 -> 2 -> 4 round trip (phase
-``shard``) — and serves
+``shard``) — trains MeshGraphNet at its full config over SDP's halo
+layout of twitter (the SDP and hash card sessions' 8 blocks stacked on the
+card; the first step held to the hash layout's and to the dense model's),
+and runs PNA at minibatch_lg's sampled shape and SchNet and NequIP at the
+molecule shape, each at its full config against the host's CPU (phase
+``gnn``) — and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -94,7 +99,9 @@ from repro_torch.api.serve import PartitionService  # noqa: E402
 from repro_torch.api.sweep import Sweep, SweepRun  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.configs.shapes import LM_SHAPES, RECSYS_SHAPES  # noqa: E402
+from repro_torch.configs.shapes import (  # noqa: E402
+    GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+)
 from repro_torch.core import engine, windowed as wnd  # noqa: E402
 from repro_torch.core.rng import prng_key  # noqa: E402
 from repro_torch.core.state import PartitionState, init_state  # noqa: E402
@@ -106,9 +113,12 @@ from repro_torch.core.metrics import (  # noqa: E402
 from repro_torch.core.offline import cut_of, offline_partition  # noqa: E402
 from repro_torch.graph.csr import cap_degree  # noqa: E402
 from repro_torch.graph.datasets import load_dataset  # noqa: E402
+from repro_torch.graph.generators import make_graph  # noqa: E402
+from repro_torch.graph.halo import build_halo_spec  # noqa: E402
+from repro_torch.graph.sampler import subgraph_sizes  # noqa: E402
 from repro_torch.graph.stream import (  # noqa: E402
-    VertexStream, interleaved_churn, materialize_graph, normalize_rows,
-    poisson_arrivals,
+    VertexStream, build_stream, interleaved_churn, materialize_graph,
+    normalize_rows, poisson_arrivals,
 )
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag as eb  # noqa: E402
@@ -145,11 +155,19 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import recsys as RS  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.gnn import meshgraphnet as MGN  # noqa: E402
+from repro_torch.models.gnn import nequip as NQ  # noqa: E402
+from repro_torch.models.gnn import pna as PNA  # noqa: E402
+from repro_torch.models.gnn import schnet as SCH  # noqa: E402
+from repro_torch.models.gnn import common as GC  # noqa: E402
 from repro_torch.rebalance import passes as rpasses  # noqa: E402
 from repro_torch.runtime import CrashError, RecoverableSession  # noqa: E402
 from repro_torch.runtime import shard_session  # noqa: E402
 from repro_torch.runtime.elastic import ElasticRunner  # noqa: E402
 from repro_torch.runtime.fault import FaultTolerantLoop  # noqa: E402
+from repro_torch.runtime.gnn_halo_train import (  # noqa: E402
+    halo_batch, make_mgn_halo_loss,
+)
 from repro_torch.core.sharded_state import (  # noqa: E402
     per_device_state_bytes, shard_state, unshard_state,
 )
@@ -1932,6 +1950,9 @@ def _serve_recovery(s, dev, ref) -> dict:
     c = rec.cursor
     rec.feed((s.etype[c:], s.vertex[c:], s.nbrs[c:]))
     rec.sync()
+    # the replayed tail writes background snapshots: join them before the
+    # directory goes, or a writer's rename finds it gone
+    rec.wait()
     assert_states_equal(rec.state, ref.state,
                         "serve: recovered session vs the uninterrupted one")
     shutil.rmtree(directory, ignore_errors=True)
@@ -1970,6 +1991,7 @@ def _killed_process(dev) -> dict:
         raise AssertionError(f"serve: recovered cursor {rec.cursor}, the "
                              f"child fed {stop}")
     rec.feed((s.etype[stop:], s.vertex[stop:], s.nbrs[stop:]))
+    rec.wait()
     digest = state_digest(rec.state)
     if digest != sc.GRQC_SESSION_DIGEST:
         raise AssertionError("serve: the SIGKILL-recovered grqc session "
@@ -2031,6 +2053,15 @@ def phase_serve(dev, s, card: str) -> dict:
     process and the crash-safe tier."""
     T = s.num_events
     t_phase = t = time.perf_counter()
+    thread_errors, hook = [], threading.excepthook
+
+    def record(args):
+        thread_errors.append(f"{args.thread.name}: {args.exc_value!r}")
+        hook(args)
+
+    # a background checkpoint writer's failure (a rename into a removed
+    # directory, say) fails the phase
+    threading.excepthook = record
     ref = _serve_session(s, dev).feed(s)
     ref.sync()
     ref_s = time.perf_counter() - t
@@ -2089,6 +2120,10 @@ def phase_serve(dev, s, card: str) -> dict:
            "killed_process": _killed_process(dev),
            "serve_recover_serve": _serve_recover_serve(s, dev, ref, batches)}
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    threading.excepthook = hook
+    if thread_errors:
+        raise AssertionError(f"serve: a thread failed: {thread_errors}")
+    out["thread_errors"] = 0
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
@@ -2844,6 +2879,428 @@ def phase_shard(dev, s, twitter_host, grqc_s, grqc_cfg, grqc_host,
     emit(out)
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase gnn: the GNNs on the card, MeshGraphNet over SDP's halo layout
+# ---------------------------------------------------------------------------
+
+GNN_SHARDS = 8                 # examples/train_gnn_partitioned.py: k = P
+GNN_FEAT = GNN_SHAPES["ogb_products"].d_feat          # 100
+GNN_HALO_F = 128               # MeshGraphNet's hidden width: a layer's rows
+GNN_WARMUP, GNN_STEPS = 2, 8
+GNN_SPLIT_STEPS, GNN_PROFILE_STEPS = 2, 2
+GNN_SMALL_STEPS = 8            # PNA's and SchNet's steps on their batch
+# the first step's loss (relative) and each gradient leaf's relative L2:
+# between the SDP layout, the hash layout and the dense model on the card
+# (the sums accumulate in f64, so only the matmuls' f32 rounding differs),
+# and between an arch's f32 step on the card and the host's f64 step on
+# the same max / min choices
+GNN_LOSS_REL, GNN_GRAD_REL = 1e-5, 1e-4
+F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores (data sheet)
+# MeshGraphNet's 15 layers at twitter's 1,224,660 edges keep ~7.5 GB of
+# activations a layer without remat (~110 GB); with it, h and e a layer
+GNN_REMAT_PEAK = 40e9
+GNN_MB = GNN_SHAPES["minibatch_lg"]
+GNN_MOL = GNN_SHAPES["molecule"]
+
+
+def _gnn_config(arch_id: str):
+    return get_arch(arch_id).config
+
+
+def _rel_l2(got, want) -> float:
+    d = torch.linalg.vector_norm((got - want).double())
+    n = torch.linalg.vector_norm(want.double())
+    return float(d / n) if float(n) > 0 else float(d)
+
+
+def _loss_and_grads(loss_fn, params, batch, cfg) -> tuple:
+    loss, _, grads = train_steps.value_and_grad(loss_fn, params, batch, cfg)
+    return float(loss), dict(layers.leaves(grads))
+
+
+def _distance(got: tuple, want: tuple) -> dict:
+    """``(loss, grads)`` against ``(loss, grads)``: the loss's relative
+    distance, each gradient leaf's relative L2 over the entries finite on
+    both sides, whether the non-finite entries are the same, and their
+    count in ``want``."""
+    (lg, gg), (lw, gw) = got, want
+    rel, nonfinite, same = {}, {}, True
+    for k, w in gw.items():
+        g, w = gg[k].to(HOST).double(), w.to(HOST).double()
+        fin = torch.isfinite(w)
+        same = same and torch.equal(torch.isfinite(g), fin)
+        if not bool(fin.all()):
+            nonfinite[k] = int((~fin).sum())
+        both = fin & torch.isfinite(g)
+        rel[k] = _rel_l2(g[both], w[both])
+    worst = max(rel, key=rel.get)
+    return {"loss": lg, "reference_loss": lw,
+            "loss_rel": abs(lg - lw) / abs(lw), "grad_rel_l2_max": rel[worst],
+            "grad_rel_l2_max_leaf": worst, "same_nonfinite": same,
+            "nonfinite_entries": nonfinite}
+
+
+def _hold(got: tuple, want: tuple, what: str,
+          nonfinite_ok: bool = False) -> dict:
+    """``_distance``, which must show the loss within GNN_LOSS_REL, each
+    gradient leaf within GNN_GRAD_REL, the same non-finite entries on both
+    sides, and none unless ``nonfinite_ok``."""
+    d = _distance(got, want)
+    if not (np.isfinite(d["loss"]) and d["loss_rel"] <= GNN_LOSS_REL
+            and d["grad_rel_l2_max"] <= GNN_GRAD_REL and d["same_nonfinite"]
+            and (nonfinite_ok or not d["nonfinite_entries"])):
+        raise AssertionError(f"{what}: {d} (limits: loss {GNN_LOSS_REL}, "
+                             f"gradients {GNN_GRAD_REL})")
+    return d
+
+
+def _f64(tree: dict) -> dict:
+    """A tree's f32 tensors as f64."""
+    return {k: _f64(v) if isinstance(v, dict) else
+            v.double() if v.dtype == torch.float32 else v
+            for k, v in tree.items()}
+
+
+class _Winners:
+    """Within it, ``models.gnn.common``'s segment max and min keep each
+    call's winners — the (E, F) mask of the valid entries equal to their
+    segment's extremum — in ``winners``; with ``forced``, call i instead
+    takes ``forced[i]``'s winners, its value their mean and its gradient
+    shared evenly among them, as a tie's is: a step fed another step's
+    choices."""
+
+    NAMES = ("segment_max_pad", "segment_min_pad")
+
+    def __init__(self, forced: list | None = None):
+        self.forced, self.winners = forced, []
+
+    def __enter__(self):
+        self._fns = {name: getattr(GC, name) for name in self.NAMES}
+        for name, fn in self._fns.items():
+            setattr(GC, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._fns.items():
+            setattr(GC, name, fn)
+
+    def _wrap(self, fn):
+        def call(data, seg_ids, n, fill):
+            valid = (seg_ids >= 0)[:, None]
+            if self.forced is None:
+                out = fn(data, seg_ids, n, fill=fill)
+                win = valid & (data == out[seg_ids.clamp(min=0).long()])
+                self.winners.append(win.to(HOST))
+                return out
+            win = self.forced[len(self.winners)].to(data.device)
+            self.winners.append(win)
+            cnt = GC.segment_sum_pad(win.to(data.dtype), seg_ids, n)
+            val = GC.segment_sum_pad(torch.where(win, data, 0.0), seg_ids,
+                                     n) / torch.clamp(cnt, min=1.0)
+            return torch.where(cnt > 0, val, fill)
+        return call
+
+
+def _gnn_layout(g, s, dev, policy: str) -> tuple:
+    """A card session of twitter's insert stream at k_init = k_max =
+    GNN_SHARDS without autoscale, as examples/train_gnn_partitioned.py
+    builds its layout, and the HaloSpec of its assignment."""
+    cfg = EngineConfig(k_max=GNN_SHARDS, k_init=GNN_SHARDS, autoscale=False)
+    _reset_launches()
+    t = time.perf_counter()
+    part = Partitioner.from_stream(s, cfg, policy=policy, seed=0,
+                                   use_kernel=True, window=WINDOW, device=dev)
+    part.feed(s)
+    part.sync()
+    session_s = time.perf_counter() - t
+    launches = _read_launches()
+    windows = _window_kinds(part)
+    _check_session_launches(launches, windows, f"gnn: the {policy} session",
+                            every=False)
+    m = part.metrics()
+    assign = part.state.assignment.to(HOST).numpy().copy()
+    del part
+    assign[assign < 0] = 0
+    t = time.perf_counter()
+    spec = build_halo_spec(g, assign, GNN_SHARDS)
+    spec_s = time.perf_counter() - t
+    return spec, {
+        "policy": policy, "session_s": session_s, "launches": launches,
+        "windows": windows, "edge_cut_ratio": m["edge_cut_ratio"],
+        "load_imbalance": m["load_imbalance"], "spec_s": spec_s,
+        "published_rows": int((spec.publish_idx >= 0).sum()),
+        "halo_rows": int((spec.halo_map[..., 0] >= 0).sum()),
+        "block_rows_Nb": spec.block_size, "B_max": spec.publish_size,
+        "H_max": spec.halo_size, "E_max": int(spec.senders.shape[1]),
+        "collective_bytes_per_layer": spec.collective_bytes_per_layer(
+            GNN_HALO_F)}
+
+
+def _gnn_mgn(dev, g) -> dict:
+    """(a) MeshGraphNet's CONFIG trained over SDP's halo layout of twitter,
+    its first step held to the hash layout's and to the dense model's."""
+    arch = get_arch("meshgraphnet")
+    cfg = _gnn_config("meshgraphnet")
+    s = build_stream(g, seed=0)
+    spec, layouts = {}, {}
+    for policy in ("sdp", "hash"):
+        spec[policy], layouts[policy] = _gnn_layout(g, s, dev, policy)
+    del s
+    published = {p: layouts[p]["published_rows"] for p in layouts}
+    if not published["sdp"] < published["hash"]:
+        raise AssertionError(f"gnn: SDP publishes no fewer rows than hash: "
+                             f"{layouts}")
+    batch_np = GC.graph_to_batch(g, GNN_FEAT, seed=0)
+    batches = {"dense": trainer.batch_tensors(batch_np, dev)}
+    loss_fns = {"dense": MGN.loss_fn}
+    for policy in ("sdp", "hash"):
+        batches[policy] = trainer.batch_tensors(halo_batch(
+            spec[policy], batch_np["node_feat"], batch_np["targets"]), dev)
+        loss_fns[policy] = make_mgn_halo_loss(cfg, spec[policy].block_size)
+    del batch_np
+    params = MGN.init_params(cfg, GNN_FEAT, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+
+    # the first step three ways
+    base = torch.cuda.memory_allocated(dev)
+    first, first_s, first_peak = {}, {}, {}
+    for name in ("sdp", "hash", "dense"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        first[name] = _loss_and_grads(loss_fns[name], params, batches[name],
+                                      cfg)
+        torch.cuda.synchronize()
+        first_s[name] = time.perf_counter() - t
+        first_peak[name] = torch.cuda.max_memory_allocated(dev) - base
+    checks = {"sdp_vs_dense": _hold(first["sdp"], first["dense"],
+                                    "gnn: SDP layout vs dense"),
+              "hash_vs_dense": _hold(first["hash"], first["dense"],
+                                     "gnn: hash layout vs dense"),
+              "sdp_vs_hash": _hold(first["sdp"], first["hash"],
+                                   "gnn: SDP layout vs hash layout")}
+    del first
+    if max(first_peak.values()) > GNN_REMAT_PEAK:
+        raise AssertionError(f"gnn: a remat step's peak {first_peak} passes "
+                             f"{GNN_REMAT_PEAK / 1e9:.0f} GB")
+    for name in ("hash", "dense"):
+        del batches[name]
+
+    # training on the SDP layout
+    n_steps = GNN_WARMUP + GNN_STEPS + GNN_SPLIT_STEPS + GNN_PROFILE_STEPS
+    opt = adamw(linear_warmup_cosine(TRAIN_LR, n_steps // 10 + 1, n_steps))
+    opt_state = opt.init(params)
+    loss_fn, hb = loss_fns["sdp"], batches["sdp"]
+    step = train_steps.train_step(loss_fn, cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for _ in range(GNN_WARMUP + GNN_STEPS):
+        t = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, hb)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    split = []
+    for _ in range(GNN_SPLIT_STEPS):
+        params, opt_state, ms = _split_step(loss_fn, params, opt_state, hb,
+                                            opt, cfg)
+        split.append(ms)
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        t = time.perf_counter()
+        for _ in range(GNN_PROFILE_STEPS):
+            params, opt_state, _ = step(params, opt_state, hb)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t
+    busy = _profiled_busy(prof, traced_s)
+    del prof, params, opt_state, step, hb, batches, loss_fns
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gnn: MeshGraphNet's losses {losses}")
+    first_rel = abs(losses[0] - checks["sdp_vs_dense"]["loss"]) \
+        / abs(checks["sdp_vs_dense"]["loss"])
+    if first_rel > GNN_LOSS_REL:
+        raise AssertionError(f"gnn: the trainer's first loss {losses[0]} vs "
+                             f"the checked step's")
+    timed = np.asarray(step_s[GNN_WARMUP:])
+    step_ms = _ms_pct(timed, 50)
+    n_edges = 2 * g.num_edges
+    flops = 3.0 * train_steps._gnn_flops_fwd(arch, g.n, n_edges, GNN_FEAT)
+    return {
+        "arch": cfg.name, "config": dataclasses.asdict(cfg),
+        "reduced": {"graph": ["ogb_products", "twitter (cap 192)"],
+                    "n_nodes": [GNN_SHAPES["ogb_products"].n_nodes, g.n],
+                    "n_edges": [GNN_SHAPES["ogb_products"].n_edges,
+                                g.num_edges]},
+        "n_nodes": g.n, "directed_edges": n_edges, "d_feat": GNN_FEAT,
+        "shards": GNN_SHARDS, "layouts": layouts,
+        "sdp_over_hash_published": published["sdp"] / published["hash"],
+        "first_step": checks, "first_step_s": first_s,
+        "first_step_peak_bytes_above_inputs": first_peak,
+        "losses": losses, "step_s": step_s, "step_ms_p50": step_ms,
+        "step_ms_max": float(timed.max() * 1e3),
+        "split_ms_p50": {k: float(np.median([x[k] for x in split]))
+                         for k in split[0]},
+        "split_ms": split, "max_memory_allocated": peak, "busy": busy,
+        "model_flops_per_step": flops,
+        "model_flops_per_s": flops / (step_ms * 1e-3),
+        "model_flop_share": flops / (step_ms * 1e-3) / F32_FLOPS,
+        "model_flop_share_of": "67 TFLOP/s f32 outside the tensor cores "
+                               "(TF32 off)"}
+
+
+def _gnn_small(dev, arch_id: str, mod, params, batch_np, steps: int) -> dict:
+    """(b)-(d): one arch's first step on the card held to the same step on
+    the host's CPU in f64, fed the card step's max / min winners (PNA's),
+    then ``steps`` AdamW steps on the card on the same batch (none for
+    NequIP, whose gradients are non-finite here). Two f32 steps sit as far
+    apart as their own roundings put each from exact arithmetic, and a
+    max or min whose two best entries are within an ulp may pick either:
+    so the reference is the exact step on the same choices, and the host's
+    f32 step and its own choices are reported beside it."""
+    cfg = _gnn_config(arch_id)
+    batch = trainer.batch_tensors(batch_np, dev)
+    t = time.perf_counter()
+    with _Winners() as card:
+        got = _loss_and_grads(mod.loss_fn, params, batch, cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    host_params = tree_map(lambda x: x.to(HOST), params)
+    host_batch = trainer.batch_tensors(batch_np, HOST)
+    t = time.perf_counter()
+    with _Winners(forced=card.winners):
+        want = _loss_and_grads(mod.loss_fn, _f64(host_params),
+                               _f64(host_batch), cfg)
+    host_s = time.perf_counter() - t
+    with _Winners() as host:
+        host_f32 = _loss_and_grads(mod.loss_fn, host_params, host_batch, cfg)
+    flips = sum(int((a != b).sum()) for a, b in zip(card.winners,
+                                                     host.winners))
+    out = {"arch": cfg.name, "config": dataclasses.asdict(cfg),
+           "nodes": int(batch_np["node_mask"].shape[0]),
+           "edges": int(batch_np["senders"].shape[0]),
+           "params": sum(x.numel() for x in tree_leaves(params)),
+           "first_step": _hold(got, want, f"gnn: {arch_id} card vs host",
+                               nonfinite_ok=arch_id == "nequip"),
+           "first_step_card_s": card_s, "first_step_host_f64_s": host_s,
+           "host_f32_vs_reference": _distance(host_f32, want),
+           "card_vs_host_f32": _distance(got, host_f32),
+           "winner_entries": sum(int(w.sum()) for w in card.winners),
+           "winners_differing_card_host_f32": flips}
+    del got, want, host_f32, card, host, host_params, host_batch
+    if steps:
+        opt = adamw(linear_warmup_cosine(TRAIN_LR, steps // 10 + 1, steps))
+        opt_state = opt.init(params)
+        step = train_steps.train_step(mod.loss_fn, cfg, opt)
+        losses, step_s = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+        del opt_state, step
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"gnn: {arch_id}'s losses {losses}")
+        out.update(losses=losses, step_ms_p50=_ms_pct(np.asarray(
+            step_s[1:]), 50))
+    return out
+
+
+def _gnn_warm_up(dev) -> None:
+    """A first step of each arch's CONFIG on a tiny batch, so that what the
+    libraries keep for the process (cuBLAS's and cuBLASLt's workspaces)
+    is allocated before the phase reads the card's allocation."""
+    g = make_graph("mesh", 64, 170, seed=0)
+    mol = trainer.batch_tensors(GC.batch_molecules(2, 12, 24, seed=0), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for arch_id, mod in (("meshgraphnet", MGN), ("pna", PNA)):
+        params = mod.init_params(_gnn_config(arch_id), 8, generator=gen,
+                                 device=dev)
+        _loss_and_grads(mod.loss_fn, params, trainer.batch_tensors(
+            GC.graph_to_batch(g, 8, seed=0), dev), _gnn_config(arch_id))
+    for arch_id, mod in (("schnet", SCH), ("nequip", NQ)):
+        params = mod.init_params(_gnn_config(arch_id), generator=gen,
+                                 device=dev)
+        _loss_and_grads(mod.loss_fn, params, mol, _gnn_config(arch_id))
+    torch.cuda.synchronize()
+
+
+def _live_blocks() -> set:
+    """(address, bytes) of the caching allocator's live blocks."""
+    return {(b["address"], b["size"])
+            for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+            if b["state"] == "active_allocated"}
+
+
+def phase_gnn(dev, g, card: str) -> dict:
+    """The GNN slice on the card, every arch at its published CONFIG: (a)
+    MeshGraphNet trained over SDP's halo layout of twitter (8 blocks
+    stacked on the card; the SDP and hash card sessions' HaloSpecs, the
+    first step held to the hash layout's and to the dense model's), (b) PNA
+    at minibatch_lg's sampled shape, (c) SchNet and (d) NequIP at the
+    molecule shape, each held to the host's CPU. The card's allocation
+    must be back where it was when the phase ends."""
+    t_phase = time.perf_counter()
+    _gnn_warm_up(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    blocks_before = _live_blocks()
+    part_s = {}
+    t = time.perf_counter()
+    mgn = _gnn_mgn(dev, g)
+    part_s["meshgraphnet"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    mb = next(dp.graph_minibatches(g, GNN_MB.d_feat, GNN_MB.batch_nodes,
+                                   GNN_MB.fanout, seed=0))
+    sample_s = time.perf_counter() - t
+    want = subgraph_sizes(GNN_MB.batch_nodes, GNN_MB.fanout)
+    got = (mb["node_mask"].shape[0], mb["senders"].shape[0])
+    if got != want:
+        raise AssertionError(f"gnn: minibatch of {got}, expected {want}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pna = _gnn_small(dev, "pna", PNA, PNA.init_params(
+        _gnn_config("pna"), GNN_MB.d_feat, generator=gen, device=dev), mb,
+        GNN_SMALL_STEPS)
+    pna.update(shape=GNN_MB.name, sample_s=sample_s,
+               reduced={"graph": ["reddit (not in the repo)",
+                                  "twitter (cap 192)"]})
+    del mb
+    part_s["pna"] = time.perf_counter() - t - sample_s
+
+    mol = GC.batch_molecules(GNN_MOL.mol_batch, GNN_MOL.n_nodes,
+                             GNN_MOL.n_edges, seed=0)
+    isolated = int((np.bincount(mol["receivers"], minlength=mol[
+        "node_mask"].shape[0]) == 0).sum())
+    t = time.perf_counter()
+    schnet = _gnn_small(dev, "schnet", SCH, SCH.init_params(
+        _gnn_config("schnet"), generator=gen, device=dev), mol,
+        GNN_SMALL_STEPS)
+    part_s["schnet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    nequip = _gnn_small(dev, "nequip", NQ, NQ.init_params(
+        _gnn_config("nequip"), generator=gen, device=dev), mol, 0)
+    part_s["nequip"] = time.perf_counter() - t
+    for x in (schnet, nequip):
+        x.update(shape=GNN_MOL.name, atoms_receiving_no_edge=isolated)
+    del gen, mol
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated(dev)
+    out = {"phase": "gnn", "card": card, "meshgraphnet": mgn, "pna": pna,
+           "schnet": schnet, "nequip": nequip, "part_s": part_s,
+           "memory_allocated_before_after": [before, after],
+           "phase_s": time.perf_counter() - t_phase}
+    if after > before:
+        # the line first, so that a failed run still shows the figures
+        out["blocks_allocated_since"] = sorted(_live_blocks()
+                                               - blocks_before)[:20]
+        emit(out)
+        raise AssertionError(f"gnn: the card holds {after} bytes after the "
+                             f"phase, {before} before it")
+    emit(out)
+    return out
 
 
 class _PlainLoops:
@@ -5031,6 +5488,7 @@ def main() -> int:
     sweep = phase_sweep(dev, twitter_s, cases, info["nvidia_smi"])
     shard = phase_shard(dev, twitter_s, twitter_host, grqc_s, grqc_cfg,
                         grqc_host, info["nvidia_smi"])
+    phase_gnn(dev, twitter_g, info["nvidia_smi"])
     del twitter_g, twitter_s, cases, twitter_host, grqc_host
     recsys = phase_recsys(dev)
     train = phase_train(dev, info["nvidia_smi"])

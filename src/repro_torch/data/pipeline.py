@@ -11,10 +11,10 @@ from typing import Iterator
 
 import numpy as np
 
+from repro_torch.graph.csr import Graph
+from repro_torch.graph.sampler import make_minibatch
+from repro_torch.models.gnn.common import graph_to_batch
 from repro_torch.models.recsys import TwoTowerConfig, make_batch
-
-_GRAPH_ITEM = ("ROADMAP A18.5 (the GNN slice: graph/sampler.py and "
-               "models/gnn/common.py)")
 
 
 def lm_batch(vocab: int, batch: int, seq: int, *, seed: int, step: int) -> dict:
@@ -32,14 +32,20 @@ def token_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
         step += 1
 
 
-def graph_full_batch(*args, **kwargs) -> dict:
-    raise NotImplementedError(f"graph_full_batch is not ported yet: "
-                              f"{_GRAPH_ITEM}")
+def graph_full_batch(g: Graph, d_feat: int, *, with_positions=False,
+                     out_dim=1, seed: int = 0) -> dict:
+    return graph_to_batch(g, d_feat, seed=seed,
+                          with_positions=with_positions, out_dim=out_dim)
 
 
-def graph_minibatches(*args, **kwargs) -> Iterator[dict]:
-    raise NotImplementedError(f"graph_minibatches is not ported yet: "
-                              f"{_GRAPH_ITEM}")
+def graph_minibatches(g: Graph, d_feat: int, batch_nodes: int,
+                      fanouts: tuple[int, ...], *, seed: int = 0,
+                      start_step: int = 0) -> Iterator[dict]:
+    step = start_step
+    while True:
+        yield make_minibatch(g, d_feat, batch_nodes, fanouts,
+                             seed=seed + step)
+        step += 1
 
 
 def recsys_batches(cfg: TwoTowerConfig, batch: int, *, seed: int = 0,

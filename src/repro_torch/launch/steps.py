@@ -1,7 +1,9 @@
 """Train steps of the port (the counterpart of ``repro.launch.steps``'s
 optimizer plumbing, ``steps.py:71-141``): ``round_to``, ``make_opt``,
-``_train_step_fn`` with gradient accumulation over microbatches, and the
-LM cells' model-FLOP count ``_lm_flops_fwd``.
+``_train_step_fn`` with gradient accumulation over microbatches, the LM
+cells' model-FLOP count ``_lm_flops_fwd``, and the GNN cells' model
+modules ``_GNN_MODELS`` and FLOP count ``_gnn_flops_fwd``
+(``steps.py:280-348``).
 
 Without ``jit`` a step is eager autograd: ``value_and_grad`` runs the loss
 on views of the param leaves that require a gradient and takes
@@ -13,6 +15,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.gnn import meshgraphnet as MGN
+from repro_torch.models.gnn import nequip as NQ
+from repro_torch.models.gnn import pna as PNA
+from repro_torch.models.gnn import schnet as SCH
+from repro_torch.models.gnn import so3
 from repro_torch.optim.optimizers import (
     adamw, apply_updates, tree_leaves, tree_map, tree_paths,
 )
@@ -102,3 +109,44 @@ def _lm_flops_fwd(cfg, tokens: int, kv_len: int | None = None) -> float:
         # train/prefill: causal ≈ S/2 per query; decode: full span
         attn += 4.0 * cfg.n_heads * cfg.head_dim * tokens * (span or 0)
     return 2.0 * n * tokens + attn
+
+
+# ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+_GNN_MODELS = {
+    "meshgraphnet": MGN,
+    "schnet": SCH,
+    "nequip": NQ,
+    "pna": PNA,
+}
+
+
+def _gnn_flops_fwd(arch, n: int, e: int, d_feat: int) -> float:
+    """The JAX package's forward model-FLOP count of a GNN cell, as it is."""
+    cfg = arch.config
+    if arch.arch_id == "meshgraphnet":
+        h = cfg.d_hidden
+        per = e * (3 * h * h + h * h) + n * (2 * h * h + h * h)
+        enc = n * d_feat * h + e * 4 * h + n * h * cfg.out_dim
+        return 2.0 * (cfg.n_layers * per + enc)
+    if arch.arch_id == "pna":
+        h = cfg.d_hidden
+        n_agg = len(cfg.aggregators) * len(cfg.scalers)
+        per = e * (2 * h * h) + n * ((n_agg + 1) * h * h)
+        return 2.0 * (cfg.n_layers * per + n * d_feat * h)
+    if arch.arch_id == "schnet":
+        h, r = cfg.d_hidden, cfg.n_rbf
+        per = e * (r * h + h * h + h) + n * (2 * h * h)
+        return 2.0 * (cfg.n_interactions * per + n * h * h)
+    if arch.arch_id == "nequip":
+        c = cfg.channels
+        # paths for l_max=2: (l1,l2,l3) with |l1-l2|<=l3<=min(l1+l2,lmax)
+        paths = so3.paths(cfg.l_max)
+        tp = sum((2 * l1 + 1) * (2 * l2 + 1) * (2 * l3 + 1)
+                 for (l1, l2, l3) in paths)
+        per = e * (cfg.n_rbf * 32 + 32 * len(paths) * c + c * tp) \
+            + n * (len(paths) * c * c * 9)
+        return 2.0 * cfg.n_layers * per
+    raise ValueError(arch.arch_id)

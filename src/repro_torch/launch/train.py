@@ -1,6 +1,7 @@
 """Training entry point of the port (the counterpart of
 ``repro.launch.train``):
-fault-tolerant training of the two-tower recsys model and of the LMs.
+fault-tolerant training of the two-tower recsys model, the LMs and the
+GNNs.
 
     python -m repro_torch.launch.train --arch two-tower-retrieval
     python -m repro_torch.launch.train --arch two-tower-retrieval --full
@@ -8,6 +9,7 @@ fault-tolerant training of the two-tower recsys model and of the LMs.
     python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --device cpu
     python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --full \
         --batch 2 --seq 4096
+    python -m repro_torch.launch.train --arch meshgraphnet --device cpu
 
 config → params → eager autograd step (AdamW, linear warmup then cosine)
 → data pipeline → ``FaultTolerantLoop`` with background checkpoints in the
@@ -16,9 +18,12 @@ JAX package's format; a run resumes from the latest checkpoint in
 batches from batch 0: ROADMAP C). On the card the bags run the
 ``embedding_bag`` kernel forward and ``embedding_bag_backward`` backward,
 and an LM's attention the ``flash_attention`` kernel forward (its backward
-recomputes through the plain version, as the JAX package's does). The
-data- and model-sharded training mesh is the rest of ROADMAP A18.4; GNN
-training comes with A18.5.
+recomputes through the plain version, as the JAX package's does). A GNN
+trains on the JAX package's fixed batch: a 256-node mesh graph with 16
+features (MeshGraphNet, PNA), or ``--batch`` molecules of 12 atoms and 24
+edges (SchNet, NequIP; NequIP's gradients are non-finite on it, as the JAX
+package's are: ROADMAP C). The data- and model-sharded training mesh is
+the rest of ROADMAP A18.4.
 """
 from __future__ import annotations
 
@@ -35,9 +40,11 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch
 from repro_torch.core.state import resolve_device
 from repro_torch.data import pipeline as dp
-from repro_torch.launch.steps import train_step
+from repro_torch.graph.generators import make_graph
+from repro_torch.launch.steps import _GNN_MODELS, train_step
 from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
+from repro_torch.models.gnn import common as C
 from repro_torch.optim.optimizers import (
     adamw, linear_warmup_cosine, tree_leaves,
 )
@@ -134,9 +141,22 @@ def build_lm(arch, args, device):
 
 
 def build_gnn(arch, args, device):
-    raise NotImplementedError(
-        f"training {arch.arch_id} is not ported yet: ROADMAP A18.5 (the GNN "
-        "slice over SDP partitions)")
+    cfg = training_config(arch, args.full)
+    mod = _GNN_MODELS[arch.arch_id]
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    if arch.arch_id in ("schnet", "nequip"):
+        batch = C.batch_molecules(args.batch, 12, 24, seed=args.seed)
+        params = mod.init_params(cfg, generator=gen, device=device)
+    else:
+        g = make_graph("mesh", 256, 700, seed=args.seed)
+        batch = C.graph_to_batch(g, 16, with_positions=True, seed=args.seed)
+        params = mod.init_params(cfg, 16, generator=gen, device=device)
+
+    def batches():
+        while True:
+            yield batch
+
+    return cfg, mod.loss_fn, params, batches()
 
 
 def build_recsys(arch, args, device):

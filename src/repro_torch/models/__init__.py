@@ -1,1 +1,2 @@
-"""Models of the port (the recsys two-tower model so far)."""
+"""Models of the port: the two-tower recsys model, the dense and MoE
+transformer LMs, and the GNNs (``gnn``)."""

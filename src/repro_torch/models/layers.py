@@ -1,12 +1,14 @@
 """Shared neural layers of the port (the counterpart of
-``repro.models.layers``): the recsys towers' ``dense``/``mlp``, the
-LM's norms, rotary embeddings, attention, gated MLP and layer stacking,
-the token cross-entropy ``softmax_xent`` (the two-tower loss's) and the
-LM loss's vocab-chunked ``chunked_softmax_xent``.
+``repro.models.layers``): the recsys towers' and the GNNs' ``dense`` /
+``mlp``, the GNNs' ``layernorm``, the LM's norms, rotary embeddings,
+attention, gated MLP and layer stacking, the token cross-entropy
+``softmax_xent`` (the two-tower loss's) and the LM loss's vocab-chunked
+``chunked_softmax_xent``.
 
 Params are nested dicts of tensors, laid out as in the JAX package
-(``{"l0": {"w": (d_in, d_out)}, ...}``; an LM's layer stack carries a
-leading ``(L,)`` axis), so a JAX params pytree carries over leaf for leaf.
+(``{"l0": {"w": (d_in, d_out)}, ...}``; an LM's or a GNN's layer stack
+carries a leading ``(L,)`` axis), so a JAX params pytree carries over leaf
+for leaf.
 """
 from __future__ import annotations
 
@@ -67,14 +69,30 @@ def mlp_init(generator: torch.Generator, dims: list[int], *, device):
             for i in range(len(dims) - 1)}
 
 
-def mlp_apply(p, x, act=torch.relu):
-    """Dense layers with ``act`` between them (none after the last)."""
+def mlp_apply(p, x, act=torch.relu, final_act: bool = False):
+    """Dense layers with ``act`` between them, and after the last one too
+    when ``final_act``."""
     n = len(p)
     for i in range(n):
         x = dense(p[f"l{i}"], x)
-        if i < n - 1:
+        if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def layernorm_init(d: int, *, device):
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    """The JAX package's formula: the mean of squared deviations, then
+    ``rsqrt(v + eps)`` (``F.layer_norm`` computes its variance another
+    way)."""
+    m = x.mean(-1, keepdim=True)
+    d = x - m
+    v = (d * d).mean(-1, keepdim=True)
+    return d * torch.rsqrt(v + eps) * p["g"] + p["b"]
 
 
 def normal(generator, shape, scale, dtype, device):
@@ -195,6 +213,12 @@ def stack_layer_params(init_fn, n_layers: int) -> dict:
             stacked = tree_map(alloc, layer)
         fill(stacked, layer, i)
     return stacked
+
+
+def layer_slice(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s params: views into stacked ``(L, ...)`` leaves."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
 
 
 # --------------------------------------------------------------------------

@@ -183,10 +183,7 @@ def params_from_jax(np_params: dict, cfg: LMConfig, device) -> dict:
 
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s params: views into the stacked ``(L, ...)`` leaves."""
-    def pick(tree):
-        return {k: pick(v) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return pick(params["layers"])
+    return L.layer_slice(params["layers"], i)
 
 
 def _qkv(cfg: LMConfig, lp, x, positions):

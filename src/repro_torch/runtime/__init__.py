@@ -1,8 +1,9 @@
 """Crash-safe partitioning sessions (the port's copy of
 ``repro.runtime.recovery``), the (policy × seed × config × stream) sweep
 runtime (``repro_torch.runtime.sweep``), vertex-sharded sessions
-(``shard_session``), and the fault-tolerant loop and elastic re-mesh
-(``fault``, ``elastic``)."""
+(``shard_session``), the fault-tolerant loop and elastic re-mesh
+(``fault``, ``elastic``), and MeshGraphNet over SDP's blocked layout
+(``gnn_sharded``, ``gnn_halo_train``)."""
 from repro_torch.runtime.recovery import (
     CrashError, EventJournal, JournalEntry, RecoverableSession,
 )

@@ -1418,3 +1418,86 @@ def test_sweep_kernel_lanes_match_card_sessions(cuda):
                                        window=64, engine="windowed",
                                        use_kernel=True, device=cuda).feed(s)
         _assert_states_equal(part.state, r.state)
+
+
+# ---------------------------------------------------------------------------
+# the GNNs (no kernel of their own: the card's index_add / scatter_reduce
+# and matmuls against the same step on the host's CPU)
+# ---------------------------------------------------------------------------
+
+def _gnn_grads(loss_fn, params, batch, cfg):
+    loss, _, grads = train_steps.value_and_grad(loss_fn, params, batch, cfg)
+    return float(loss), {k: v.cpu() for k, v in _leaf_items(grads)}
+
+
+def _leaf_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _assert_gnn_close(got, want, nonfinite_ok=False):
+    (lg, gg), (lw, gw) = got, want
+    assert abs(lg - lw) <= 1e-5 * abs(lw)
+    for k, w in gw.items():
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(gg[k]), fin), k
+        assert nonfinite_ok or bool(fin.all()), k
+        d = torch.linalg.vector_norm((gg[k][fin] - w[fin]).double())
+        assert float(d) <= 1e-4 * float(torch.linalg.vector_norm(
+            w[fin].double())) + 1e-12, k
+
+
+@pytest.mark.parametrize("arch_id", ["meshgraphnet", "pna", "schnet",
+                                     "nequip"])
+def test_gnn_first_step_on_card_matches_host(cuda, arch_id):
+    from repro_torch.graph.generators import make_graph
+    from repro_torch.models.gnn import common as GC
+
+    mod = train_steps._GNN_MODELS[arch_id]
+    cfg = get_arch(arch_id).smoke_config
+    gen = torch.Generator().manual_seed(0)
+    if arch_id in ("schnet", "nequip"):
+        batch = GC.batch_molecules(16, 12, 24, seed=0)
+        params = mod.init_params(cfg, generator=gen, device="cpu")
+    else:
+        batch = GC.graph_to_batch(make_graph("mesh", 256, 700, seed=0), 16,
+                                  with_positions=True, seed=0)
+        params = mod.init_params(cfg, 16, generator=gen, device="cpu")
+    want = _gnn_grads(mod.loss_fn, params, train.batch_tensors(batch, "cpu"),
+                      cfg)
+    got = _gnn_grads(mod.loss_fn, tree_map(lambda x: x.to(cuda), params),
+                     train.batch_tensors(batch, cuda), cfg)
+    _assert_gnn_close(got, want, nonfinite_ok=arch_id == "nequip")
+
+
+@pytest.mark.parametrize("p", [1, 4, 8])
+def test_halo_mgn_step_on_card_matches_host_and_dense(cuda, p):
+    import dataclasses
+
+    from repro_torch.graph.generators import make_graph
+    from repro_torch.graph.halo import build_halo_spec
+    from repro_torch.models.gnn import common as GC
+    from repro_torch.models.gnn import meshgraphnet as MGN
+    from repro_torch.runtime.gnn_halo_train import (
+        halo_batch, make_mgn_halo_loss,
+    )
+
+    cfg = dataclasses.replace(get_arch("meshgraphnet").smoke_config,
+                              remat=True)
+    g = make_graph("mesh", 2000, 5500, seed=1)
+    batch = GC.graph_to_batch(g, 16, seed=0)
+    spec = build_halo_spec(g, np.random.default_rng(p).integers(0, p, g.n), p)
+    hb = halo_batch(spec, batch["node_feat"], batch["targets"])
+    params = MGN.init_params(cfg, 16, generator=torch.Generator().manual_seed(
+        0), device="cpu")
+    loss_fn = make_mgn_halo_loss(cfg, spec.block_size)
+    want = _gnn_grads(loss_fn, params, train.batch_tensors(hb, "cpu"), cfg)
+    card = tree_map(lambda x: x.to(cuda), params)
+    got = _gnn_grads(loss_fn, card, train.batch_tensors(hb, cuda), cfg)
+    _assert_gnn_close(got, want)
+    dense = _gnn_grads(MGN.loss_fn, card, train.batch_tensors(batch, cuda),
+                       cfg)
+    _assert_gnn_close(got, dense)

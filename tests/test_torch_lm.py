@@ -66,14 +66,17 @@ def test_configs_match_jax(arch_id):
 
 
 def test_moe_and_gnn_archs_raise():
-    """Only the GNN archs still raise (A18.5); every LM arch, the MoE ones
-    included, is registered, takes an MoE config and has a loss."""
+    """No arch raises any more: every one of the JAX package's archs, the
+    MoE LMs and the GNNs (A18.5) included, is registered with the JAX
+    package's configs; an MoE LM takes an MoE config and has a loss."""
     for arch_id, jarch in JARCHS.items():
+        arch = get_arch(arch_id)
+        assert arch.arch_id == arch_id and arch.family == jarch.family
         if jarch.family == "gnn":
-            with pytest.raises(NotImplementedError, match="A18.5"):
-                get_arch(arch_id)
-        else:
-            assert get_arch(arch_id).arch_id == arch_id
+            for a, b in ((arch.config, jarch.config),
+                         (arch.smoke_config, jarch.smoke_config)):
+                assert dataclasses.asdict(a) == dataclasses.asdict(b)
+            assert arch.gnn_inputs == jarch.gnn_inputs
     moe = ARCHS["moonshot-v1-16b-a3b"].smoke_config.moe
     cfg = T.LMConfig(name="m", n_layers=1, d_model=8, n_heads=1, n_kv_heads=1,
                      head_dim=8, d_ff=8, vocab=8, moe=moe, dtype="float32")

@@ -24,7 +24,7 @@ from repro_torch.configs.shapes import RECSYS_SHAPES
 from repro_torch.kernels.embedding_bag.embedding_bag import embedding_bag
 from repro_torch.kernels.embedding_bag.ops import bag_lookup
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import layers as L
 from repro_torch.models import recsys as RS
 
@@ -226,16 +226,15 @@ def test_no_device_means_cuda_and_raises_without_it(monkeypatch):
         serve.main(["--arch", "two-tower-retrieval", "--requests", "1"])
 
 
-def test_unported_archs_and_training_raise(monkeypatch):
+def test_unported_archs_and_training_raise(monkeypatch, tmp_path):
+    """Nothing is left unported: the registry holds all ten of the JAX
+    package's archs, and a GNN arch trains (A18.5); the MoE LMs serve."""
+    assert sorted(ARCHS) == sorted(JARCHS)
     for arch_id in JARCHS:
-        if arch_id in ARCHS:
-            continue
-        assert JARCHS[arch_id].family == "gnn"
-        with pytest.raises(NotImplementedError, match="A18.5"):
-            get_arch(arch_id)
-    assert sorted(ARCHS) == ["deepseek-coder-33b", "gemma2-9b",
-                             "llama4-scout-17b-a16e", "moonshot-v1-16b-a3b",
-                             "phi3-mini-3.8b", "two-tower-retrieval"]
+        assert get_arch(arch_id).family == JARCHS[arch_id].family
+    assert train.main(["--arch", "pna", "--device", "cpu", "--steps", "2",
+                       "--ckpt-interval", "100", "--ckpt-dir",
+                       str(tmp_path)]) == 0
     # the MoE LMs serve; llama4's full CONFIG does not fit one 80 GB card
     # (the device's memory stands at 80 GB, so nothing is allocated)
     assert serve.main(["--arch", "moonshot-v1-16b-a3b", "--device", "cpu",

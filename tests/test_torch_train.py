@@ -273,25 +273,41 @@ def test_data_readers_match_jax():
 
 
 def test_graph_readers_build_lm_and_build_gnn_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A18.5"):
-        dp.graph_full_batch(None, 16)
-    with pytest.raises(NotImplementedError, match="A18.5"):
-        dp.graph_minibatches(None, 16, 4, (2,))
-    # build_lm builds (LM training is ported); the GNNs still raise
+    """Nothing raises any more (A18.5): the graph readers give the JAX
+    package's batches, build_lm and build_gnn build, and the trainer runs
+    an LM and a GNN."""
+    from repro.graph.generators import make_graph as jmake_graph
+    from repro_torch.graph.generators import make_graph
+
+    g, jg = make_graph("mesh", 120, 330, seed=2), jmake_graph("mesh", 120,
+                                                             330, seed=2)
+    for kw in ({}, {"with_positions": True, "out_dim": 2, "seed": 5}):
+        _assert_batches_equal(dp.graph_full_batch(g, 16, **kw),
+                              jdp.graph_full_batch(jg, 16, **kw))
+    got = dp.graph_minibatches(g, 8, 4, (3, 2), seed=1, start_step=2)
+    want = jdp.graph_minibatches(jg, 8, 4, (3, 2), seed=1, start_step=2)
+    for _ in range(2):
+        _assert_batches_equal(next(got), next(want))
+    # build_lm builds (LM training is ported), and so does build_gnn
     args = type("Args", (), dict(full=False, seed=0, batch=2, seq=8))()
     cfg, loss_fn, params, batches = train.build_lm(get_arch("gemma2-9b"),
                                                    args, "cpu")
     assert cfg is get_arch("gemma2-9b").smoke_config and loss_fn is not None
     assert next(batches)["tokens"].shape == (2, 8)
     assert params["embed"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A18.5"):
-        train.build_gnn(JARCHS["meshgraphnet"], None, "cpu")
+    cfg, loss_fn, params, batches = train.build_gnn(get_arch("meshgraphnet"),
+                                                    args, "cpu")
+    assert cfg is get_arch("meshgraphnet").smoke_config
+    assert next(batches)["node_feat"].shape == (256, 16)
+    assert params["proc"]["edge"]["ln"]["g"].shape == (cfg.n_layers,
+                                                       cfg.d_hidden)
     assert train.main(["--arch", "phi3-mini-3.8b", "--device", "cpu",
                        "--steps", "1", "--batch", "2", "--seq", "8",
                        "--ckpt-interval", "100", "--ckpt-dir",
                        str(tmp_path)]) == 0
-    with pytest.raises(NotImplementedError, match="A18.5"):
-        train.main(["--arch", "schnet", "--device", "cpu"])
+    assert train.main(["--arch", "schnet", "--device", "cpu", "--steps", "2",
+                       "--ckpt-interval", "100", "--ckpt-dir",
+                       str(tmp_path / "schnet")]) == 0
 
 
 def test_training_config():
