@@ -9,8 +9,16 @@ than the plain version's, so it is held at tests/test_kernels.py's 2e-5 in
 f32 and at one bf16 ulp in bf16, on each of its three kernels: f32 CUDA
 cores, the bf16 tensor-core prefill, the bf16 decode split over the keys),
 runs the streaming session on grqc against the
-port's faithful per-event engine (and at k_max = 200, the fused chooser's
-large-K kernel, against the plain session), drives the full-width
+port's faithful per-event engine and the dict/set oracle of Algorithm 1
+(``core.run_reference``, on the host; and at k_max = 200, the fused
+chooser's large-K kernel, against the plain session), runs fig12's four
+grqc lanes — brought mid-stream by the windowed kernel sweep — through
+the scan with the from-scratch scale-in recount (``cut_fn``) and with the
+incremental one, bit-identical and each lane equal to the oracle (phase
+``fig12``), runs the int8 compressed all-reduce over a four-entry mesh
+of the card against the host's and places moonshot's parameters by the
+LM sharding rules on a (data 2, model 2) mesh and back (phase ``mesh``),
+drives the full-width
 session — the
 paper's largest dataset, twitter at scale 1.0 — through
 ``Partitioner.feed`` with its five kernels on the path (pure-ADD windows:
@@ -103,6 +111,8 @@ from repro_torch.configs.shapes import (  # noqa: E402
     GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
 )
 from repro_torch.core import engine, windowed as wnd  # noqa: E402
+from repro_torch.core import run_reference  # noqa: E402
+from repro_torch.core import transition as tx  # noqa: E402
 from repro_torch.core.rng import prng_key  # noqa: E402
 from repro_torch.core.state import PartitionState, init_state  # noqa: E402
 from repro_torch.core.transition import knob_tensor  # noqa: E402
@@ -172,8 +182,14 @@ from repro_torch.core.sharded_state import (  # noqa: E402
     per_device_state_bytes, shard_state, unshard_state,
 )
 from repro_torch.launch.mesh import (  # noqa: E402
-    Placement, RowBlocks, make_vertices_mesh, tree_map,
+    Placement, RowBlocks, SpecBlocks, gather, make_mesh, make_vertices_mesh,
+    place_tree, tree_map,
 )
+from repro_torch.optim import (  # noqa: E402
+    compressed_allreduce_grads, init_error_feedback,
+)
+from repro_torch.runtime import sharding as SHR  # noqa: E402
+from repro_torch.runtime import sweep as sweep_rt  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import prepare_rows_ref  # noqa: E402
 from repro_torch.kernels.fused_chooser.window_prep import (  # noqa: E402
     window_prep_rows,
@@ -1163,14 +1179,46 @@ def _grqc_chunks(T: int) -> list:
     return [1, 7, 300, 301, 1000, 2500, T // 2 + 3, T - 5]
 
 
+def assert_matches_oracle(st, ref, what: str) -> None:
+    """A state against the dict/set oracle (``core.ref.run_reference``):
+    every field tests/test_sdp_engine.py's ``_assert_match`` compares —
+    assignment and presence, edge_load, vertex_count, active, total_edges,
+    cut_edges, num_partitions, denied_scaleout, scale_events, cut_matrix."""
+    a = st.assignment.cpu().numpy()
+    want = np.full(a.shape, -1, np.int64)
+    for v, p in ref.assignment.items():
+        want[v] = p
+    got = {"assignment": a, "present": st.present.cpu().numpy(),
+           "edge_load": st.edge_load.cpu().numpy(),
+           "vertex_count": st.vertex_count.cpu().numpy(),
+           "active": st.active.cpu().numpy(),
+           "cut_matrix": st.cut_matrix.cpu().numpy(),
+           **{f: int(getattr(st, f)) for f in (
+               "total_edges", "cut_edges", "num_partitions",
+               "denied_scaleout", "scale_events")}}
+    exp = {"assignment": want, "present": want >= 0,
+           "edge_load": np.asarray(ref.edge_load),
+           "vertex_count": np.asarray(ref.vertex_count),
+           "active": np.asarray(ref.active), "cut_matrix": ref.cut_matrix,
+           "total_edges": ref.total_edges, "cut_edges": ref.cut_edges,
+           "num_partitions": ref.num_partitions,
+           "denied_scaleout": ref.denied, "scale_events": ref.scale_events}
+    bad = [f for f in exp if not np.array_equal(got[f], exp[f])]
+    if bad:
+        raise AssertionError(f"{what}: {bad} differ from the oracle")
+
+
 def phase_grqc(dev) -> dict:
     """The session with both kernels against the port's faithful engine
-    (run on the host)."""
+    and the dict/set oracle of Algorithm 1 (both run on the host)."""
     s = interleaved_churn(load_dataset("grqc"), **EVENT_ARGS)
     cfg = EngineConfig(k_max=16, k_init=1, max_cap=1500, autoscale=True)
     t = time.perf_counter()
     ref, _ = engine.run_stream(s, policy="sdp", cfg=cfg, seed=0, device=HOST)
     t_ref = time.perf_counter() - t
+    t = time.perf_counter()
+    oracle = run_reference(s, policy="sdp", cfg=cfg, seed=0)
+    t_oracle = time.perf_counter() - t
     T = s.num_events
     chunks = _grqc_chunks(T)
     _reset_launches()
@@ -1179,6 +1227,7 @@ def phase_grqc(dev) -> dict:
     t_part = time.perf_counter() - t
     launches = _read_launches()
     assert_states_equal(part.state, ref, "grqc session vs faithful engine")
+    assert_matches_oracle(part.state, oracle, "grqc session")
     _check_session_launches(launches, _window_kinds(part),
                             "grqc session")
     m = part.metrics()
@@ -1189,6 +1238,7 @@ def phase_grqc(dev) -> dict:
            "kernel_windows": m["kernel_windows"],
            "fallback_windows": m["fallback_windows"], "launches": launches,
            "faithful_host_s": round(t_ref, 3),
+           "oracle_s": round(t_oracle, 3), "oracle_equal": True,
            "session_s": round(t_part, 3), "k200": _session_k200(s, dev)}
     emit(out)
     return out, s, cfg, to_host(part.state)
@@ -1223,6 +1273,273 @@ def _session_k200(s, dev) -> dict:
             "launches_by_kernel": by_kernel,
             "add_launches_by_kernel": add_by_kernel,
             "session_s": round(t_part, 3), "plain_host_s": round(t_plain, 3)}
+
+
+FIG12_SEEDS = (0, 1, 2, 3)          # benchmarks/fig12_autoscale_churn.py
+# The scan resumes at event T0 and runs W events a lane. The lanes scale
+# in late: lane 1 first at event 6,865 (the oracle), so [6,656, 7,168)
+# holds 111 / 67 / 111 / 111 scale-ins; a scanned event costs ~9 ms of
+# host issue a lane on the card, so W = 512 keeps the phase under a
+# minute.
+FIG12_T0 = 26 * WINDOW              # 6,656
+FIG12_W = 512
+
+
+def _fig12_lanes():
+    """fig12's four lanes: grqc's churn streams (seeds 0-3) and its
+    config, max_cap = |E| / 6."""
+    g = load_dataset("grqc")
+    streams = [interleaved_churn(g, warmup_frac=0.2, del_every=3,
+                                 edge_del_every=5, seed=s)
+               for s in FIG12_SEEDS]
+    cfg = EngineConfig(k_max=16, k_init=1, max_cap=max(g.num_edges // 6, 30),
+                       tolerance_param=60.0, dest_param=5.0, autoscale=True)
+    return streams, cfg
+
+
+def _slice_stream(s, a, b):
+    return VertexStream(s.etype[a:b], s.vertex[a:b], s.nbrs[a:b], n=s.n)
+
+
+def _lane_scale_ins(before, after, trace) -> list:
+    """Each lane's scale-ins between two stacked states: half of (the
+    growth of scale_events less the growth of num_partitions), held to the
+    count of events after which the trace's partition count dropped."""
+    d_ev = (after.scale_events - before.scale_events).tolist()
+    d_np = (after.num_partitions - before.num_partitions).tolist()
+    ins = [(e - p) // 2 for e, p in zip(d_ev, d_np)]
+    npart = torch.cat([before.num_partitions[:, None],
+                       trace.num_partitions], dim=1)
+    drops = (npart.diff(dim=1) < 0).sum(dim=1).tolist()
+    if ins != drops:
+        raise AssertionError(f"fig12: scale-ins {ins} from the counters, "
+                             f"{drops} from the trace")
+    return ins
+
+
+def phase_fig12(dev) -> dict:
+    """fig12's from-scratch scale-in baseline against the incremental
+    cut-matrix merge (``sweep_events(cut_fn=transition.recompute_cut)``).
+    The four lanes scale in late (lane 1 first at event 6,865), so the
+    lanes are first brought to event FIG12_T0 through the windowed kernel
+    sweep
+    (``Sweep(...).windowed(256).kernel()``); both variants then scan
+    events [T0, T0 + W) from copies of those states. Checks: the two
+    final states and traces bit-identical, every lane scaling in inside
+    the window, and each lane's final state equal to the oracle's over
+    the stream's first T0 + W events."""
+    streams, cfg = _fig12_lanes()
+    runs = [SweepRun("sdp", cfg, s) for s in FIG12_SEEDS]
+    T0, W, L = FIG12_T0, FIG12_W, len(runs)
+    windows = T0 // WINDOW
+    _reset_launches()
+    t = time.perf_counter()
+    res = (Sweep([_prefix(s, T0) for s in streams], device=dev).lanes(runs)
+           .windowed(WINDOW).kernel().run())
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t
+    launches = _read_launches(SWEEP_KERNELS)
+    want = {"window_prep": L * windows, "window_rng": L * windows,
+            "fused_chooser_sweep": windows, "fused_chooser": 0,
+            "add_window_choose": 0, "partition_affinity": 0}
+    if launches != want:
+        raise AssertionError(f"fig12 prefix sweep: launched {launches}, "
+                             f"want {want}")
+    start = sweep_rt._stack([r.state for r in res])
+    del res
+    et, vx, nb, n, _ = sweep_rt._stack_streams(
+        [_slice_stream(s, T0, T0 + W) for s in streams], W, dev)
+    kns = torch.stack([knob_tensor(cfg, n, dev) for _ in runs])
+    pidx = [tx.POLICY_INDEX["sdp"]] * L
+    auto = [True] * L
+    variants, finals = {}, {}
+    for name, cut_fn in (("scan_recompute", tx.recompute_cut),
+                         ("scan_incremental", None)):
+        states = type(start)(*(x.clone() for x in start))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        finals[name] = sweep_rt.sweep_events(
+            states, kns, pidx, auto, et, vx, nb, T0,
+            balance_guard=cfg.balance_guard, autoscale_mode="dynamic",
+            cut_fn=cut_fn)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        variants[name] = {"s": dt, "events": L * W,
+                          "events_per_s": L * W / dt}
+    (rs, rt), (is_, it) = finals["scan_recompute"], finals["scan_incremental"]
+    for a, b in ((rs, is_), (rt, it)):
+        for f in a._fields:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"fig12: {f} differs between the "
+                                     "recount and the incremental scale-in")
+    ins = _lane_scale_ins(start, is_, it)
+    if min(ins) < 1:
+        raise AssertionError(f"fig12: a lane did not scale in inside "
+                             f"[{T0}, {T0 + W}): {ins}")
+    # the baseline's extra work an event: one recount's device time (a
+    # CUDA graph of it on lane 0's final state) against the scan's host
+    # time a lane-event, and the recount's bound (each input read once)
+    lane0 = sweep_rt._unstack(is_, 0)
+    recount = (lane0.assignment, lane0.present, lane0.adj)
+    recount_bytes = sum(x.numel() * x.element_size() for x in recount)
+    variants["recount"] = {
+        "ms": graph_ms(lambda: tx.recompute_cut(*recount), 20),
+        "bound_ms": recount_bytes / HBM_BYTES_PER_S * 1e3,
+        "scan_ms_per_lane_event": (variants["scan_incremental"]["s"] * 1e3
+                                   / (L * W))}
+    t = time.perf_counter()
+    for b, (s, r) in enumerate(zip(streams, runs)):
+        assert_matches_oracle(sweep_rt._unstack(is_, b),
+                              run_reference(_prefix(s, T0 + W), cfg=cfg,
+                                            seed=r.seed),
+                              f"fig12 lane {r.seed}")
+    oracle_s = time.perf_counter() - t
+    out = {"phase": "fig12", "lanes": L, "n": n, "max_deg": nb.shape[-1],
+           "max_cap": cfg.max_cap, "t0": T0, "window": W,
+           "prefix": {"events": L * T0, "s": prefix_s,
+                      "launches": launches},
+           **variants,
+           "recompute_vs_incremental": (variants["scan_recompute"]["s"]
+                                        / variants["scan_incremental"]["s"]),
+           "states_equal": True, "traces_equal": True,
+           "scale_ins": ins,
+           "scale_events": (is_.scale_events - start.scale_events).tolist(),
+           "oracle_equal": True, "oracle_s": oracle_s}
+    emit(out)
+    return out
+
+
+MESH_RANKS = 4
+MESH_BIG = 1 << 24                  # elements of the large gradient leaf
+MESH_ROUNDS = 2                     # all-reduce rounds, the error carried
+MESH_EF_ROUNDS = 16                 # tests/test_optim_checkpoint.py's check
+MESH_LM_ARCH = "moonshot-v1-16b-a3b"
+MESH_LM_LAYERS = 2
+
+
+def _mesh_grads(rank: int, round_: int, dev) -> dict:
+    """Rank ``rank``'s seeded gradient tree in round ``round_``: one leaf
+    of 2^24 f32 and a few small ones (one all zero); rank 2's ten times
+    larger, so the ranks' scales differ."""
+    g = torch.Generator(device=dev).manual_seed(1000 * round_ + rank)
+    k = 10.0 if rank == 2 else 1.0
+    return {"big": torch.randn(MESH_BIG, generator=g, device=dev) * k,
+            "bias": torch.randn(4099, generator=g, device=dev) * (1e-3 * k),
+            "blk": {"a": torch.zeros(3, 5, device=dev),
+                    "b": torch.randn(7, 2, 3, generator=g, device=dev) * k}}
+
+
+def _float_diff(got, want) -> float:
+    """The largest |difference| of two lists of float tensors, ``got`` on
+    any device and ``want`` on the host (shapes and dtypes must agree)."""
+    worst = 0.0
+    for x, y in zip(got, want):
+        x = x.cpu()
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"shape/dtype differ: {x.shape} {x.dtype} "
+                                 f"vs {y.shape} {y.dtype}")
+        if not torch.equal(x, y):
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def phase_mesh(dev) -> dict:
+    """The port's training-mesh pieces on one card: a mesh of four
+    ``cuda:0`` entries on axis ``dp`` runs ``compressed_allreduce_grads``
+    (int8 payloads, error feedback) over seeded gradient trees, each round
+    held bit for bit to the same call on the host; JAX's error-feedback
+    check (16 rounds of a constant 0.01 gradient, mean within rtol 0.1);
+    and moonshot's parameter tree (every width, 2 layers) placed by
+    ``lm_param_rules`` on a (data 2, model 2) mesh of ``cuda:0`` entries
+    and gathered back bit for bit."""
+    mesh = make_mesh((MESH_RANKS,), ("dp",), devices=[dev] * MESH_RANKS)
+    host = make_mesh((MESH_RANKS,), ("dp",), devices=[HOST] * MESH_RANKS)
+    out = {"phase": "mesh", "ranks": MESH_RANKS, "big_leaf": MESH_BIG}
+    err = [init_error_feedback(_mesh_grads(r, 0, dev))
+           for r in range(MESH_RANKS)]
+    herr = [tree_map(lambda x: x.cpu(), e) for e in err]
+    rounds = []
+    for i in range(MESH_ROUNDS):
+        grads = [_mesh_grads(r, i, dev) for r in range(MESH_RANKS)]
+        res, ms = _sync_ms(lambda: compressed_allreduce_grads(
+            grads, err, mesh, "dp"))
+        hgrads = [tree_map(lambda x: x.cpu(), g) for g in grads]
+        t = time.perf_counter()
+        hres = compressed_allreduce_grads(hgrads, herr, host, "dp")
+        host_s = time.perf_counter() - t
+        err_max = max(_float_diff(tree_leaves(m) + tree_leaves(e),
+                                  tree_leaves(hm) + tree_leaves(he))
+                      for (m, e), (hm, he) in zip(res, hres))
+        if err_max:
+            raise AssertionError(f"mesh: round {i}'s all-reduce differs "
+                                 f"from the host's by {err_max}")
+        err = [e for _, e in res]
+        herr = [e for _, e in hres]
+        rounds.append({"ms": ms, "host_s": host_s, "max_abs_err": err_max})
+        elements = sum(x.numel() for x in tree_leaves(grads[0]))
+        del grads, hgrads, res, hres
+    out["allreduce"] = {
+        "rounds": rounds, "bit_equal_host": True,
+        "payload_bytes_per_rank": elements,
+        "f32_bytes_per_rank": 4 * elements}
+    del err, herr
+    g = {"w": torch.full((64,), 0.01, device=dev)}
+    err = [init_error_feedback(g) for _ in range(MESH_RANKS)]
+    total = torch.zeros(64, device=dev)
+    t = time.perf_counter()
+    for _ in range(MESH_EF_ROUNDS):
+        res = compressed_allreduce_grads([g] * MESH_RANKS, err, mesh, "dp")
+        err = [e for _, e in res]
+        total = total + res[0][0]["w"]
+    torch.cuda.synchronize()
+    ef_ms = (time.perf_counter() - t) * 1e3
+    np.testing.assert_allclose((total / MESH_EF_ROUNDS).cpu().numpy(), 0.01,
+                               rtol=0.1)
+    out["error_feedback"] = {"rounds": MESH_EF_ROUNDS, "ms": ef_ms,
+                             "mean": float(total.mean() / MESH_EF_ROUNDS),
+                             "rtol": 0.1}
+    cfg = dataclasses.replace(get_arch(MESH_LM_ARCH).config,
+                              n_layers=MESH_LM_LAYERS)
+    params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                           .manual_seed(0), device=dev)
+    lm_mesh = make_mesh((2, 2), ("data", "model"), devices=[dev] * 4)
+    placements = SHR.shardings_from_rules(params, SHR.lm_param_rules(lm_mesh),
+                                          lm_mesh)
+    placed, place_ms = _sync_ms(lambda: place_tree(params, placements))
+    back, gather_ms = _sync_ms(lambda: tree_map(gather, placed))
+    bad = []
+    entry_bytes = [0] * 4
+    specs = {}
+    for path, x, y, b in zip(*SHR.tree_paths(params), tree_leaves(placed),
+                             tree_leaves(back)):
+        if not (isinstance(y, SpecBlocks) and torch.equal(x, b)):
+            bad.append(path)
+        specs[path] = list(y.spec)
+        for j, sh in enumerate(y.shards):
+            entry_bytes[j] += sh.numel() * sh.element_size()
+    if bad:
+        raise AssertionError(f"mesh: {bad} did not gather back bit-equal")
+    total_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    out["lm_placement"] = {
+        "arch": MESH_LM_ARCH, "n_layers": MESH_LM_LAYERS,
+        "mesh": lm_mesh.shape, "leaves": len(specs), "specs": specs,
+        "param_bytes": total_bytes, "entry_bytes": entry_bytes,
+        "place_ms": place_ms, "gather_ms": gather_ms,
+        "gather_bit_equal": True}
+    del params, placed, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
 
 
 class _Split:
@@ -5477,6 +5794,8 @@ def main() -> int:
     spmm = phase_spmm(dev, graphs)
     del graphs
     _, grqc_s, grqc_cfg, grqc_host = phase_grqc(dev)
+    phase_fig12(dev)
+    phase_mesh(dev)
     twitter, twitter_part, twitter_g, twitter_s = phase_twitter(dev)
     # phase shard holds its sessions to this final state, which the
     # rebalance changes

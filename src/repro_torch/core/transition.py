@@ -428,7 +428,8 @@ def scale_out(state, kn: Knobs, gate=True):
 
 def recompute_cut(assignment, present, adj) -> torch.Tensor:
     """Exact cut count from scratch (each undirected edge stored twice in
-    adj) — the reference for tests, never on an engine path."""
+    adj): a full O(n·max_deg) adjacency pass — the reference for tests and
+    fig12's ``cut_fn`` scale-in baseline, never on an engine's own path."""
     valid = adj >= 0
     safe = torch.where(valid, adj, 0)
     nb_present = valid & present[safe]
@@ -466,10 +467,15 @@ def scale_in_trigger(small, kn: Knobs):
     return src, dst, do
 
 
-def merge_counters(small, src, dst, do):
+def merge_counters(small, src, dst, do, cut=None):
     """The O(K) half of a scale-in migrate (src folds into dst), selected
-    by ``do`` — shared by the faithful engine and both window engines."""
+    by ``do`` — shared by the faithful engine and both window engines.
+    The merged cut is ``cut_edges - cut_matrix[src, dst]``, or ``cut``
+    when the caller recounted it (``scale_in``'s ``cut_fn``)."""
     el, vc = small.edge_load, small.vertex_count
+    if cut is None:
+        cut = (small.cut_edges
+               - small.cut_matrix[src.reshape(1), dst.reshape(1)][0])
 
     def fold(x):
         return _set_at(_add_at(x, dst, _take(x, src)), src, 0)
@@ -482,26 +488,32 @@ def merge_counters(small, src, dst, do):
         vertex_count=sel(fold(vc), vc),
         active=sel(_set_at(small.active, src, False), small.active),
         num_partitions=sel(small.num_partitions - 1, small.num_partitions),
-        cut_edges=sel(small.cut_edges
-                      - small.cut_matrix[src.reshape(1), dst.reshape(1)][0],
-                      small.cut_edges),
+        cut_edges=sel(cut, small.cut_edges),
         cut_matrix=sel(merge_cut_matrix(small.cut_matrix, src, dst),
                        small.cut_matrix),
         scale_events=sel(small.scale_events + 1, small.scale_events),
     )
 
 
-def scale_in(state: PartitionState, kn: Knobs, gate=True) -> PartitionState:
+def scale_in(state: PartitionState, kn: Knobs, gate=True, *,
+             cut_fn=None) -> PartitionState:
     """Eqs. 6–8: if ≥2 machines are under l, migrate the min-load machine
     into the next-least-loaded one (if it fits under
     destinationThreshold). ``gate`` AND-composes an outer condition (this
     event is a DEL_VERTEX). The merged cut comes from the incremental
-    pairwise matrix — no adjacency pass."""
+    pairwise matrix — no adjacency pass. ``cut_fn`` (assignment, present,
+    adj) -> cut swaps in a from-scratch recount of the migrated
+    assignment instead (fig12's baseline, e.g. :func:`recompute_cut`).
+    The step is branch-free, so the recount runs on every gated event
+    whether or not it migrates, as under JAX's vmapped ``cond``; the
+    counters are exact, so both forms give identical states."""
     src, dst, do = scale_in_trigger(state, kn)
     do = do & gate
     a = state.assignment
-    state = merge_counters(state, src, dst, do)
-    return state._replace(assignment=torch.where(do & (a == src), dst, a))
+    moved = torch.where(a == src, dst, a)
+    cut = None if cut_fn is None else cut_fn(moved, state.present, state.adj)
+    state = merge_counters(state, src, dst, do, cut=cut)
+    return state._replace(assignment=torch.where(do, moved, a))
 
 
 # ---------------------------------------------------------------------------
@@ -662,22 +674,24 @@ class EventTransition(NamedTuple):
         return self.apply_del_edge(state, v, row, words, et == 2)
 
 
-def make_scale_hooks(kn: Knobs, autoscale: bool):
+def make_scale_hooks(kn: Knobs, autoscale: bool, cut_fn=None):
     """(scale_out_hook, scale_in_hook), each ``(state, gate) -> state``:
     the §4.2.3 hooks gated by their event's branch, or identities when
-    ``autoscale`` is False (then they compute nothing)."""
+    ``autoscale`` is False (then they compute nothing). ``cut_fn`` goes
+    to :func:`scale_in`."""
     if not autoscale:
         return (lambda s, gate: s), (lambda s, gate: s)
     return ((lambda s, gate: scale_out(s, kn, gate)),
-            (lambda s, gate: scale_in(s, kn, gate)))
+            (lambda s, gate: scale_in(s, kn, gate, cut_fn=cut_fn)))
 
 
 def make_transition(kn: Knobs, n: int, *, balance_guard: str, policy: str,
-                    autoscale: bool = False) -> EventTransition:
+                    autoscale: bool = False, cut_fn=None) -> EventTransition:
     """The event branches for one run (the caller resolves ``autoscale =
-    cfg.autoscale and policy == "sdp"``)."""
+    cfg.autoscale and policy == "sdp"``); ``cut_fn`` goes to the
+    scale-in."""
     choose = make_chooser(balance_guard, policy)
-    so_hook, si_hook = make_scale_hooks(kn, autoscale)
+    so_hook, si_hook = make_scale_hooks(kn, autoscale, cut_fn)
 
     def apply_add(state, v, row, words, gate):
         state = so_hook(state, gate)
@@ -703,15 +717,11 @@ def make_masked_step(kn: Knobs, n: int, *, balance_guard: str,
     instead of switching, so the lane step is that step, under the lane's
     policy (by name or index, ``policy_name``) and its resolved autoscale
     (``cfg.autoscale and policy == "sdp"`` in a sweep whose autoscale mode
-    is dynamic). ``cut_fn``, fig12's from-scratch scale-in baseline, is not
-    ported (ROADMAP A22)."""
-    if cut_fn is not None:
-        raise NotImplementedError(
-            "cut_fn (fig12's from-scratch scale-in baseline) is not ported "
-            "to the PyTorch sweep yet — ROADMAP A22")
+    is dynamic). ``cut_fn`` is forwarded to :func:`scale_in` (fig12's
+    from-scratch recount baseline only)."""
     return make_transition(kn, n, balance_guard=balance_guard,
                            policy=policy_name(policy, policy_idx),
-                           autoscale=bool(autoscale)).step
+                           autoscale=bool(autoscale), cut_fn=cut_fn).step
 
 
 def scan_events(step_fn: Callable, state: PartitionState,

@@ -6,10 +6,13 @@ sharded over the devices. The port does the same from one Python process:
 a :class:`Mesh` is a named tuple of ``torch.device`` entries with axis
 names, and a tensor is placed on it by a :class:`Placement` — either whole
 on the lead device (``devices[0]``), or split into equal row blocks along a
-named axis, one block on each entry of that axis (:class:`RowBlocks`). The
+named axis, one block on each entry of that axis (:class:`RowBlocks`), or
+split over several dims and axes by a :class:`PartitionSpec`, as JAX's
+``NamedSharding`` splits an array (:class:`SpecBlocks`; the parameter
+rules of ``repro_torch.runtime.sharding`` give those specs). The
 vertex-sharded session (``repro_torch.core.sharded_state``) and the
-elastic runner (``repro_torch.runtime.elastic``) both place their tensors
-with this one primitive.
+elastic runner (``repro_torch.runtime.elastic``) place their tensors in
+row blocks.
 
 A mesh's entries may repeat a device: ``make_vertices_mesh(devices=
 ["cpu"] * 4)`` or ``[torch.device("cuda", 0)] * 4`` gives four row blocks
@@ -190,11 +193,162 @@ class RowBlocks:
                 f"devices={[str(d) for d in self.devices]})")
 
 
+def _spec_axes(entry) -> tuple:
+    """The mesh axes a spec entry names: ``None`` none, a name one, a tuple
+    several (their sizes multiply, read row-major)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: one entry per leading dim of a tensor —
+    ``None`` (not split), a mesh axis name, or a tuple of names — as a
+    tuple, normalised as JAX normalises it: ``()`` becomes ``None`` and a
+    one-name tuple its name. Dims past the spec's length are not split."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            axes = _spec_axes(e)
+            if not axes:
+                return None
+            return axes[0] if len(axes) == 1 else axes
+        return super().__new__(cls, (norm(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class SpecBlocks:
+    """A tensor split over a mesh as JAX's ``NamedSharding(mesh, spec)``
+    splits an array: dim ``d`` into ``prod`` (sizes of ``spec[d]``'s axes)
+    equal blocks; the mesh entry at coordinates ``c`` holds the block whose
+    index along ``d`` is ``c`` over ``spec[d]``'s axes, read row-major, and
+    axes the spec does not name hold copies. ``shards`` has one tensor per
+    mesh entry, in the mesh's row-major order. ``shape`` and ``dtype`` are
+    the whole tensor's; ``np.asarray`` of it gathers on the host."""
+
+    __slots__ = ("mesh", "spec", "shape", "shards")
+
+    def __init__(self, mesh: Mesh, spec, shape, shards: Sequence):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+        self.shape = torch.Size(shape)
+        self.shards = tuple(shards)
+
+    @property
+    def devices(self) -> tuple:
+        return tuple(b.device for b in self.shards)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default: the lead entry's),
+        each block read from the first entry that holds it."""
+        dev = self.shards[0].device if device is None else torch.device(device)
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        done = set()
+        for sl, shard in zip(_block_slices(self.mesh, self.spec, self.shape),
+                             self.shards):
+            key = tuple((x.start, x.stop) for x in sl)
+            if key not in done:
+                out[sl] = shard.to(dev)
+                done.add(key)
+        return out
+
+    def __array__(self, dtype=None, copy=None):
+        out = self.gather("cpu").numpy()
+        return out if dtype is None else out.astype(dtype)
+
+    def __repr__(self) -> str:
+        return (f"SpecBlocks(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.spec!r}, mesh={self.mesh.shape})")
+
+
+def _block_slices(mesh: Mesh, spec, shape) -> list:
+    """Each mesh entry's block of a ``shape`` tensor under ``spec``, as a
+    tuple of slices, in the mesh's row-major order. Raises where the spec
+    is longer than the tensor's rank, names an axis the mesh lacks or
+    twice, or a dim does not split evenly (JAX's even-sharding
+    contract)."""
+    spec = PartitionSpec(*spec)
+    sizes = mesh.shape
+    if len(spec) > len(shape):
+        raise ValueError(f"{spec!r} has {len(spec)} entries for a tensor "
+                         f"of rank {len(shape)}")
+    named = [a for e in spec for a in _spec_axes(e)]
+    unknown = [a for a in named if a not in sizes]
+    if unknown or len(set(named)) != len(named):
+        raise ValueError(f"{spec!r} names {named}: each at most once, and "
+                         f"only axes of the mesh {sizes}")
+    counts = [int(np.prod([sizes[a] for a in _spec_axes(e)], dtype=np.int64))
+              for e in spec]
+    for d, (n, c) in enumerate(zip(shape, counts)):
+        if n % c:
+            raise ValueError(
+                f"dim {d} of a {tuple(shape)} tensor ({n}) does not split "
+                f"evenly into {c} blocks under {spec!r} on the mesh {sizes}")
+    out = []
+    for coord in np.ndindex(*mesh.dims):
+        at = dict(zip(mesh.axis_names, coord))
+        sl = []
+        for n, c, e in zip(shape, counts, spec):
+            i = 0
+            for a in _spec_axes(e):
+                i = i * sizes[a] + at[a]
+            r = n // c
+            sl.append(slice(i * r, (i + 1) * r))
+        sl += [slice(0, n) for n in shape[len(spec):]]
+        out.append(tuple(sl))
+    return out
+
+
+def split_spec(x: torch.Tensor, mesh: Mesh, spec) -> SpecBlocks:
+    """``x`` split over ``mesh`` as ``spec`` says (:class:`SpecBlocks`):
+    each entry's block a contiguous copy on that entry's device, never a
+    view of ``x``."""
+    slices = _block_slices(mesh, spec, x.shape)
+    return SpecBlocks(mesh, spec, x.shape, (
+        x[sl].to(torch.device(d), copy=True,
+                 memory_format=torch.contiguous_format)
+        for sl, d in zip(slices, mesh.devices)))
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
+              devices=None) -> Mesh:
+    """A mesh of ``axis_shapes`` over named axes, JAX's ``make_mesh``: the
+    first ``prod(axis_shapes)`` of ``devices`` (default: every CUDA card)
+    row-major. A device may repeat (see the module docstring); raises
+    when there are too few."""
+    dims = tuple(int(n) for n in axis_shapes)
+    names = tuple(axis_names)
+    if len(dims) != len(names) or min(dims, default=0) < 1:
+        raise ValueError(f"make_mesh({dims}, {names}): one size >= 1 per "
+                         "axis name")
+    devices = _cuda_devices() if devices is None else _as_devices(devices)
+    need = int(np.prod(dims))
+    if need > len(devices):
+        raise ValueError(
+            f"make_mesh({dims}, {names}) needs {need} devices but only "
+            f"{len(devices)} are available — pass a longer devices= "
+            "sequence (a device may repeat)")
+    return Mesh(tuple(devices[:need]), names, dims)
+
+
 class Placement(NamedTuple):
     """Where a leaf lives on ``mesh``: ``axis=None`` whole on the lead
-    device, else in equal row blocks along ``axis``."""
+    device, else in equal row blocks along ``axis`` (:class:`RowBlocks`);
+    with a ``spec``, split as JAX's ``NamedSharding(mesh, spec)``
+    (:class:`SpecBlocks`, ``axis`` unused)."""
     mesh: Mesh
     axis: str | None = None
+    spec: tuple | None = None
 
 
 def split_rows(x: torch.Tensor, devices: Sequence) -> RowBlocks:
@@ -213,13 +367,15 @@ def split_rows(x: torch.Tensor, devices: Sequence) -> RowBlocks:
 
 
 def place(x, placement: Placement):
-    """``x`` (a tensor, a ``RowBlocks`` or a host array) placed as
-    ``placement`` says: a tensor on the lead device, or ``RowBlocks`` on
-    the axis' entries."""
-    if isinstance(x, RowBlocks):
+    """``x`` (a tensor, a ``RowBlocks``, a ``SpecBlocks`` or a host array)
+    placed as ``placement`` says: a tensor on the lead device,
+    ``RowBlocks`` on the axis' entries, or ``SpecBlocks`` by its spec."""
+    if isinstance(x, (RowBlocks, SpecBlocks)):
         x = x.gather()
     elif not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x, copy=True))
+    if placement.spec is not None:
+        return split_spec(x, placement.mesh, placement.spec)
     if placement.axis is None:
         return x.to(placement.mesh.lead, copy=True)
     return split_rows(x, placement.mesh.axis_devices(placement.axis))
@@ -228,7 +384,7 @@ def place(x, placement: Placement):
 def gather(x, device=None) -> torch.Tensor:
     """The whole of a placed leaf as one tensor on ``device`` (default:
     where it is, or its block 0's device)."""
-    if isinstance(x, RowBlocks):
+    if isinstance(x, (RowBlocks, SpecBlocks)):
         return x.gather(device)
     return x if device is None else x.to(device)
 

@@ -29,8 +29,9 @@ one-device path (JAX's one-device mesh, zero lane padding); lanes over
 several cards are ROADMAP A23. ``shard_vertices`` runs the lanes one after
 another, each a vertex-sharded session over the whole mesh
 (``runtime.shard_session.run_stream_sharded``) at its own stream's
-geometry. ``cut_fn`` (fig12's scale-in baseline) is ROADMAP A22 and
-raises.
+geometry. ``cut_fn`` (fig12's from-scratch scale-in baseline) reaches
+the scan path only (``sweep_events``), as in JAX, where only the scan
+kernel takes it.
 """
 from __future__ import annotations
 
@@ -113,7 +114,9 @@ def sweep_events(states: PartitionState, kns: torch.Tensor, policy_idx,
     ``states`` and the returned states and ``EventTrace`` carry a leading
     lane axis (L, ...), ``policy_idx`` and ``autoscale`` are (L,)
     sequences (or tensors, read on the host). Consumes ``states``.
-    ``cut_fn`` raises (ROADMAP A22)."""
+    ``cut_fn`` (assignment, present, adj) -> cut replaces every lane's
+    incremental scale-in cut by a recount (fig12's baseline,
+    ``transition.recompute_cut``)."""
     lanes = [_unstack(states, b) for b in range(states.assignment.shape[0])]
     lanes, traces = _scan_lanes(
         lanes, kns, _host_list(policy_idx), _host_list(autoscale), etype,

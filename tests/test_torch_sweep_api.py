@@ -2,20 +2,26 @@
 validation rule with JAX's message, the deprecated ``run_sweep`` shim
 (warns, and returns ``Sweep``'s lanes: equal to JAX's), ``.sharded()``
 on one device, ``.scan()`` after ``.windowed()``, the options of later
-slices raising with their ROADMAP items, and the choosers' policy-or-index
-form. Mirrors tests/test_api_sweep.py."""
+slices (vertex-sharded lanes, the ``cut_fn`` step) against JAX's, and
+the choosers' policy-or-index form. Mirrors tests/test_api_sweep.py."""
 import functools
 import warnings
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 from repro.api import Sweep as JSweep
 from repro.core import EngineConfig as JCfg
 from repro.core import run_stream as jrun
+from repro.core import transition as jtx
+from repro.core.state import init_state as jinit
 from repro.runtime.sweep import run_sweep as jrun_sweep
 from repro_torch.api import Sweep
 from repro_torch.core import transition as tx
 from repro_torch.core.config import EngineConfig, POLICIES
+from repro_torch.core.state import init_state
 from repro_torch.runtime import run_sweep
 
 from test_torch_engine import assert_same
@@ -98,19 +104,37 @@ def test_validation_messages_equal_jax():
 
 
 def test_later_options_raise_naming_their_roadmap_items():
-    """``cut_fn`` (A22) still raises; ``sharded_vertices()`` (A16) is
-    ported: one vertex-sharded session a lane, equal to JAX's
-    ``run_stream``."""
+    """The options of later slices are ported: ``sharded_vertices()``
+    (A16) runs one vertex-sharded session a lane, equal to JAX's
+    ``run_stream``, and ``make_masked_step(cut_fn=...)`` (A22) scans a
+    churn stream that scales in equal to JAX's step with the same
+    recount, bit for bit."""
     s_j, s_t = _pair("build_stream", ("mesh", 40, 100, 8), seed=9)
     (got,) = (Sweep(s_t, device="cpu").lane("sdp").windowed(32)
               .sharded_vertices(devices=["cpu"] * 3).run())
     want, _ = jrun(s_j, cfg=JCfg(), seed=0)
     assert_same(want, got.state)
     Sweep(s_t, device="cpu").sharded_vertices(False)
-    kn = tx.make_knobs(EngineConfig(), 10, "cpu")
-    with pytest.raises(NotImplementedError, match="A22"):
-        tx.make_masked_step(kn, 10, balance_guard="text", policy="sdp",
-                            cut_fn=lambda *a: a)
+    s_j, s_t = _pair("interleaved_churn", ("social", 150, 450, 0), seed=0,
+                     warmup_frac=0.2, del_every=3, edge_del_every=5)
+    kw = dict(k_max=6, k_init=1, max_cap=60, tolerance_param=60.0,
+              dest_param=5.0, autoscale=True)
+    jst = jinit(s_j.n, s_j.max_deg, 6, 1, 3)
+    jstep = jtx.make_masked_step(jtx.knobs_arrays(JCfg(**kw), s_j.n),
+                                 s_j.n, balance_guard="text", policy="sdp",
+                                 autoscale=True, cut_fn=jtx.recompute_cut)
+    want, wtr = jtx.scan_events(jstep, jst, *map(jnp.asarray, (
+        s_j.etype, s_j.vertex, s_j.nbrs)), jnp.int32(0))
+    tst = init_state(s_t.n, s_t.max_deg, 6, 1, 3, device="cpu")
+    tstep = tx.make_masked_step(tx.make_knobs(EngineConfig(**kw), s_t.n,
+                                              "cpu"),
+                                s_t.n, balance_guard="text", policy="sdp",
+                                autoscale=True, cut_fn=tx.recompute_cut)
+    got, gtr = tx.scan_events(tstep, tst, *map(torch.from_numpy, (
+        s_t.etype, s_t.vertex, s_t.nbrs)), 0)
+    assert_same(want, got)
+    assert_same(wtr, gtr)
+    assert (np.diff(gtr.num_partitions.numpy()) < 0).any()   # scaled in
 
 
 def test_choosers_take_a_policy_or_its_index():
