@@ -73,7 +73,12 @@ to the host's, its combine to a dense sum of the kept experts, its
 logits to the plain attention's), and trains it at every width with 4 of
 its 48 layers through ``launch.train --full`` (phase ``lm_train``: 2 x
 4,096-token batches, the first step's loss and gradients held to the
-plain attention's, the CLI resumed). One JSON line per phase; the last
+plain attention's, the CLI resumed), and runs moonshot and gemma2 at
+every width with 2 layers as ``launch.steps``' step bundles on a (data 2,
+model 2) mesh of four ``cuda:0`` entries, each entry on its own shards
+with explicit collectives (phase ``lm_mesh``: a train step, a prefill, a
+4-slot decode and gemma2's 1-slot decode over a cache split over every
+axis, each held to the one-card step). One JSON line per phase; the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero without that line. Needs one CUDA
 card; imports nothing of JAX.
@@ -107,6 +112,7 @@ from repro_torch.api.serve import PartitionService  # noqa: E402
 from repro_torch.api.sweep import Sweep, SweepRun  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ArchDef  # noqa: E402
 from repro_torch.configs.shapes import (  # noqa: E402
     GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
 )
@@ -137,7 +143,9 @@ from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_backward_ref, embedding_bag_ref,
 )
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_lse_ref, attention_ref,
+)
 from repro_torch.kernels.fused_chooser import fused_chooser as fk  # noqa: E402
 from repro_torch.kernels.fused_chooser import ops as fops  # noqa: E402
 from repro_torch.kernels.fused_chooser import sweep as fsweep  # noqa: E402
@@ -160,6 +168,7 @@ from repro_torch.launch import train as trainer  # noqa: E402
 from repro_torch.data import pipeline as dp  # noqa: E402
 from repro_torch.optim.optimizers import (  # noqa: E402
     adamw, apply_updates, linear_warmup_cosine, tree_leaves, tree_map,
+    tree_paths,
 )
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -182,12 +191,14 @@ from repro_torch.core.sharded_state import (  # noqa: E402
     per_device_state_bytes, shard_state, unshard_state,
 )
 from repro_torch.launch.mesh import (  # noqa: E402
-    Placement, RowBlocks, SpecBlocks, gather, make_mesh, make_vertices_mesh,
-    place_tree, tree_map,
+    Placement, RowBlocks, SpecBlocks, _block_slices, _spec_axes, gather,
+    make_mesh, make_vertices_mesh, place_tree, tree_map,
 )
 from repro_torch.optim import (  # noqa: E402
     compressed_allreduce_grads, init_error_feedback,
 )
+from repro_torch.runtime import collectives  # noqa: E402
+from repro_torch.runtime import lm_sharded  # noqa: E402
 from repro_torch.runtime import sharding as SHR  # noqa: E402
 from repro_torch.runtime import sweep as sweep_rt  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import prepare_rows_ref  # noqa: E402
@@ -345,15 +356,27 @@ BWD_CASES = ((1, 16, 40, 3, "random"), (7, 130, 300, 37, "random"),
              (1000, 24, 512, 9, "dup"))
 
 
+# every line emit prints, also kept whole in a file (a run's standard
+# output may be read back cut to its tail)
+LOG = os.path.join(ROOT, "build", "chip_smoke.jsonl")
+
+
 _T0 = time.perf_counter()
+_EMIT_LOCK = threading.Lock()
 
 
 def emit(obj) -> None:
-    """One JSON line; a phase's line carries ``t_s``, the seconds since the
-    script started, so the phases' shares of the time limit can be read."""
+    """One JSON line, printed and appended to ``LOG``; a phase's line
+    carries ``t_s``, the seconds since the script started, so the phases'
+    shares of the time limit can be read."""
     if "phase" in obj:
         obj = {**obj, "t_s": round(time.perf_counter() - _T0, 3)}
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    with _EMIT_LOCK:              # the build's thread emits too
+        print(line, flush=True)
+        os.makedirs(os.path.dirname(LOG), exist_ok=True)
+        with open(LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def _elapsed_ms(run) -> float:
@@ -4519,9 +4542,11 @@ class _Recorder(_Hook):
         return {i: (*a, kw) for i, (a, kw, _, _) in self.kept.items()}
 
 
-def _check_attention_at(rec: dict, what: str, chunk: int) -> dict:
+def _check_attention_at(rec: dict, what: str, chunk: int,
+                        label: str = "layer") -> dict:
     """Check 1: the kernel against the plain attention at the model's own
-    q/k/v of layers 0 (local) and 1 (global), to one bf16 ulp."""
+    q/k/v of layers 0 (local) and 1 (global), to one bf16 ulp; the rows
+    are named ``f"{label}{i}"``."""
     out = {}
     for i, (q, k, v, kw) in sorted(rec.items()):
         kw = dict(kw, use_kernel=True)
@@ -4530,12 +4555,13 @@ def _check_attention_at(rec: dict, what: str, chunk: int) -> dict:
                                                 chunk=chunk))
         torch.cuda.synchronize()
         excess, err = _bf16_err(got, want)
-        out[f"layer{i}"] = {"window": kw["window"], "q_offset": kw["q_offset"],
-                            "q": list(q.shape), "k": list(k.shape),
-                            "max_abs_err": err, "rtol": BF16_RTOL,
-                            "atol": BF16_ATOL}
+        out[f"{label}{i}"] = {"window": kw["window"],
+                              "q_offset": kw["q_offset"],
+                              "q": list(q.shape), "k": list(k.shape),
+                              "max_abs_err": err, "rtol": BF16_RTOL,
+                              "atol": BF16_ATOL}
         if excess > 0 or not torch.isfinite(got).all():
-            raise AssertionError(f"lm {what} layer {i}: kernel attention "
+            raise AssertionError(f"lm {what} {label} {i}: kernel attention "
                                  f"differs from the plain one by {err}")
     return out
 
@@ -5517,6 +5543,467 @@ def lm_train_main(card: str) -> int:
     return 0
 
 
+# phase lm_mesh: launch.steps' LM bundles (build_lm, baseline scheme) on a
+# (data 2, model 2) mesh of four cuda:0 entries, each entry running its own
+# shards with explicit collectives (runtime.lm_sharded): moonshot and
+# gemma2 at every width of CONFIG, n_layers cut to 2 (48 and 42 layers
+# cannot share one 80 GB card with a one-card reference, and four entries
+# on one card shard nothing away); a train step at train_4k's length with
+# one sequence a data rank, a prefill of 2 x 4,096 tokens, a decode of 4
+# slots at 8,192 keys and, for gemma2, a decode of one slot whose cache is
+# split over every axis. The loss's vocabulary chunk is cut to 1,024 tokens
+# on both paths (four entries' logits share one card; the chunk changes
+# only the order of the loss's sums)
+LM_MESH_ARCHS = (MOE_ARCH, LM_ARCH)
+LM_MESH_DIMS, LM_MESH_LAYERS, LM_MESH_XENT_CHUNK = (2, 2), 2, 1024
+LM_MESH_BATCH, LM_MESH_SEQ = 2, 4096
+LM_MESH_SLOTS, LM_MESH_KEYS = 4, 8192
+LM_MESH_REPS = 3
+# the sharded step against the one-card step on the same params and inputs
+# (both on flash_attention): they differ by where bf16 partial products are
+# rounded and summed (row-parallel products summed over model in bf16, as
+# GSPMD sums them), so the loss by far less than a bf16 ulp and the
+# gradients (mu after step one is (1 - b1) x the clipped gradient) as phase
+# lm_train's kernel and plain steps do: 2^-2 relative L2 where MoE routes
+# may flip, 2^-4 on the same routes (the one-card step fed the sharded
+# step's expert choices) and for a dense model; logits, the prefill's
+# caches and the decode's written slot within phase lm's 2^-4, for the MoE
+# model on the same routes (held to a few tokens' logits, one flipped
+# near-tie moves them by O(1)); every other cache slot unchanged
+LM_MESH_LOSS_REL = LM_TRAIN_LOSS_REL
+LM_MESH_GRAD_REL = LM_TRAIN_GRAD_REL
+LM_MESH_SAME_ROUTES_REL = LM_TRAIN_SAME_ROUTES_REL
+# flash_attention's log-sum-exp (the sequence-sharded decode's merge
+# weights) against the plain version's: f32 sums of the same bf16 products
+# in another order, through exp2 / log2
+LSE_ATOL = 1e-4
+
+
+def _mesh_arch(arch_id: str) -> ArchDef:
+    a = get_arch(arch_id)
+    cfg = dataclasses.replace(a.config, n_layers=LM_MESH_LAYERS,
+                              xent_chunk=LM_MESH_XENT_CHUNK)
+    return ArchDef(arch_id, "lm", cfg, a.smoke_config, a.source,
+                   skip_shapes=a.skip_shapes)
+
+
+def _zeros_placed(spec, placement) -> SpecBlocks:
+    """A zero ``SpecBlocks`` of ``spec``'s shape and dtype placed as
+    ``placement``, each block made on its entry (no whole tensor)."""
+    mesh = placement.mesh
+    return SpecBlocks(mesh, placement.spec, spec.shape, [
+        torch.zeros(tuple(x.stop - x.start for x in sl), dtype=spec.dtype,
+                    device=d)
+        for sl, d in zip(_block_slices(mesh, placement.spec, spec.shape),
+                         mesh.devices)])
+
+
+def _entry_bytes(tree: dict) -> list:
+    """Each entry's bytes of a dict of ``SpecBlocks``."""
+    leaves = tree_leaves(tree)
+    return [sum(x.shards[e].numel() * x.shards[e].element_size()
+                for x in leaves) for e in range(len(leaves[0].shards))]
+
+
+def _mesh_hook(module, attr: str, n: int) -> _Hook:
+    """Keeps the arguments, as given, of the first ``n`` calls of
+    ``module.<attr>`` in a sharded call: ``layers.attention`` (a train
+    step's forward, a prefill, a decode over a cache split over heads;
+    one call an entry a layer) or ``lm_sharded.flash_attention`` (a
+    decode's key blocks where the cache is split over the sequence)."""
+    return _Hook(module, attr, lambda i: i if i < n else None, clone=False)
+
+
+def _mesh_attention(hook: _Hook, what: str, chunk: int) -> dict:
+    """The kernel against the plain attention at each call ``hook`` kept,
+    on that call's own q/k/v, to one bf16 ulp (``_check_attention_at``);
+    uncounted."""
+    rec = {i: (*(x.detach() for x in a), kw)
+           for i, (a, kw, _, _) in hook.kept.items()}
+    n0 = fa.flash_attention.launches
+    with torch.no_grad():
+        out = _check_attention_at(rec, what, chunk, label="call")
+    fa.flash_attention.launches = n0
+    return out
+
+
+def _mesh_lse(hook: _Hook, what: str) -> dict:
+    """The split kernel's output (one bf16 ulp) and log-sum-exp
+    (``LSE_ATOL``) against ``attention_lse_ref`` at each key-block call
+    ``hook`` kept, on that call's own q/k/v; uncounted."""
+    out = {}
+    n0 = fa.flash_attention.launches
+    for i, ((q, k, v), kw, _, _) in sorted(hook.kept.items()):
+        got, lse = fa.flash_attention(q, k, v, **kw)
+        want, want_lse = attention_lse_ref(
+            q, k, v, **{a: b for a, b in kw.items() if a != "lse"})
+        torch.cuda.synchronize()
+        excess, err = _bf16_err(got, want)
+        lse_err = float((lse - want_lse).abs().max())
+        out[f"call{i}"] = {"window": kw["window"], "q_offset": kw["q_offset"],
+                           "q": list(q.shape), "k": list(k.shape),
+                           "max_abs_err": err, "lse_max_abs_err": lse_err}
+        if excess > 0 or not torch.isfinite(got).all() \
+                or not lse_err <= LSE_ATOL:
+            raise AssertionError(f"lm_mesh {what} call {i}: the split "
+                                 f"kernel differs from the plain version: "
+                                 f"{out[f'call{i}']}")
+    fa.flash_attention.launches = n0
+    return out
+
+
+def _decode_launches(b, mesh, cfg, cache_len: int) -> int:
+    """flash_attention's launches in one sharded decode call: an entry a
+    layer where the cache is split over heads; where it is split over the
+    sequence, an entry a layer whose key block holds a key the layer's
+    window lets the new token see (the others launch nothing)."""
+    spec = b.out_shardings[1].spec
+    if spec[3] == "model":
+        return len(mesh.devices) * cfg.n_layers
+    ctx = lm_sharded.Ctx(mesh, cfg)
+    axes = _spec_axes(spec[2])
+    n = 0
+    for w in (int(x) for x in cfg.windows[:cfg.n_layers]):
+        lo = max(0, cache_len - w + 1) if w > 0 else 0
+        for e in range(len(mesh.devices)):
+            blk = ctx.entry_slice(axes, LM_MESH_KEYS, e)
+            n += max(lo, blk.start) < min(cache_len + 1, blk.stop)
+    return n
+
+
+def _mesh_call(fn, *args):
+    """One sharded call: its result, its ms (synchronised), its
+    flash_attention launches (the count set to 0 just before) and the wire
+    bytes each entry sent, by op."""
+    collectives.reset_wire_bytes()
+    fa.flash_attention.launches = 0
+    out, ms = _sync_ms(lambda: fn(*args))
+    wire = {op: [v.get(e, 0.0) for e in range(4)]
+            for op, v in collectives.wire_bytes().items()}
+    return out, {"ms": ms, "flash_attention": fa.flash_attention.launches,
+                 "wire_bytes": wire}
+
+
+def _mesh_train(arch, mesh, cfg, params, dev) -> dict:
+    """A sharded train step (step one checked against the one-card step's,
+    step two timed: step one carries the process's first backward) beside
+    the one-card step (its first, run after the sharded one, while the
+    sharded state stays on the card); for an MoE model also the one-card
+    step fed the sharded step's expert choices."""
+    b = train_steps.build_lm(arch, dataclasses.replace(
+        LM_SHAPES["train_4k"], seq_len=LM_MESH_SEQ,
+        global_batch=LM_MESH_BATCH), mesh)
+    batch = trainer.batch_tensors(dp.lm_batch(
+        cfg.vocab, LM_MESH_BATCH, LM_MESH_SEQ, seed=0, step=0), dev)
+    p_sh = place_tree(params, b.in_shardings[0])
+    o_sh = tree_map(_zeros_placed, b.specs[1], b.in_shardings[1])
+    b_sh = place_tree(batch, b.in_shardings[2])
+    out = {"bundle": b.name, "meta": b.meta,
+           "param_entry_bytes": _entry_bytes(p_sh),
+           "opt_entry_bytes": _entry_bytes(o_sh)}
+    forward = len(mesh.devices) * cfg.n_layers
+    with _mesh_routes(cfg, len(mesh.devices)) as routes, \
+            _mesh_hook(layers, "attention", forward) as rec:
+        (p_sh, o_sh, metrics), call = _mesh_call(b.fn, p_sh, o_sh, b_sh)
+    sharded = {k: float(gather(v)) for k, v in metrics.items()}
+    out["sharded"] = {**sharded, **call}
+    out["attention"] = _mesh_attention(rec, f"{b.name} forward",
+                                       cfg.attn_chunk)
+    choices = _mesh_choices(routes, cfg)
+    del routes, rec
+    mu_sh = dict(tree_paths(o_sh["mu"]))
+    step = train_steps.train_step(T.loss_fn, cfg, train_steps.make_opt())
+    runs = [("one_card", None)]
+    if choices is not None:
+        runs.append(("one_card_same_routes", choices))
+    for name, forced in runs:
+        state = train_steps.make_opt().init(params)
+        fa.flash_attention.launches = 0
+        hook = _ForcedRoutes(forced) if forced is not None else _route_hook()
+        with hook:
+            (new, state, m), ms = _sync_ms(lambda: step(params, state, batch))
+        if choices is not None and forced is None:
+            out["routing"] = _routing_diff(choices, _choices(hook))
+        del hook
+        rel = {"/".join(path): _rel_l2(gather(mu_sh[path]), want)
+               for path, want in tree_paths(state["mu"])}
+        out[name] = {**{k: float(v) for k, v in m.items()}, "ms": ms,
+                     "flash_attention": fa.flash_attention.launches,
+                     "mu_rel_l2": rel}
+        del new, state, m
+        torch.cuda.empty_cache()
+    _, call2 = _mesh_call(b.fn, p_sh, o_sh, b_sh)
+    out["sharded"]["step2"] = call2
+    ref = out["one_card"]
+    out["loss_rel"] = abs(sharded["loss"] - ref["loss"]) / abs(ref["loss"])
+    same = out.get("one_card_same_routes", ref)
+    out["mu_rel_l2_max"] = max(ref["mu_rel_l2"].values())
+    out["mu_rel_l2_same_routes_max"] = max(same["mu_rel_l2"].values())
+    out["limits"] = {"loss_rel": LM_MESH_LOSS_REL,
+                     "mu_rel_l2": LM_MESH_GRAD_REL,
+                     "mu_rel_l2_same_routes": LM_MESH_SAME_ROUTES_REL}
+    if not np.isfinite(list(sharded.values())).all() \
+            or out["loss_rel"] > LM_MESH_LOSS_REL:
+        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded step's "
+                             f"loss differs from the one-card step's: {out}")
+    if not out["mu_rel_l2_max"] <= LM_MESH_GRAD_REL \
+            or not out["mu_rel_l2_same_routes_max"] <= \
+            LM_MESH_SAME_ROUTES_REL:
+        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded step's "
+                             f"gradients differ from the one-card step's: "
+                             f"{out}")
+    if call["flash_attention"] != 2 * forward:      # forward, recompute
+        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded train "
+                             f"step launched flash_attention "
+                             f"{call['flash_attention']} times, not "
+                             f"{2 * forward}")
+    return out
+
+
+def _mesh_routes(cfg, n_entries: int) -> _Hook:
+    """Keeps a sharded call's ``moe.route`` calls (one an entry a layer)."""
+    n = cfg.n_layers * n_entries
+    return _Hook(moe, "route", lambda i: i if i < n else None, clone=False)
+
+
+def _mesh_choices(hook: _Hook, cfg) -> list | None:
+    """Each layer's global expert choices from a sharded call on a (data
+    2, model 2) mesh with the batch split over data: its model-rank-0
+    entries' (0 and 2) in data order; None for a dense model."""
+    if cfg.moe is None:
+        return None
+    got = _choices(hook)
+    return [torch.cat([got[4 * i], got[4 * i + 2]])
+            for i in range(cfg.n_layers)]
+
+
+def _logit_dist(got, want) -> dict:
+    top = torch.topk(want, 2, dim=-1).values
+    err = float((got - want).abs().max())
+    return {"shape": list(got.shape), "finite": bool(torch.isfinite(got)
+                                                     .all()),
+            "max_abs_err": err, "rel_l2": _rel_l2(got, want),
+            "same_token": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+            "top1_margin": float((top[..., 0] - top[..., 1]).min())}
+
+
+def _held_to_one_card(run, compare, choices, what: str) -> dict:
+    """The one-card call ``run`` LM_MESH_REPS times on its own expert
+    choices (timed; the first compared), then, for an MoE model, once fed
+    the sharded call's ``choices``. ``compare(result)`` gives the logits'
+    distance and the cache's relative L2s; the limits (LOGIT_REL, phase
+    lm's) hold on the dense model's own run and on the MoE model's
+    same-routes run — on its own routes a near-tie that bf16 roundings
+    flip at one of a few tokens moves that token's logits by O(1)."""
+    times = []
+    for i in range(LM_MESH_REPS):
+        with _route_hook() as hook:
+            res, ms = _sync_ms(run)
+        times.append(ms)
+        if i == 0:
+            out = {"own_routes": compare(res)}
+            own = _choices(hook)
+        del res, hook
+    out["one_card_ms"] = times
+    held = out["own_routes"]
+    if choices is not None:
+        out["routing"] = _routing_diff(choices, own)
+        with _ForcedRoutes(choices):
+            res, _ = _sync_ms(run)
+        held = out["same_routes"] = compare(res)
+        del res
+    lg = held["logits"]
+    if not lg["finite"] or lg["rel_l2"] > LOGIT_REL \
+            or (lg["top1_margin"] > 2 * lg["max_abs_err"]
+                and not lg["same_token"]) \
+            or max(held["cache_rel_l2"]) > LOGIT_REL:
+        raise AssertionError(f"lm_mesh {what}: the sharded call differs from "
+                             f"the one-card call: {out}")
+    return out
+
+
+def _mesh_prefill(arch, mesh, cfg, params, dev) -> dict:
+    b = train_steps.build_lm(arch, dataclasses.replace(
+        LM_SHAPES["prefill_32k"], seq_len=LM_MESH_SEQ,
+        global_batch=LM_MESH_BATCH), mesh)
+    tokens = trainer.batch_tensors(dp.lm_batch(
+        cfg.vocab, LM_MESH_BATCH, LM_MESH_SEQ, seed=1, step=0), dev)["tokens"]
+    p_sh = place_tree(params, b.in_shardings[0])
+    t_sh = place_tree(tokens, b.in_shardings[1])
+    calls, n = [], len(mesh.devices) * cfg.n_layers
+    with _mesh_routes(cfg, len(mesh.devices)) as routes, \
+            _mesh_hook(layers, "attention", n) as rec:
+        for _ in range(LM_MESH_REPS):
+            (lg, ck, cv), call = _mesh_call(b.fn, p_sh, t_sh)
+            calls.append(call)
+    attention = _mesh_attention(rec, b.name, cfg.attn_chunk)
+    choices = _mesh_choices(routes, cfg)
+    del routes, p_sh, rec
+    lg, ck, cv = gather(lg), gather(ck), gather(cv)
+
+    def compare(res):
+        want, wk, wv = res
+        return {"logits": _logit_dist(lg, want),
+                "cache_rel_l2": [_rel_l2(ck, wk), _rel_l2(cv, wv)]}
+
+    out = {"bundle": b.name, "cache_spec": list(b.out_shardings[1].spec),
+           "sharded": calls[0], "sharded_ms": [c["ms"] for c in calls],
+           "attention": attention,
+           **_held_to_one_card(lambda: T.prefill_step(params, tokens, cfg),
+                               compare, choices, b.name)}
+    if calls[0]["flash_attention"] != n:
+        raise AssertionError(f"lm_mesh {b.name}: flash_attention launched "
+                             f"{calls[0]['flash_attention']} times, not {n}")
+    return out
+
+
+def _mesh_decode(arch, mesh, cfg, params, dev, slots: int) -> dict:
+    b = train_steps.build_lm(arch, dataclasses.replace(
+        LM_SHAPES["decode_32k"], seq_len=LM_MESH_KEYS, global_batch=slots),
+        mesh)
+    g = torch.Generator(device=dev).manual_seed(2)
+    shape = (cfg.n_layers, slots, LM_MESH_KEYS, cfg.n_kv_heads, cfg.head_dim)
+    ck = torch.randn(shape, generator=g, device=dev).to(cfg.torch_dtype)
+    cv = torch.randn(shape, generator=g, device=dev).to(cfg.torch_dtype)
+    n = LM_MESH_KEYS - 1
+    token = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (slots, 1)).astype(np.int32)).to(dev)
+    args = place_tree((params, token, ck, cv,
+                       torch.tensor(n, dtype=torch.int32)), b.in_shardings)
+    calls, launches = [], _decode_launches(b, mesh, cfg, n)
+    with _mesh_routes(cfg, len(mesh.devices)) as routes, \
+            _mesh_hook(layers, "attention", launches) as rec, \
+            _mesh_hook(lm_sharded, "flash_attention", launches) as blocks:
+        for _ in range(LM_MESH_REPS):
+            (lg, k2, v2), call = _mesh_call(b.fn, *args)
+            calls.append(call)
+    attention = {**_mesh_attention(rec, b.name, cfg.attn_chunk),
+                 **_mesh_lse(blocks, b.name)}
+    choices = _mesh_choices(routes, cfg) if slots > 1 else None
+    del routes, rec, blocks
+    donated = k2 is args[2] and v2 is args[3]
+    lg, gk, gv = gather(lg), gather(k2), gather(v2)
+    keep = torch.ones(LM_MESH_KEYS, dtype=torch.bool, device=dev)
+    keep[n] = False
+    unchanged = bool(torch.equal(gk[:, :, keep], ck[:, :, keep])
+                     and torch.equal(gv[:, :, keep], cv[:, :, keep]))
+    del args, k2, v2
+    rk, rv = ck.clone(), cv.clone()
+    del ck, cv
+
+    def compare(res):
+        want, _, _ = res
+        return {"logits": _logit_dist(lg, want),
+                "cache_rel_l2": [_rel_l2(gk[:, :, n], rk[:, :, n]),
+                                 _rel_l2(gv[:, :, n], rv[:, :, n])]}
+
+    out = {"bundle": b.name, "slots": slots, "keys": LM_MESH_KEYS,
+           "cache_len": n, "cache_spec": list(b.out_shardings[1].spec),
+           "donated_in_place": donated, "others_unchanged": unchanged,
+           "sharded": calls[0], "sharded_ms": [c["ms"] for c in calls],
+           "attention": attention,
+           **_held_to_one_card(lambda: T.decode_step_inplace(
+               params, token, rk, rv, n, cfg), compare, choices, b.name)}
+    if not donated or not unchanged:
+        raise AssertionError(f"lm_mesh {b.name}: the cache write is wrong: "
+                             f"{out}")
+    if calls[0]["flash_attention"] != launches \
+            or len(attention) != launches:
+        raise AssertionError(f"lm_mesh {b.name}: flash_attention launched "
+                             f"{calls[0]['flash_attention']} times and "
+                             f"{len(attention)} calls were checked, not "
+                             f"{launches}")
+    return out
+
+
+def _check_lse(dev) -> dict:
+    """flash_attention's log-sum-exp output (the split kernel's partials)
+    and attention at the B = 1 sequence-sharded decode's block shape
+    (gemma2: 16 heads over 8 KV heads of 256, a 2,048-key block, softcap
+    50) against ``attention_lse_ref``; uncounted."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((1, 16, 1, 256), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 8, 2048, 256), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 8, 2048, 256), generator=g, device=dev).bfloat16()
+    n0 = fa.flash_attention.launches
+    cases = []
+    for window, q_offset in ((0, 2047), (0, 700), (4096, 2047), (1024, 1900)):
+        kw = dict(causal=True, window=window, softcap=50.0,
+                  q_offset=q_offset)
+        out, lse = fa.flash_attention(q, k, v, lse=True, **kw)
+        want, want_lse = attention_lse_ref(q, k, v, **kw)
+        err = float((lse - want_lse).abs().max())
+        torch.testing.assert_close(out, want, rtol=BF16_RTOL, atol=BF16_ATOL)
+        if not err <= LSE_ATOL:
+            raise AssertionError(f"lm_mesh: flash_attention's log-sum-exp is "
+                                 f"{err} from the plain version's at {kw}")
+        cases.append({**kw, "lse_max_abs_err": err,
+                      "max_abs_err": float((out.float() - want.float())
+                                           .abs().max())})
+    fa.flash_attention.launches = n0
+    return {"shape": [1, 16, 8, 1, 2048, 256], "cases": cases,
+            "lse_atol": LSE_ATOL}
+
+
+def phase_lm_mesh(dev, card: str) -> dict:
+    """The LM step bundles on a (data 2, model 2) mesh of four cuda:0
+    entries (see LM_MESH_ARCHS' note): for each model a train step,
+    a prefill and a decode, each held to the port's one-card step on the
+    same params and inputs, with each entry's bytes, the card's peak, the
+    sharded and one-card times, the wire bytes each entry sent by op (the
+    collectives' counters) and flash_attention's launches in each call."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(LM_MESH_DIMS, ("data", "model"), devices=[dev] * 4)
+    out = {"phase": "lm_mesh", "card": card, "mesh": mesh.shape,
+           "entries": [str(d) for d in mesh.devices],
+           "lse": _check_lse(dev), "models": {}}
+    for arch_id in LM_MESH_ARCHS:
+        arch = _mesh_arch(arch_id)
+        cfg = train_steps._lm_cfg_for_mesh(arch, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        params = T.init_params(cfg, generator=torch.Generator(device=dev)
+                               .manual_seed(0), device=dev)
+        res = {"config": {k: v for k, v in vars(cfg).items() if k != "moe"},
+               "reduced": {"n_layers": [get_arch(arch_id).config.n_layers,
+                                        cfg.n_layers],
+                           "xent_chunk": [get_arch(arch_id).config.xent_chunk,
+                                          cfg.xent_chunk]},
+               "param_count": cfg.param_count(),
+               "params_grads_moments_bytes": trainer.lm_state_bytes(cfg),
+               "memory_allocated_before": before}
+        res["train"] = _mesh_train(arch, mesh, cfg, params, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["prefill"] = _mesh_prefill(arch, mesh, cfg, params, dev)
+        res["decode"] = _mesh_decode(arch, mesh, cfg, params, dev,
+                                     LM_MESH_SLOTS)
+        if arch_id == LM_ARCH:
+            res["decode_b1"] = _mesh_decode(arch, mesh, cfg, params, dev, 1)
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        res["s"] = time.perf_counter() - t
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["models"][arch_id] = res
+    calls = [m[k] for m in out["models"].values()
+             for k in ("prefill", "decode", "decode_b1") if k in m]
+    out["launches"] = {"flash_attention": sum(
+        [m["train"]["sharded"]["flash_attention"]
+         for m in out["models"].values()]
+        + [c["sharded"]["flash_attention"] for c in calls])}
+    checked = [r for m in out["models"].values()
+               for c in [m["train"], *[m[k] for k in ("prefill", "decode",
+                                                       "decode_b1") if k in m]]
+               for r in c["attention"].values()]
+    out["attention"] = {"calls": len(checked), "max_abs_err": max(
+        r["max_abs_err"] for r in checked)}
+    emit(out)
+    return out
+
+
 def _shard_launches(shard: dict, name: str) -> dict:
     """A kernel's launches in each sharded run of phase shard."""
     runs = {**shard["twitter"], "grqc": shard["grqc"]}
@@ -5550,7 +6037,7 @@ def _backward_row(train: dict) -> dict:
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict, rebalance: dict, serve: dict, sweep: dict,
                 shard: dict, train: dict, moe_run: dict,
-                lm_train: dict) -> dict:
+                lm_train: dict, lm_mesh: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -5749,6 +6236,20 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "lm_train": {"launches": lm_train["launches"]["flash_attention"],
                       "per_step": lm_train["launches_per_step"][
                           "flash_attention"]},
+         # the sharded bundles on the (data 2, model 2) mesh: each call's
+         # launches (a train step's include its checkpointed layers'
+         # recompute), and the kernel held to the plain version at the
+         # q/k/v of every call of a train step's forward, a prefill and
+         # each decode
+         "lm_mesh": {"launches": lm_mesh["launches"]["flash_attention"],
+                     "checked_calls": lm_mesh["attention"]["calls"],
+                     "max_abs_err": lm_mesh["attention"]["max_abs_err"],
+                     "by_call": {
+                         f"{arch}:{kind}": m[kind]["sharded"][
+                             "flash_attention"]
+                         for arch, m in lm_mesh["models"].items()
+                         for kind in ("train", "prefill", "decode",
+                                      "decode_b1") if kind in m}},
          **{f"{kind}_{name}": {k: lm["kernel"][kind][layer][k]
                                for k in timed + (
                                    "bound_by", "window", "kernel", "n_split",
@@ -5780,16 +6281,33 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
     return {"kernels": rows}
 
 
+def _build_in_thread(failed: list) -> None:
+    """``phase_build`` in a thread; its exception kept in ``failed``."""
+    try:
+        phase_build()
+    except BaseException as e:   # re-raised by the main thread
+        failed.append(e)
+
+
 def main() -> int:
+    if os.path.exists(LOG):
+        os.remove(LOG)
     info = phase_device()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    # the nvcc processes run while the host makes the graphs and the window
+    # kernels' setups (the plain window engines: no kernel is loaded)
+    failed = []
+    build = threading.Thread(target=_build_in_thread, args=(failed,))
+    build.start()
     graphs = spmm_graphs(dev)
     t = time.perf_counter()
     cases = _window_cases(dev)
     emit({"phase": "window_setups", "s": time.perf_counter() - t})
+    build.join()
+    if failed:
+        raise failed[0]
     kernels = phase_kernels(dev, graphs, cases)
     spmm = phase_spmm(dev, graphs)
     del graphs
@@ -5814,8 +6332,9 @@ def main() -> int:
     lm = phase_lm(dev)
     moe_run = phase_moe(dev, info["nvidia_smi"])
     lm_train = phase_lm_train_process(info["nvidia_smi"])
+    lm_mesh = phase_lm_mesh(dev, info["nvidia_smi"])
     emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
-                     sweep, shard, train, moe_run, lm_train))
+                     sweep, shard, train, moe_run, lm_train, lm_mesh))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -30,13 +30,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels.common import (
     check_launch, load_kernel, on_cuda, stream_ptr,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref, split_plan
+from repro_torch.kernels.flash_attention.ref import (
+    attention_lse_ref, attention_ref, split_plan,
+)
 
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -97,12 +100,16 @@ def _check(q, k, v):
 
 
 def dispatch(q, k, *, causal: bool = True, window: int = 0,
-             q_offset: int = 0) -> dict:
+             q_offset: int = 0, lse: bool = False) -> dict:
     """Which kernel a CUDA call with these q (B, H, Sq, D) and k (B, Hkv,
     Sk, D) launches: ``{"kernel": "f32" | "prefill" | "split", "n_split":
     int | None, "plan": split_plan's (lo, hi, chunk, n_split) | None}``.
     Decided by dtype and shape alone (and the SM count of q's card, 132
-    for a CPU tensor, the H100's)."""
+    for a CPU tensor, the H100's). A bf16 call of at most ``SPLIT_ROWS``
+    folded rows takes ``split`` where its (batch × kv head) CTAs leave the
+    card room for splits, and with ``lse`` (which only the split kernel
+    gives) whatever their count: the SM count decides speed, not what
+    the kernel can do."""
     num_sms = _num_sms(q.device) if q.device.type == "cuda" else 132
     b, h, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -110,7 +117,8 @@ def dispatch(q, k, *, causal: bool = True, window: int = 0,
     how = {"kernel": "prefill", "n_split": None, "plan": None}
     if q.dtype == torch.float32:
         how["kernel"] = "f32"
-    elif rows <= SPLIT_ROWS and b * hkv * -(-rows // ROW_TILE) < num_sms:
+    elif rows <= SPLIT_ROWS and (lse or b * hkv * -(-rows // ROW_TILE)
+                                 < num_sms):
         plan = split_plan(sq, sk, causal=causal, window=window,
                           q_offset=q_offset, pairs=b * hkv, num_sms=num_sms)
         return {"kernel": "split", "n_split": plan[3], "plan": plan}
@@ -119,8 +127,15 @@ def dispatch(q, k, *, causal: bool = True, window: int = 0,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
-    """(B, H, Sq, D) attention output in ``q.dtype``.
+                    softcap: float = 0.0, q_offset: int = 0,
+                    lse: bool = False):
+    """(B, H, Sq, D) attention output in ``q.dtype``; with ``lse``, also
+    each row's log-sum-exp of its visible logits, (B, H, Sq) f32
+    (``ref.attention_lse_ref``), which a sequence-sharded decode merges
+    blocks by. On the card the log-sum-exp is read from the split kernel's
+    per-split partials (m, l), so ``lse`` takes a bf16 call of at most
+    ``SPLIT_ROWS`` folded rows (``dispatch`` then picks ``split``) and
+    raises on any other.
 
     A CUDA tensor launches the kernel ``dispatch`` names (one count in
     ``flash_attention.launches`` and in ``flash_attention.kernel_launches``
@@ -135,8 +150,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of V over the key tiles they loaded for the other rows of their CTA.
     """
     if not on_cuda(q, k, v):
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap, q_offset=q_offset)
+        fn = attention_lse_ref if lse else attention_ref
+        return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
     _check(q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -145,7 +161,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if sk == 0:
         raise ValueError("attention over zero keys")
-    how = dispatch(q, k, causal=causal, window=window, q_offset=q_offset)
+    how = dispatch(q, k, causal=causal, window=window, q_offset=q_offset,
+                   lse=lse)
+    if lse and how["kernel"] != "split":
+        raise ValueError(f"the log-sum-exp comes from the split kernel's "
+                         f"partials; this call takes {how['kernel']!r} (a "
+                         f"bf16 call of at most {SPLIT_ROWS} folded rows "
+                         f"takes split)")
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, hkv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
@@ -162,7 +184,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_launch(err, f"flash_attention ({how['kernel']})")
     flash_attention.launches += 1
     flash_attention.kernel_launches[how["kernel"]] += 1
-    return out
+    if not lse:
+        return out
+    return out, _split_lse(part, b, hkv, h // hkv, sq, d, n_split)
+
+
+def _split_lse(part, b, hkv, group, sq, d, n_split) -> torch.Tensor:
+    """(B, H, Sq) natural log-sum-exp from the split kernel's partials
+    ``[b][hkv][split][row][m, l, acc...]`` (m in log2 units, l the sum of
+    2^(logit - m)): the combine kernel's rescaling, kept in logs."""
+    p = part.view(b, hkv, n_split, sq * group, d + 2)
+    m, l = p[..., 0], p[..., 1]
+    top = torch.amax(m, dim=2, keepdim=True)
+    tot = torch.sum(l * torch.exp2(m - top), dim=2)
+    lse2 = top[:, :, 0] + torch.log2(tot)           # (b, hkv, sq * group)
+    lse2 = lse2.view(b, hkv, sq, group).permute(0, 1, 3, 2)
+    return (lse2 * math.log(2.0)).reshape(b, hkv * group, sq)
 
 
 flash_attention.launches = 0

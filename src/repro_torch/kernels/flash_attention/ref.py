@@ -47,6 +47,34 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)
 
 
+def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, q_offset: int = 0):
+    """``attention_ref``'s output and each row's log-sum-exp of its visible
+    logits, ``(B, H, Sq)`` f32 (the quantity a merge of attention over
+    disjoint key blocks weighs each block's output by). A row that sees no
+    key gets an output of 0 and a log-sum-exp of -inf, so that such a
+    block weighs nothing in a merge."""
+    b, h, sq, d = q.shape
+    group = h // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk.float()) * (d ** -0.5)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, torch.full((), float("-inf"), device=q.device))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - torch.where(torch.isinf(lse), 0.0, lse)[..., None])
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vv.float()).to(q.dtype)
+    return out, lse
+
+
 def split_plan(sq: int, sk: int, *, causal: bool = True, window: int = 0,
                q_offset: int = 0, pairs: int = 1, n_split: int | None = None,
                num_sms: int = 132) -> tuple[int, int, int, int]:

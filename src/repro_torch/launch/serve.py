@@ -147,8 +147,9 @@ def check_fits(cfg, capacity: int) -> None:
     if need > capacity:
         raise ValueError(
             f"{cfg.name}: {need / 1e9:.1f} GB of params in {cfg.dtype} do not "
-            f"fit the device's {capacity / 1e9:.1f} GB; serving it needs the "
-            "model across cards (ROADMAP A18.4)")
+            f"fit the device's {capacity / 1e9:.1f} GB; the sharded step "
+            "bundles (launch.steps.build_step) split it over a mesh, and "
+            "what is missing is a machine with several cards")
 
 
 def serve_lm(args) -> int:

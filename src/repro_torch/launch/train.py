@@ -22,8 +22,9 @@ recomputes through the plain version, as the JAX package's does). A GNN
 trains on the JAX package's fixed batch: a 256-node mesh graph with 16
 features (MeshGraphNet, PNA), or ``--batch`` molecules of 12 atoms and 24
 edges (SchNet, NequIP; NequIP's gradients are non-finite on it, as the JAX
-package's are: ROADMAP C). The data- and model-sharded training mesh is
-the rest of ROADMAP A18.4.
+package's are: ROADMAP C). This trainer runs the one-card step; the LM
+cells' data- and model-sharded steps are ``launch.steps.build_step``'s
+bundles (``runtime.lm_sharded``), which run on a mesh of several entries.
 """
 from __future__ import annotations
 
@@ -123,8 +124,9 @@ def training_config(arch, full: bool):
                 f"{arch.arch_id} at {FULL_TRAIN_LAYERS} layers holds "
                 f"{need / 1e9:.1f} GB of params, gradients and AdamW moments, "
                 f"more than the {FULL_TRAIN_STATE / 1e9:.0f} GB that leaves "
-                "one 80 GB card room for the step; training it needs the "
-                "sharded training mesh (ROADMAP A18.4)")
+                "one 80 GB card room for the step; the sharded step bundles "
+                "(launch.steps.build_step) split it over a mesh, and what "
+                "is missing is a machine with several cards")
         return cfg
     return dataclasses.replace(arch.config, user_vocab=FULL_TRAIN_VOCAB,
                                item_vocab=FULL_TRAIN_VOCAB)

@@ -186,16 +186,24 @@ def layer_params(params: dict, i: int) -> dict:
     return L.layer_slice(params["layers"], i)
 
 
+def project_qkv(cfg: LMConfig, h, wq, wk, wv, positions):
+    """The q/k/v projections of the normed ``h`` and rope: (B, S, heads,
+    hd) each, the head counts read from the weights' columns (a mesh
+    entry's weights hold some of the heads)."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q = (h @ wq).reshape(b, s, -1, hd)
+    k = (h @ wk).reshape(b, s, -1, hd)
+    v = (h @ wv).reshape(b, s, -1, hd)
+    return (L.rope(q, positions, cfg.rope_theta),
+            L.rope(k, positions, cfg.rope_theta), v)
+
+
 def _qkv(cfg: LMConfig, lp, x, positions):
     """ln1, the q/k/v projections and rope: (B, S, H|Hkv, hd) each."""
     h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    b, s, _ = h.shape
-    hd = cfg.head_dim
-    q = (h @ lp["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ lp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ lp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    return (L.rope(q, positions, cfg.rope_theta),
-            L.rope(k, positions, cfg.rope_theta), v)
+    a = lp["attn"]
+    return project_qkv(cfg, h, a["wq"], a["wk"], a["wv"], positions)
 
 
 def _ffn(cfg: LMConfig, lp, h):
@@ -263,11 +271,17 @@ def _head(params, cfg: LMConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _logits(params, x, cfg: LMConfig):
-    logits = (x @ _head(params, cfg)).float()
+def final_logits(cfg: LMConfig, x, head):
+    """f32 logits of ``x`` through ``head`` (the whole head or a mesh
+    entry's columns of it), with the final softcap."""
+    logits = (x @ head).float()
     if cfg.final_softcap > 0:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def _logits(params, x, cfg: LMConfig):
+    return final_logits(cfg, x, _head(params, cfg))
 
 
 def forward(params, tokens, cfg: LMConfig, *, collect_cache: bool = False,

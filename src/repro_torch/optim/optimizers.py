@@ -127,9 +127,12 @@ def adamw(lr: Callable | float, b1=0.9, b2=0.95, eps=1e-8,
             "gnorm": torch.zeros((), dtype=torch.float32, device=first.device),
         }
 
-    def update(grads, state, params):
+    def update(grads, state, params, gnorm=None):
+        """``gnorm``: the gradients' global norm where they are one
+        entry's shards of a larger tree (computed here when None)."""
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             scale = _clip_scale(gnorm, clip_norm) if clip_norm > 0 else None
             c = state["count"] + 1
             step_lr = lr_fn(c)

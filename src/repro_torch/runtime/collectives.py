@@ -1,0 +1,321 @@
+"""Collectives over a ``launch.mesh.Mesh``: the operations XLA's SPMD
+partitioner (GSPMD) inserts into a JAX step's per-device program, written
+out for the port's meshes, which one process drives (``launch.mesh``).
+
+A sharded value is a list of per-entry tensors, one per mesh entry in the
+mesh's row-major order, entry ``i``'s tensor on ``mesh.devices[i]`` (a
+tensor elsewhere raises). An operation over an axis, or a tuple of axes,
+acts on each group of entries that differ only in those axes' coordinates;
+a group's ranks are read row-major over the axes, as a ``PartitionSpec``
+entry reads them. Every output is a tensor of its own, also where entries
+share a device (a view would alias the shards that a donated step then
+overwrites).
+
+* ``all_gather(xs, mesh, axes, dim)`` — every rank gets its group's
+  tensors concatenated along ``dim`` in rank order;
+* ``reduce_scatter(xs, mesh, axes, dim)`` — the group's sum, cut into
+  equal blocks along ``dim``, block ``r`` to rank ``r``;
+* ``all_reduce(xs, mesh, axes)`` — the group's sum on every rank;
+  ``all_reduce_max`` the elementwise max (not differentiable: it serves
+  the softmax's stabiliser, whose gradient is 0);
+* ``all_to_all(xs, mesh, axes, split_dim, concat_dim)`` — rank ``r``'s
+  tensor cut into equal blocks along ``split_dim``, block ``j`` to rank
+  ``j``, which concatenates what it gets along ``concat_dim`` in rank
+  order;
+* ``copy_to(xs, mesh, axes)`` — Megatron's "copy": the identity forward,
+  an all-reduce of the gradients backward. A replicated parameter's
+  copies pass through it, so each copy's gradient is the sum of every
+  copy's, as GSPMD all-reduces a replicated parameter's gradient.
+
+Each is a ``torch.autograd.Function`` whose backward is its adjoint: the
+adjoint of ``all_gather`` is ``reduce_scatter`` (where FSDP's
+data-parallel gradient sum comes from), of ``all_reduce`` itself, of
+``all_to_all`` the ``all_to_all`` with the two dims swapped. A sharded
+loss is differentiated from one entry's copy of it: every replicated
+value is created by one of these operations, whose adjoint sums the
+copies' gradients.
+
+Sums run in rank order on the group's first entry (as
+``optim.compression`` sums its payloads), so a run is deterministic; the
+result then crosses to every rank.
+
+Every call, forward or backward, adds the ring model's wire bytes a
+device to the entries' counters by operation (``wire_bytes``), with the
+formulas of the JAX package's HLO statistics, ``nbytes`` the bytes of one
+device's result and ``g`` the group's size: all-gather ``nbytes (g - 1) /
+g``, all-reduce ``2 nbytes (g - 1) / g``, reduce-scatter ``nbytes (g -
+1)``, all-to-all ``nbytes (g - 1) / g``. They are the port's stand-in for
+what the JAX package reads from a compiled step's HLO.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import Mesh
+
+OPS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
+
+_WIRE: dict = {op: defaultdict(float) for op in OPS}
+
+
+def ring_wire_bytes(op: str, nbytes: float, g: int) -> float:
+    """The wire bytes a device sends for one ``op`` whose result on that
+    device is ``nbytes``, in a group of ``g`` (the ring model)."""
+    if op == "all_gather":
+        return nbytes * (g - 1) / g
+    if op == "all_reduce":
+        return 2.0 * nbytes * (g - 1) / g
+    if op == "reduce_scatter":
+        return nbytes * (g - 1)
+    if op == "all_to_all":
+        return nbytes * (g - 1) / g
+    raise ValueError(f"unknown collective {op!r}; one of {OPS}")
+
+
+def reset_wire_bytes() -> None:
+    for op in OPS:
+        _WIRE[op].clear()
+
+
+def wire_bytes() -> dict:
+    """``{op: {entry index: wire bytes}}`` since the last reset."""
+    return {op: dict(sorted(_WIRE[op].items())) for op in OPS}
+
+
+def _count(op: str, outs, groups) -> None:
+    for group in groups:
+        for i in group:
+            t = outs[i]
+            _WIRE[op][i] += ring_wire_bytes(
+                op, t.numel() * t.element_size(), len(group))
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def groups(mesh: Mesh, axes) -> list:
+    """The entry indices of each group over ``axes``, each in rank order
+    (row-major over ``axes``), the groups in the order of their first
+    entries."""
+    axes = _axes(axes)
+    unknown = [a for a in axes if a not in mesh.axis_names]
+    if unknown or len(set(axes)) != len(axes):
+        raise ValueError(f"axes {axes}: each at most once, and only axes of "
+                         f"the mesh {mesh.shape}")
+    idx = np.arange(len(mesh.devices)).reshape(mesh.dims)
+    pos = [mesh.axis_names.index(a) for a in axes]
+    rest = [i for i in range(len(mesh.dims)) if i not in pos]
+    grid = idx.transpose(rest + pos).reshape(-1, int(np.prod(
+        [mesh.dims[i] for i in pos], dtype=np.int64)))
+    return [tuple(int(i) for i in row) for row in grid]
+
+
+def _check(xs, mesh: Mesh, what: str) -> None:
+    if len(xs) != len(mesh.devices):
+        raise ValueError(f"{what}: {len(xs)} tensors for the "
+                         f"{len(mesh.devices)} entries of the mesh "
+                         f"{mesh.shape}")
+    for i, (x, d) in enumerate(zip(xs, mesh.devices)):
+        if x.device != torch.device(d):
+            raise ValueError(f"{what}: entry {i} lives on {d}, but its "
+                             f"tensor is on {x.device}")
+
+
+def _own(x: torch.Tensor, device, keep: bool) -> torch.Tensor:
+    """``x`` on ``device`` as a tensor of its own (``keep``: ``x`` is
+    already one, made for this rank)."""
+    if keep and x.device == torch.device(device):
+        return x
+    return x.to(device, copy=True)
+
+
+def _sum(parts, op=torch.add) -> torch.Tensor:
+    """The rank-order sum (or ``op``) of ``parts`` on the first's device."""
+    lead = parts[0].device
+    tot = parts[0]
+    for p in parts[1:]:
+        tot = op(tot, p.to(lead))
+    return tot
+
+
+def _gather(xs, mesh, axes, dim):
+    gs = groups(mesh, axes)
+    outs = [None] * len(xs)
+    for group in gs:
+        for i in group:
+            dev = mesh.devices[i]
+            outs[i] = torch.cat([xs[j].to(dev) for j in group], dim=dim)
+    _count("all_gather", outs, gs)
+    return outs
+
+
+def _scatter(xs, mesh, axes, dim):
+    gs = groups(mesh, axes)
+    outs = [None] * len(xs)
+    for group in gs:
+        tot = _sum([xs[j] for j in group])
+        n = tot.shape[dim]
+        if n % len(group):
+            raise ValueError(f"reduce_scatter: dim {dim} of "
+                             f"{tuple(tot.shape)} does not split into "
+                             f"{len(group)} blocks")
+        for r, i in enumerate(group):
+            block = tot.narrow(dim, r * (n // len(group)), n // len(group))
+            outs[i] = block.to(mesh.devices[i], copy=True,
+                               memory_format=torch.contiguous_format)
+    _count("reduce_scatter", outs, gs)
+    return outs
+
+
+def _reduce(xs, mesh, axes, op=torch.add):
+    gs = groups(mesh, axes)
+    outs = [None] * len(xs)
+    for group in gs:
+        tot = _sum([xs[j] for j in group], op)
+        fresh = len(group) > 1    # a one-rank group's sum is its input
+        for r, i in enumerate(group):
+            outs[i] = _own(tot, mesh.devices[i], keep=fresh and r == 0)
+    _count("all_reduce", outs, gs)
+    return outs
+
+
+def _to_all(xs, mesh, axes, split_dim, concat_dim):
+    gs = groups(mesh, axes)
+    outs = [None] * len(xs)
+    for group in gs:
+        g = len(group)
+        for r, i in enumerate(group):
+            dev = mesh.devices[i]
+            parts = []
+            for j in group:
+                n = xs[j].shape[split_dim]
+                if n % g:
+                    raise ValueError(f"all_to_all: dim {split_dim} of "
+                                     f"{tuple(xs[j].shape)} does not split "
+                                     f"into {g} blocks")
+                parts.append(xs[j].narrow(split_dim, r * (n // g), n // g)
+                             .to(dev))
+            outs[i] = torch.cat(parts, dim=concat_dim)
+    _count("all_to_all", outs, gs)
+    return outs
+
+
+def _saved(ctx, args, outs) -> tuple:
+    ctx.args = args
+    ctx.out_shapes = [o.shape for o in outs]
+    return tuple(outs)
+
+
+def _grads(ctx, gs):
+    """The output gradients, a zero tensor where an output got none (its
+    value fed nothing that was differentiated)."""
+    if all(g is not None for g in gs):
+        return gs
+    ref = next(g for g in gs if g is not None)
+    devices = ctx.args[0].devices
+    return [g if g is not None else
+            torch.zeros(ctx.out_shapes[i], dtype=ref.dtype,
+                        device=devices[i])
+            for i, g in enumerate(gs)]
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, *xs):
+        return _saved(ctx, (mesh, axes, dim), _gather(xs, mesh, axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, dim = ctx.args
+        return (None, None, None,
+                *_scatter(_grads(ctx, gs), mesh, axes, dim))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, dim, *xs):
+        return _saved(ctx, (mesh, axes, dim), _scatter(xs, mesh, axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, dim = ctx.args
+        return (None, None, None,
+                *_gather(_grads(ctx, gs), mesh, axes, dim))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        return _saved(ctx, (mesh, axes), _reduce(xs, mesh, axes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes = ctx.args
+        return (None, None, *_reduce(_grads(ctx, gs), mesh, axes))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, split_dim, concat_dim, *xs):
+        return _saved(ctx, (mesh, axes, split_dim, concat_dim),
+                      _to_all(xs, mesh, axes, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, split_dim, concat_dim = ctx.args
+        return (None, None, None, None,
+                *_to_all(_grads(ctx, gs), mesh, axes, concat_dim,
+                         split_dim))
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        return _saved(ctx, (mesh, axes), [x.view_as(x) for x in xs])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes = ctx.args
+        return (None, None, *_reduce(_grads(ctx, gs), mesh, axes))
+
+
+def _apply(fn, mesh, what, xs, axes, *args):
+    """``fn`` on ``xs`` (autograd records nothing where no tensor needs a
+    gradient)."""
+    xs = list(xs)
+    _check(xs, mesh, what)
+    axes = _axes(axes)
+    groups(mesh, axes)                  # raises on an unknown axis
+    return list(fn.apply(mesh, axes, *args, *xs))
+
+
+def all_gather(xs, mesh: Mesh, axes, dim: int) -> list:
+    return _apply(_AllGather, mesh, "all_gather", xs, axes, dim)
+
+
+def reduce_scatter(xs, mesh: Mesh, axes, dim: int) -> list:
+    return _apply(_ReduceScatter, mesh, "reduce_scatter", xs, axes, dim)
+
+
+def all_reduce(xs, mesh: Mesh, axes) -> list:
+    return _apply(_AllReduce, mesh, "all_reduce", xs, axes)
+
+
+def all_reduce_max(xs, mesh: Mesh, axes) -> list:
+    xs = [x.detach() for x in xs]
+    _check(xs, mesh, "all_reduce_max")
+    return _reduce(xs, mesh, _axes(axes), torch.maximum)
+
+
+def all_to_all(xs, mesh: Mesh, axes, split_dim: int,
+               concat_dim: int) -> list:
+    return _apply(_AllToAll, mesh, "all_to_all", xs, axes, split_dim,
+                  concat_dim)
+
+
+def copy_to(xs, mesh: Mesh, axes) -> list:
+    return _apply(_CopyTo, mesh, "copy_to", xs, axes)

@@ -603,6 +603,98 @@ def test_flash_attention_split_kernel(cuda, monkeypatch, case, d):
     torch.testing.assert_close(got.float(), split.float(), **BF16_TOL)
 
 
+@pytest.mark.parametrize("case", [
+    # (B, H, Hkv, S, q_offset, window, softcap): a key block of the
+    # sequence-sharded decode, the row at its end, inside it, windowed
+    (1, 16, 8, 2048, 2047, 0, 50.0), (1, 16, 8, 2048, 700, 0, 50.0),
+    (1, 16, 8, 2048, 1900, 1024, 50.0), (4, 16, 16, 512, 300, 0, 0.0),
+    (2, 7, 1, 1000, 999, 0, 0.0),
+    # llama4-scout's decode_32k block on a (4, 16) mesh, cut to 1,024 keys:
+    # 32 sequences x 8 KV heads, more CTAs than the card has SMs
+    (32, 40, 8, 1024, 1023, 0, 0.0), (32, 40, 8, 1024, 600, 256, 0.0)],
+    ids=str)
+def test_flash_attention_lse_from_the_split_kernel(cuda, case):
+    """``lse=True``: the split kernel's output and each row's log-sum-exp
+    (read from its (m, l) partials) against ``attention_lse_ref``."""
+    b, h, hkv, s, off, window, softcap = case
+    q, k, v = _qkv(cuda, b, h, hkv, 1, s, 128, torch.bfloat16, seed=s + h)
+    kw = dict(q_offset=off, window=window, softcap=softcap)
+    out, lse = _counted("split", lambda: flash_attention(q, k, v, lse=True,
+                                                         **kw))
+    want, want_lse = fa_ref.attention_lse_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, 1) and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+
+
+def test_flash_attention_lse_needs_the_split_kernel(cuda):
+    for dtype, sq in ((torch.bfloat16, 64), (torch.float32, 1)):
+        q, k, v = _qkv(cuda, 1, 4, 2, sq, 64, 64, dtype, seed=sq)
+        with pytest.raises(ValueError, match="split kernel's partials"):
+            flash_attention(q, k, v, lse=True)
+
+
+def test_sharded_lm_bundles_on_card(cuda):
+    """gemma2's smoke config in bf16, 2 layers, as step bundles on a (data
+    2, model 2) mesh of four cuda:0 entries: a train step, a prefill, a
+    4-slot decode and a 1-slot decode whose cache is split over every axis
+    (its key blocks merged through ``flash_attention(lse=True)``), each
+    against the one-card step on the card and each attention call on the
+    kernel. bf16 partial products summed in another order: the loss within
+    2^-8, mu, logits and caches within 2^-4 relative L2 (phase lm's)."""
+    import dataclasses
+    from repro_torch.configs.base import ArchDef
+    from repro_torch.configs.shapes import LMShape
+    from repro_torch.launch.mesh import gather, make_mesh, place_tree
+
+    cfg = dataclasses.replace(get_arch("gemma2-9b").smoke_config, n_layers=2,
+                              dtype="bfloat16")
+    arch = ArchDef("gemma2-9b", "lm", cfg, cfg, "smoke")
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[cuda] * 4)
+    params = T.init_params(cfg, generator=torch.Generator(device=cuda)
+                           .manual_seed(0), device=cuda)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    b = train_steps.build_lm(arch, LMShape("t", "train", 32, 2), mesh)
+    batch = train.batch_tensors(dp.lm_batch(cfg.vocab, 2, 32, seed=0, step=0),
+                                cuda)
+    opt = train_steps.make_opt()
+    before = flash_attention.launches
+    _, o_sh, m = b.fn(*place_tree((params, opt.init(params), batch),
+                                  b.in_shardings))
+    assert flash_attention.launches == before + 2 * 4 * cfg.n_layers
+    _, state, want = train_steps.train_step(T.loss_fn, cfg, opt)(
+        params, opt.init(params), batch)
+    assert abs(float(gather(m["loss"])) - float(want["loss"])) \
+        <= 2 ** -8 * abs(float(want["loss"]))
+    for got, ref in zip(tree_leaves(o_sh["mu"]), tree_leaves(state["mu"])):
+        assert rel(gather(got), ref) <= 2 ** -4
+    b = train_steps.build_lm(arch, LMShape("p", "prefill", 32, 2), mesh)
+    got = b.fn(*place_tree((params, batch["tokens"]), b.in_shardings))
+    want = T.prefill_step(params, batch["tokens"], cfg)
+    for x, y in zip(got, want):
+        assert rel(gather(x), y) <= 2 ** -4
+    for slots in (4, 1):
+        b = train_steps.build_lm(arch, LMShape("d", "decode", 64, slots), mesh)
+        g = torch.Generator(device=cuda).manual_seed(slots)
+        shape = (cfg.n_layers, slots, 64, cfg.n_kv_heads, cfg.head_dim)
+        ck, cv = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+                  for _ in range(2))
+        tok = torch.randint(0, cfg.vocab, (slots, 1), generator=g,
+                            device=cuda, dtype=torch.int32)
+        before = flash_attention.launches
+        lg, k2, _ = b.fn(*place_tree((params, tok, ck, cv, torch.tensor(
+            50, dtype=torch.int32)), b.in_shardings))
+        assert flash_attention.launches > before
+        want, wk, _ = T.decode_step_inplace(params, tok, ck, cv, 50, cfg)
+        assert rel(gather(lg), want) <= 2 ** -4
+        assert rel(gather(k2)[:, :, 50], wk[:, :, 50]) <= 2 ** -4
+
+
 def test_flash_attention_bf16_head_dim_raises(cuda):
     q, k, v = _qkv(cuda, 1, 4, 2, 40, 40, 72, torch.bfloat16, seed=1)
     with pytest.raises(ValueError, match="head dim"):
