@@ -52,7 +52,15 @@ layout of twitter (the SDP and hash card sessions' 8 blocks stacked on the
 card; the first step held to the hash layout's and to the dense model's),
 and runs PNA at minibatch_lg's sampled shape and SchNet and NequIP at the
 molecule shape, each at its full config against the host's CPU (phase
-``gnn``) — and serves
+``gnn``) — runs the recsys and GNN cells as ``launch.steps``' step
+bundles on meshes of ``cuda:0`` entries: the two-tower model at its
+widths with 2,097,152 rows a table, trained under the ``baseline`` and
+``opt`` schemes and served, each row block bagged by ``embedding_bag``
+(its launches counted exactly, one entry's block bags and block gradient
+bit-equal to the plain versions); every GNN's graph-parallel bundle; and
+MeshGraphNet's halo bundle over the SDP and hash layouts, one block an
+entry of eight — each held to the one-card (or stacked) step, with the
+wire bytes each entry sends by op (phase ``model_mesh``) — and serves
 the two-tower recsys model at its full vocabulary and widths (bf16
 tables, 51.54 GB on the card) through ``serve_score`` and
 ``score_candidates`` with the ``embedding_bag`` kernel on the path,
@@ -86,11 +94,13 @@ card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import functools
 import gc
 import itertools
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -198,6 +208,9 @@ from repro_torch.optim import (  # noqa: E402
     compressed_allreduce_grads, init_error_feedback,
 )
 from repro_torch.runtime import collectives  # noqa: E402
+from repro_torch.runtime import gnn_halo_train as GH  # noqa: E402
+from repro_torch.runtime import gnn_mesh as GM  # noqa: E402
+from repro_torch.runtime import recsys_sharded as RSS  # noqa: E402
 from repro_torch.runtime import lm_sharded  # noqa: E402
 from repro_torch.runtime import sharding as SHR  # noqa: E402
 from repro_torch.runtime import sweep as sweep_rt  # noqa: E402
@@ -441,6 +454,50 @@ def on_host(fn, *args, **kw):
     return tuple(o.to(dev) for o in out)
 
 
+# worker processes for the window choosers' host references (phase
+# kernels): each reference is a Python loop over a window's slots, ~0.5-4 s
+# a call on the host, and its plain version issued to the card takes
+# longer (0.7-3 s a window, 8-9 s at K = 1,000; run V3, PR 27), so the
+# card's plain version cannot stand in for them; 278 of them ran one after
+# another in V3's phase. In workers they run beside the kernels' launches,
+# every case still held to the host; the phase's timings wait until the
+# workers are done.
+HOST_REF_WORKERS = 6
+
+
+def _host_ref(fn, args, kw):
+    """``fn`` in a worker process on host tensors made from ``args``'
+    numpy arrays; its tensor outputs back as numpy arrays."""
+    torch.set_num_threads(1)
+    out = fn(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+               for a in args), **kw)
+    return tuple(o.numpy() for o in out)
+
+
+class _HostRefs:
+    """A pool of ``HOST_REF_WORKERS`` spawned processes that compute host
+    references (``on_host``'s, in another process) while the caller goes
+    on with the card; ``want(future, dev)`` waits for one. ``close()``
+    waits for every reference and stops the workers; ``close(cancel=True)``
+    drops the references not yet started (a failed run)."""
+
+    def __init__(self):
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            HOST_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+
+    def submit(self, fn, *args, **kw):
+        host = tuple(a.to(HOST).numpy() if isinstance(a, torch.Tensor)
+                     else a for a in args)
+        return self.pool.submit(_host_ref, fn, host, kw)
+
+    @staticmethod
+    def want(future, dev) -> tuple:
+        return tuple(torch.from_numpy(o).to(dev) for o in future.result())
+
+    def close(self, cancel: bool = False) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=cancel)
+
+
 def max_abs_diff(a, b) -> int:
     worst = 0
     for x, y in zip(a, b):
@@ -627,8 +684,34 @@ def _chooser_inputs(dev, cases, setup):
                *wnd.small_args(state), knob_tensor(cfg, n, dev)), et[sl]
 
 
-def check_fused_chooser(dev, cases) -> dict:
+def _time_fused(case: dict, args, kw: dict, w: int, d: int, k: int) -> None:
+    """A fused_window_choose case's kernel, eager and plain times, and its
+    bound."""
+    def kernel():
+        fk.fused_window_choose(*args, **kw)
+
+    def plain():
+        fused_window_choose_ref(*args, **kw)
+
+    case["ms"] = graph_ms(kernel, 20)
+    case["eager_ms"] = eager_ms(kernel, 20)
+    if kw["policy"] == "sdp" and k > fk.LANES_MAX_K:
+        # a graph would pool the (K, K) temporaries of every slot's op
+        case["plain_ms"] = case["plain_eager_ms"] = eager_ms(plain, 1)
+    elif kw["policy"] == "sdp":
+        case["plain_ms"] = graph_ms(plain, 1, replays=2)
+        case["plain_eager_ms"] = eager_ms(plain, 1)
+    case["bound_ms"] = _fused_bytes(w, d, k) / HBM_BYTES_PER_S * 1e3
+
+
+def check_fused_chooser(dev, cases, refs: _HostRefs, timers: list) -> tuple:
+    """Every setup x policy x guard (and autoscale off too at the
+    session's shape) launched on the card, its host reference submitted
+    to ``refs``; ``timers`` gets the timed cases' timings, to run once no
+    worker is busy. Returns the check's line and its pending host
+    comparisons (``_held_to_host``)."""
     fc_out = {"name": "fused_chooser", "cases": []}
+    pending = []
     # the window kernels' setups (sweep.WINDOW_SETUPS): the session's shapes
     # (SESSION_SHAPE), a window and width off every multiple of 32, a single
     # partition slot, partitions past the warp's 32 lanes, grqc's uncapped
@@ -650,47 +733,40 @@ def check_fused_chooser(dev, cases) -> dict:
                     kw = dict(n=n, policy=policy, balance_guard=guard,
                               autoscaling=auto)
                     got = fk.fused_window_choose(*args, **kw)
-                    want = on_host(fused_window_choose_ref, *args, **kw)
+                    want = refs.submit(fused_window_choose_ref, *args, **kw)
                     torch.cuda.synchronize()
-                    err = max_abs_diff(got, want)
                     scale = int(got[6][4] - scalars[4])
                     case = {"case": label, "shape": [window, width, k_max],
                             "kernel": fk.dispatch(window, k_max),
                             "policy": policy, "guard": guard,
-                            "autoscale": auto, "max_abs_err": err,
+                            "autoscale": auto,
                             "scale_events_in_window": scale,
                             "deletions_in_window": n_del}
+                    pending.append((case, got, want))
                     timed = guard == "text" and auto and (
                         policy == "sdp" or (label == "session"
                                             and policy in ("ldg", "random")))
                     if timed and label in ("session", "k40", "grqc_wide",
                                            "k200", "k1000"):
-                        def kernel():
-                            fk.fused_window_choose(*args, **kw)
-
-                        def plain():
-                            fused_window_choose_ref(*args, **kw)
-
-                        case["ms"] = graph_ms(kernel, 20)
-                        case["eager_ms"] = eager_ms(kernel, 20)
-                        if policy == "sdp" and k_max > fk.LANES_MAX_K:
-                            # a graph would pool the (K, K) temporaries of
-                            # every slot's op
-                            case["plain_ms"] = case["plain_eager_ms"] = \
-                                eager_ms(plain, 1)
-                        elif policy == "sdp":
-                            case["plain_ms"] = graph_ms(plain, 1, replays=2)
-                            case["plain_eager_ms"] = eager_ms(plain, 1)
-                        w, d, k = window, width, k_max
-                        case["bound_ms"] = (_fused_bytes(w, d, k)
-                                            / HBM_BYTES_PER_S * 1e3)
+                        timers.append(functools.partial(
+                            _time_fused, case, args, kw, window, width,
+                            k_max))
                     fc_out["cases"].append(case)
-                    if err:
-                        raise AssertionError(
-                            f"fused_chooser {label} {policy}/{guard}/"
-                            f"autoscale={auto}: kernel differs from the plain "
-                            f"version by {err}")
-    return fc_out
+    return fc_out, pending
+
+
+def _held_to_host(pending: list, dev, name: str) -> None:
+    """Each ``(case, kernel outputs, host future)`` of ``pending``: the
+    kernel's outputs bit-equal to the host reference's."""
+    for case, got, want in pending:
+        case["max_abs_err"] = err = max_abs_diff(got, _HostRefs.want(want,
+                                                                     dev))
+        if err:
+            raise AssertionError(
+                f"{name} {case['case']}/{case.get('window', '')} "
+                f"{case['policy']}/{case['guard']}/autoscale="
+                f"{case['autoscale']}: kernel differs from the plain "
+                f"version by {err}")
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -825,7 +901,33 @@ def _add_bytes(w: int, d: int, k: int) -> int:
             + 4 * (w + 3 * k + k * k + fk.SCAL_N))
 
 
-def check_add_window_choose(dev, cases) -> dict:
+def _time_add(case: dict, args, kw: dict, variant: str, w: int, d: int,
+              k: int) -> None:
+    """An add_window_choose case's kernel, eager and plain times (and the
+    large kernel's on the same inputs where the lanes one ran), and its
+    bound."""
+    def kernel():
+        fk.add_window_choose(*args, **kw)
+
+    def plain():
+        wnd.add_window_fixup_ref(*args, **kw)
+
+    case["ms"] = graph_ms(kernel, 20)
+    case["eager_ms"] = eager_ms(kernel, 20)
+    if variant == "lanes":
+        # the large kernel on the same inputs, uncounted: the layout the
+        # lanes one replaced at K <= 192
+        case["large_ms"] = graph_ms(lambda: fk.add_launch(
+            "large", *args, policy=kw["policy"],
+            balance_guard=kw["balance_guard"],
+            autoscaling=kw["autoscaling"]), 20)
+    case["plain_ms"] = graph_ms(plain, 1, replays=2)
+    case["plain_eager_ms"] = eager_ms(plain, 1)
+    case.update(_bound(_add_bytes(w, d, k), 0))
+
+
+def check_add_window_choose(dev, cases, refs: _HostRefs,
+                            timers: list) -> tuple:
     """Bit-equal to the plain loop (``windowed.add_window_fixup_ref``) for
     every policy x guard (and autoscale off too at the session's shape) on
     a pure-ADD window of each setup: the stream's first events from the
@@ -836,9 +938,12 @@ def check_add_window_choose(dev, cases) -> dict:
     own), and on the crafted ones at grqc's rows, K = 200 and 1,000. Each
     call takes the kernel ``add_dispatch`` names (lanes to K = 192, large
     above), counted by kernel; where it is the lanes kernel, the large one
-    is also timed on the same inputs (uncounted)."""
+    is also timed on the same inputs (uncounted). As
+    ``check_fused_chooser``: host references to ``refs``, timings to
+    ``timers``; returns the line and its pending host comparisons."""
     out = {"name": "add_window_choose", "cases": [],
            "launches_by_kernel": dict.fromkeys(fk.KERNELS, 0)}
+    pending = []
     for name, (state, cfg, (et, vx, nb)) in cases.items():
         w, warm = fsweep.WINDOW_SETUPS[name][6:]
         first = init_state(state.assignment.shape[0], state.adj.shape[1],
@@ -868,51 +973,28 @@ def check_add_window_choose(dev, cases) -> dict:
                                 f"take the {variant} kernel: "
                                 f"{fk.add_window_choose.kernel_launches}")
                         out["launches_by_kernel"][variant] += 1
-                        want = on_host(wnd.add_window_fixup_ref, *args,
-                                       **kw)
+                        want = refs.submit(wnd.add_window_fixup_ref, *args,
+                                           **kw)
                         torch.cuda.synchronize()
-                        err = max_abs_diff(got, want)
                         case = {"case": name, "window": label,
                                 "shape": [w, rows.shape[1],
                                           st.edge_load.shape[0]],
                                 "kernel": variant,
                                 "policy": policy, "guard": guard,
-                                "autoscale": auto, "max_abs_err": err,
+                                "autoscale": auto,
                                 "fresh": int(args[3].sum()),
                                 "committed": int((got[0] >= 0).sum())}
+                        pending.append((case, got, want))
                         timed = (policy == "sdp" and guard == "text"
                                  and auto and (name == "session" or (
                                      label == "crafted" and name in (
                                          "grqc_wide", "k200", "k1000"))))
                         if timed:
-                            def kernel():
-                                fk.add_window_choose(*args, **kw)
-
-                            def plain():
-                                wnd.add_window_fixup_ref(*args, **kw)
-
-                            d, k = rows.shape[1], st.edge_load.shape[0]
-                            case["ms"] = graph_ms(kernel, 20)
-                            case["eager_ms"] = eager_ms(kernel, 20)
-                            if variant == "lanes":
-                                # the large kernel on the same inputs,
-                                # uncounted: the layout the lanes one
-                                # replaced at K <= 192
-                                case["large_ms"] = graph_ms(
-                                    lambda: fk.add_launch(
-                                        "large", *args, policy=policy,
-                                        balance_guard=guard,
-                                        autoscaling=auto), 20)
-                            case["plain_ms"] = graph_ms(plain, 1, replays=2)
-                            case["plain_eager_ms"] = eager_ms(plain, 1)
-                            case.update(_bound(_add_bytes(w, d, k), 0))
+                            timers.append(functools.partial(
+                                _time_add, case, args, kw, variant, w,
+                                rows.shape[1], st.edge_load.shape[0]))
                         out["cases"].append(case)
-                        if err:
-                            raise AssertionError(
-                                f"add_window_choose {name}/{label} {policy}/"
-                                f"{guard}/autoscale={auto}: kernel differs "
-                                f"from the plain loop by {err}")
-    return out
+    return out, pending
 
 
 def check_embedding_bag(dev) -> dict:
@@ -1099,23 +1181,41 @@ def check_segment_spmm(dev, graphs) -> dict:
     return sp_out
 
 
-def phase_kernels(dev, graphs, cases) -> dict:
+def phase_kernels(dev, graphs, cases, refs: _HostRefs) -> dict:
     """Each kernel against its plain version on the card: bit for bit, but
     flash_attention at its stated tolerances. ``cases`` are the window
-    kernels' setups (``_window_cases``). ``check_s``: each check's
-    seconds."""
+    kernels' setups (``_window_cases``). The window choosers' cases run
+    first, each launch's host reference in ``refs``' worker processes;
+    ``refs`` is closed (every reference in, phase grqc's too) before any
+    timed loop of the phase, so no worker runs beside a timing.
+    ``host_refs_s``: those launches and the wait; ``check_s``: each
+    check's seconds after it (the choosers' timings)."""
     out = {"phase": "kernels", "check_s": {}}
+    t = time.perf_counter()
+    timers = {"fused_chooser": [], "add_window_choose": []}
+    pending = {}
+    for name, check in (("fused_chooser", check_fused_chooser),
+                        ("add_window_choose", check_add_window_choose)):
+        out[name], pending[name] = check(dev, cases, refs, timers[name])
+    refs.close()
+    for name, held in pending.items():
+        _held_to_host(held, dev, name)
+    out["host_refs_s"] = time.perf_counter() - t
     for name, check, args in (
             ("partition_affinity", check_partition_affinity, ()),
-            ("fused_chooser", check_fused_chooser, (cases,)),
+            ("fused_chooser", None, ()),
             ("window_rng", check_window_rng, ()),
             ("window_prep", check_window_prep, (cases,)),
-            ("add_window_choose", check_add_window_choose, (cases,)),
+            ("add_window_choose", None, ()),
             ("embedding_bag", check_embedding_bag, ()),
             ("flash_attention", check_flash_attention, ()),
             ("segment_spmm", check_segment_spmm, (graphs,))):
         t = time.perf_counter()
-        out[name] = check(dev, *args)
+        if check is None:
+            for timer in timers[name]:
+                timer()
+        else:
+            out[name] = check(dev, *args)
         out["check_s"][name] = time.perf_counter() - t
     emit(out)
     return out
@@ -1231,14 +1331,68 @@ def assert_matches_oracle(st, ref, what: str) -> None:
         raise AssertionError(f"{what}: {bad} differ from the oracle")
 
 
-def phase_grqc(dev) -> dict:
-    """The session with both kernels against the port's faithful engine
-    and the dict/set oracle of Algorithm 1 (both run on the host)."""
-    s = interleaved_churn(load_dataset("grqc"), **EVENT_ARGS)
-    cfg = EngineConfig(k_max=16, k_init=1, max_cap=1500, autoscale=True)
+GRQC_CFG = dict(k_max=16, k_init=1, max_cap=1500, autoscale=True)
+
+
+def _grqc_stream():
+    return interleaved_churn(load_dataset("grqc"), **EVENT_ARGS)
+
+
+def _state_arrays(st) -> tuple:
+    """A state's tensors, the uint32 key viewed as int32 (for numpy)."""
+    return tuple(x.view(torch.int32) if x.dtype == torch.uint32 else x
+                 for x in st)
+
+
+def _state_of(arrays) -> PartitionState:
+    return PartitionState(*(x.view(torch.uint32) if f == "key" else x
+                            for f, x in zip(PartitionState._fields, arrays)))
+
+
+def grqc_faithful_on_host() -> tuple:
+    """(host seconds, *state) of the faithful per-event engine on grqc's
+    churn stream: phase grqc's reference, run in a ``_HostRefs`` worker
+    while the earlier phases hold the card."""
+    s = _grqc_stream()
     t = time.perf_counter()
-    ref, _ = engine.run_stream(s, policy="sdp", cfg=cfg, seed=0, device=HOST)
-    t_ref = time.perf_counter() - t
+    ref, _ = engine.run_stream(s, policy="sdp", cfg=EngineConfig(**GRQC_CFG),
+                               seed=0, device=HOST)
+    secs = time.perf_counter() - t
+    return (torch.tensor(secs, dtype=torch.float64),) + _state_arrays(ref)
+
+
+def grqc_k200_plain_on_host() -> tuple:
+    """(host seconds, *state) of the plain windowed session at k_max = 200
+    on grqc's churn stream (``_session_k200``'s reference), in a worker."""
+    s = _grqc_stream()
+    cfg = EngineConfig(k_max=200, k_init=1, max_cap=K_200_CAP,
+                       autoscale=True)
+    t = time.perf_counter()
+    plain = Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=256,
+                                    device=HOST).feed(s)
+    secs = time.perf_counter() - t
+    return (torch.tensor(secs, dtype=torch.float64),) \
+        + _state_arrays(plain.state)
+
+
+def grqc_host_refs(refs) -> dict:
+    """Phase grqc's two host references, submitted to ``refs``' workers."""
+    return {"faithful": refs.submit(grqc_faithful_on_host),
+            "k200_plain": refs.submit(grqc_k200_plain_on_host)}
+
+
+def _host_state(future) -> tuple:
+    out = _HostRefs.want(future, HOST)
+    return float(out[0]), _state_of(out[1:])
+
+
+def phase_grqc(dev, host: dict) -> dict:
+    """The session with both kernels against the port's faithful engine
+    and the dict/set oracle of Algorithm 1 (both run on the host; the
+    faithful engine in a worker process, ``host`` from
+    ``grqc_host_refs``)."""
+    s = _grqc_stream()
+    cfg = EngineConfig(**GRQC_CFG)
     t = time.perf_counter()
     oracle = run_reference(s, policy="sdp", cfg=cfg, seed=0)
     t_oracle = time.perf_counter() - t
@@ -1249,6 +1403,7 @@ def phase_grqc(dev) -> dict:
     part = _session(s, cfg, dev, 256, chunks)
     t_part = time.perf_counter() - t
     launches = _read_launches()
+    t_ref, ref = _host_state(host["faithful"])
     assert_states_equal(part.state, ref, "grqc session vs faithful engine")
     assert_matches_oracle(part.state, oracle, "grqc session")
     _check_session_launches(launches, _window_kinds(part),
@@ -1262,15 +1417,17 @@ def phase_grqc(dev) -> dict:
            "fallback_windows": m["fallback_windows"], "launches": launches,
            "faithful_host_s": round(t_ref, 3),
            "oracle_s": round(t_oracle, 3), "oracle_equal": True,
-           "session_s": round(t_part, 3), "k200": _session_k200(s, dev)}
+           "session_s": round(t_part, 3),
+           "k200": _session_k200(s, dev, host["k200_plain"])}
     emit(out)
     return out, s, cfg, to_host(part.state)
 
 
-def _session_k200(s, dev) -> dict:
+def _session_k200(s, dev, plain_future) -> dict:
     """The same stream at k_max = 200 (K_200_CAP a partition): the session
     with both kernels — the large-K fused_chooser, partition_affinity's
-    shared histogram — against the plain windowed session (on the host)."""
+    shared histogram — against the plain windowed session (on the host,
+    in a worker process: ``plain_future``)."""
     cfg = EngineConfig(k_max=200, k_init=1, max_cap=K_200_CAP, autoscale=True)
     _reset_launches()
     t = time.perf_counter()
@@ -1279,11 +1436,8 @@ def _session_k200(s, dev) -> dict:
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
     add_by_kernel = dict(fk.add_window_choose.kernel_launches)
-    t = time.perf_counter()
-    plain = Partitioner.from_stream(s, cfg, policy="sdp", seed=0, window=256,
-                                    device=HOST).feed(s)
-    t_plain = time.perf_counter() - t
-    assert_states_equal(part.state, plain.state,
+    t_plain, plain = _host_state(plain_future)
+    assert_states_equal(part.state, plain,
                         "grqc k_max=200 session vs the plain session")
     _check_session_launches(launches, _window_kinds(part),
                             "grqc k_max=200 session")
@@ -3378,9 +3532,10 @@ def _gnn_layout(g, s, dev, policy: str) -> tuple:
             GNN_HALO_F)}
 
 
-def _gnn_mgn(dev, g) -> dict:
+def _gnn_mgn(dev, g) -> tuple:
     """(a) MeshGraphNet's CONFIG trained over SDP's halo layout of twitter,
-    its first step held to the hash layout's and to the dense model's."""
+    its first step held to the hash layout's and to the dense model's; the
+    result and the two layouts (``{policy: HaloSpec}``)."""
     arch = get_arch("meshgraphnet")
     cfg = _gnn_config("meshgraphnet")
     s = build_stream(g, seed=0)
@@ -3466,7 +3621,7 @@ def _gnn_mgn(dev, g) -> dict:
     step_ms = _ms_pct(timed, 50)
     n_edges = 2 * g.num_edges
     flops = 3.0 * train_steps._gnn_flops_fwd(arch, g.n, n_edges, GNN_FEAT)
-    return {
+    return spec, {
         "arch": cfg.name, "config": dataclasses.asdict(cfg),
         "reduced": {"graph": ["ogb_products", "twitter (cap 192)"],
                     "n_nodes": [GNN_SHAPES["ogb_products"].n_nodes, g.n],
@@ -3572,14 +3727,15 @@ def _live_blocks() -> set:
             if b["state"] == "active_allocated"}
 
 
-def phase_gnn(dev, g, card: str) -> dict:
+def phase_gnn(dev, g, card: str) -> tuple:
     """The GNN slice on the card, every arch at its published CONFIG: (a)
     MeshGraphNet trained over SDP's halo layout of twitter (8 blocks
     stacked on the card; the SDP and hash card sessions' HaloSpecs, the
     first step held to the hash layout's and to the dense model's), (b) PNA
     at minibatch_lg's sampled shape, (c) SchNet and (d) NequIP at the
     molecule shape, each held to the host's CPU. The card's allocation
-    must be back where it was when the phase ends."""
+    must be back where it was when the phase ends. Returns the phase's
+    line and the SDP and hash layouts (phase ``model_mesh`` reuses them)."""
     t_phase = time.perf_counter()
     _gnn_warm_up(dev)
     gc.collect()
@@ -3588,7 +3744,7 @@ def phase_gnn(dev, g, card: str) -> dict:
     blocks_before = _live_blocks()
     part_s = {}
     t = time.perf_counter()
-    mgn = _gnn_mgn(dev, g)
+    specs, mgn = _gnn_mgn(dev, g)
     part_s["meshgraphnet"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -3640,7 +3796,7 @@ def phase_gnn(dev, g, card: str) -> dict:
         raise AssertionError(f"gnn: the card holds {after} bytes after the "
                              f"phase, {before} before it")
     emit(out)
-    return out
+    return out, specs
 
 
 class _PlainLoops:
@@ -6004,6 +6160,584 @@ def phase_lm_mesh(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase model_mesh: the recsys and GNN step bundles on a mesh of one card
+# ---------------------------------------------------------------------------
+
+MM_DIMS, MM_HALO_DIMS = (2, 2), (4, 2)
+# the two-tower cut: 2,097,152 rows a table (CONFIG's widths, f32). Under
+# baseline the four entries hold 2 x 4.29 GB of table blocks (each block
+# twice, over data) with their gradients and two moments, ~34.4 GB, beside
+# the one-card step's 17.2 GB; phase train's 4,194,304 rows would need
+# ~69 GB sharded alone
+MM_ROWS = 2_097_152
+MM_BATCH = 16_384           # phase train's batch: train_batch's 65,536
+# would give (B, B) logits of 17.2 GB
+MM_SCHEMES = ("baseline", "opt")
+# sharded against one-card (f32, TF32 off): the bags are summed per row
+# block and then across blocks in rank order, the losses over the data
+# ranks, and the towers' GEMMs run on other row counts, so they differ by
+# f32 rounding: losses, metrics and scores within 2e-6 (rtol or relative
+# L2), params and moments within 2e-5 relative L2 a leaf on the same ReLU
+# masks (the one-card step fed the sharded step's: a rounding apart flips
+# a few near-zero pre-activations, and one flipped unit of one sample
+# moved the first layers' gradients by 1.7e-3, run D1); one entry's block
+# bags and block table gradient bit-equal to embedding_bag_ref /
+# embedding_bag_backward_ref
+MM_REL, MM_STATE_REL = 2e-6, 2e-5
+MM_CHECK_ENTRY = 1          # (data 0, model 1): its ids shifted by a block
+
+
+def _mm_rel(got, want) -> float:
+    return _rel_l2(got.float(), want.float())
+
+
+def _mm_wire(n: int) -> dict:
+    return {op: [v.get(e, 0.0) for e in range(n)]
+            for op, v in collectives.wire_bytes().items()}
+
+
+def _mm_call(fn, *args, n: int = 4):
+    """One bundle call: its result, ms (synchronised), the embedding_bag
+    and embedding_bag_backward launches in it (counts set to 0 just
+    before) and each entry's wire bytes by op."""
+    collectives.reset_wire_bytes()
+    eb.embedding_bag.launches = 0
+    eb.embedding_bag_backward.launches = 0
+    out, ms = _sync_ms(lambda: fn(*args))
+    return out, {"ms": ms,
+                 "launches": {"embedding_bag": eb.embedding_bag.launches,
+                              "embedding_bag_backward":
+                                  eb.embedding_bag_backward.launches},
+                 "wire_bytes": _mm_wire(n)}
+
+
+def _mm_expect_launches(call: dict, want: dict, what: str) -> None:
+    if call["launches"] != want:
+        raise AssertionError(f"model_mesh: {what} launched "
+                             f"{call['launches']}, expected {want}")
+
+
+def _mm_recsys_cfg():
+    a = get_arch("two-tower-retrieval")
+    cfg = dataclasses.replace(a.config, user_vocab=MM_ROWS,
+                              item_vocab=MM_ROWS)
+    return cfg, ArchDef(a.arch_id, "recsys", cfg, a.smoke_config, a.source)
+
+
+def _mm_block_checks(fwd: _Hook, bwd: _Hook, rows: int) -> dict:
+    """Entry MM_CHECK_ENTRY's first block bag (the user table's) against
+    embedding_bag_ref on the card, and its block table gradient against
+    the plain backward on the host, bit for bit."""
+    (table, ids, _mode), _, bags, _ = fwd.kept[0]
+    want = embedding_bag_ref(table, ids, mode="sum")
+    if not _same_bits(bags, want):
+        raise AssertionError(f"model_mesh: entry {MM_CHECK_ENTRY}'s block "
+                             f"bags differ from embedding_bag_ref by "
+                             f"{float((bags - want).abs().max())}")
+    del want
+    hits = [v for v in bwd.kept.values() if v[0][1].shape == ids.shape
+            and torch.equal(v[0][1], ids)]
+    if len(hits) != 1:
+        raise AssertionError(f"model_mesh: {len(hits)} backward launches "
+                             f"on entry {MM_CHECK_ENTRY}'s block ids")
+    (g, idx, num_rows), kw, got, _ = hits[0]
+    back = _check_backward(g, idx, num_rows, kw.get("mode", "sum"), got,
+                           f"model_mesh entry {MM_CHECK_ENTRY}'s block")
+    return {"entry": MM_CHECK_ENTRY, "bags": list(bags.shape),
+            "bags_bit_equal": True,
+            "ids_in_block": int((ids >= 0).sum()),
+            "ids": int(ids.numel()), "backward": back}
+
+
+class _ReluMasks:
+    """Within it, ``torch.relu`` (the towers' activation) keeps each call's
+    mask ``x > 0`` in ``masks``; with ``forced``, call i applies
+    ``forced[i]`` instead (``where(mask, x, 0)``: a step fed another
+    step's ReLU choices, as ``_ForcedRoutes`` feeds routes)."""
+
+    def __init__(self, forced: list | None = None):
+        self.forced, self.masks = forced, []
+
+    def __enter__(self):
+        self._fn = fn = torch.relu
+
+        def relu(x):
+            if self.forced is None:
+                self.masks.append((x > 0).detach())
+                return fn(x)
+            m = self.forced[len(self.masks)]
+            self.masks.append(m)
+            return torch.where(m, x, 0.0)
+
+        torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        torch.relu = self._fn
+
+
+def _one_card_masks(masks: list, cfg, mesh) -> list:
+    """The sharded loss's ReLU masks (each entry's two towers, entry by
+    entry) in the one-card loss's order: each layer's rows of the entries
+    with model coordinate 0, concatenated in data-rank order."""
+    n, acts = len(mesh.devices), len(cfg.tower_mlp) - 1
+    lead = [e for e in range(n)
+            if np.unravel_index(e, mesh.dims)[mesh.axis_names.index(
+                "model")] == 0]
+    out = []
+    for t in range(2):                         # user, then item
+        for layer in range(acts):
+            out.append(torch.cat([masks[t * n * acts + e * acts + layer]
+                                  for e in lead]))
+    return out
+
+
+def _state_dist(tree, want: dict) -> dict:
+    out = {}
+    for name in ("params", "mu", "nu"):
+        got = tree[0] if name == "params" else tree[1][name]
+        for (path, x), (_, y) in zip(tree_paths(got), tree_paths(want[name])):
+            out[f"{name}/{'/'.join(path)}"] = _mm_rel(gather(x), y)
+    return out
+
+
+def _mm_train_scheme(arch, cfg, mesh, scheme, params, batch,
+                     own: dict) -> dict:
+    """One scheme's sharded train step: step one held to the one-card step
+    fed its ReLU masks (params, moments, metrics) and its metrics to the
+    one-card step's own (``own``), one entry's block bags and block
+    gradient checked bit for bit; step two timed."""
+    shape = RECSYS_SHAPES["train_batch"]
+    b = train_steps.build_recsys(arch, dataclasses.replace(
+        shape, batch=MM_BATCH), mesh, scheme)
+    p, bt = place_tree((params, batch), (b.in_shardings[0],
+                                         b.in_shardings[2]))
+    o = tree_map(_zeros_placed, b.specs[1], b.in_shardings[1])
+    res = {"param_bytes_per_entry": _entry_bytes(p),
+           "opt_bytes_per_entry": _entry_bytes({k: o[k] for k in ("mu",
+                                                                  "nu")})}
+    rows = MM_ROWS // (mesh.shape["model"] if scheme == "baseline"
+                       else len(mesh.devices))
+    # the block is cloned before the call: the step updates it in place
+    with _Hook(RSS, "bag_lookup", lambda i: 0 if i == MM_CHECK_ENTRY
+               else None) as fwd, \
+            _Hook(bag_ops, "embedding_bag_backward", lambda i: i,
+                  clone=False) as bwd, _ReluMasks() as relu:
+        (p, o, m), call = _mm_call(b.fn, p, o, bt)
+    n = len(mesh.devices)
+    _mm_expect_launches(call, {"embedding_bag": 2 * n,
+                               "embedding_bag_backward": 2 * n},
+                        f"the {scheme} train step")
+    res["block"] = _mm_block_checks(fwd, bwd, rows)
+    del fwd, bwd
+    res["metrics"] = {k: float(gather(v)) for k, v in m.items()}
+    # the same ReLU masks: the one-card step fed the sharded step's
+    forced = _one_card_masks(relu.masks, cfg, mesh)
+    del relu
+    opt = train_steps.make_opt()
+    step = train_steps.train_step(RS.loss_fn, cfg, opt)
+    with _ReluMasks(forced) as fed:
+        p1, s1, m1 = step(params, opt.init(params), batch)
+    ref = {"params": p1, "mu": s1["mu"], "nu": s1["nu"]}
+    res["relu_mask_flips"] = sum(int((a != b_).sum()) for a, b_ in zip(
+        forced, own["masks"]))
+    res["relu_mask_entries"] = sum(int(a.numel()) for a in forced)
+    res["same_masks"] = {
+        "metric_rel": {k: abs(res["metrics"][k] - float(v))
+                       / max(abs(float(v)), 1e-30) for k, v in m1.items()},
+        "state_rel": _state_dist((p, o), ref)}
+    del fed, forced, p1, s1, m1, ref
+    same = res["same_masks"]
+    worst = max(same["state_rel"].values())
+    same["state_rel_max"] = worst
+    own_rel = {k: abs(res["metrics"][k] - own["metrics"][k])
+               / max(abs(own["metrics"][k]), 1e-30) for k in own["metrics"]}
+    res["own_masks"] = {"metric_rel": own_rel}
+    if (max(same["metric_rel"].values()) > MM_REL or worst > MM_STATE_REL
+            or own_rel["loss"] > MM_REL or own_rel["xent"] > MM_REL):
+        raise AssertionError(f"model_mesh: {scheme} train step vs one card: "
+                             f"{res}")
+    res["step1"] = call
+    (p, o, m), res["step2"] = _mm_call(b.fn, p, o, bt)
+    res["loss_after_step2"] = float(gather(m["loss"]))
+    del p, o, m, bt
+    return res
+
+
+def _mm_recsys_train(dev, mesh) -> dict:
+    cfg, arch = _mm_recsys_cfg()
+    params = RS.init_params(cfg, generator=torch.Generator(device=dev)
+                            .manual_seed(0), device=dev)
+    batch = trainer.batch_tensors(RS.make_batch(cfg, MM_BATCH, seed=0), dev)
+    opt = train_steps.make_opt()
+    step = train_steps.train_step(RS.loss_fn, cfg, opt)
+    with _ReluMasks() as relu:
+        (p1, s1, m1), one_ms = _sync_ms(lambda: step(params, opt.init(params),
+                                                     batch))
+    own = {"metrics": {k: float(v) for k, v in m1.items()},
+           "masks": relu.masks}
+    del relu
+    out = {"batch": MM_BATCH, "rows": MM_ROWS,
+           "one_card": {"step1_ms": one_ms, "metrics": own["metrics"]}}
+    for scheme in MM_SCHEMES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[scheme] = _mm_train_scheme(arch, cfg, mesh, scheme, params,
+                                       batch, own)
+        out[scheme]["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(dev)
+    del own
+    _, out["one_card"]["step2_ms"] = _sync_ms(lambda: step(p1, s1, batch))
+    del p1, s1, params
+    return out
+
+
+def _mm_recsys_serve(dev, mesh) -> dict:
+    """serve_p99, serve_bulk and retrieval_cand at their full batch under
+    both schemes, each held to the one-card call."""
+    cfg, arch = _mm_recsys_cfg()
+    params = RS.init_params(cfg, generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev)
+    n = len(mesh.devices)
+    out = {}
+    for scheme in MM_SCHEMES:
+        placed = None
+        res = {}
+        for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            shape = RECSYS_SHAPES[name]
+            b = train_steps.build_recsys(arch, shape, mesh, scheme)
+            raw = RS.make_batch(cfg, shape.batch, seed=2)
+            if shape.kind == "retrieval":
+                g = torch.Generator(device=dev).manual_seed(3)
+                batch = {"user_ids": torch.from_numpy(raw["user_ids"])
+                         .to(dev),
+                         "cand_item_emb": torch.randn(
+                             (shape.n_candidates, cfg.tower_mlp[-1]),
+                             generator=g, device=dev)}
+                one = functools.partial(RS.score_candidates, params, batch,
+                                        cfg)
+                launches = n
+            else:
+                batch = {k: torch.from_numpy(raw[k]).to(dev)
+                         for k in ("user_ids", "item_ids")}
+                one = functools.partial(RS.serve_score, params, batch, cfg)
+                launches = 2 * n
+            if placed is None:
+                placed = place_tree(params, b.in_shardings[0])
+            pb = place_tree(batch, b.in_shardings[1])
+            got, call = _mm_call(b.fn, placed, pb)
+            _mm_expect_launches(call, {"embedding_bag": launches,
+                                       "embedding_bag_backward": 0},
+                                f"{scheme} {name}")
+            want, one_ms = _sync_ms(one)
+            rel = _mm_rel(gather(got), want)
+            if rel > MM_REL:
+                raise AssertionError(f"model_mesh: {scheme} {name} scores "
+                                     f"{rel} from the one-card call's")
+            _, again = _mm_call(b.fn, placed, pb)
+            _, one_again = _sync_ms(one)
+            res[name] = {"batch": shape.batch, "out_spec": list(
+                b.out_shardings.spec), "rel_l2": rel, "first": call,
+                "ms": again["ms"], "one_card_ms": one_again}
+            del got, want, pb, batch
+        res["param_bytes_per_entry"] = _entry_bytes(placed)
+        del placed
+        out[scheme] = res
+    del params
+    return out
+
+
+def _mm_mesh_grads(b, ctx, loss, params, batch) -> tuple:
+    """A bundle's mesh program's loss and gradients: those of the first
+    entry's leaves (``copy_to`` makes them every copy's sum)."""
+    shards = {k: list(v.shards) for k, v in
+              place_tree(batch, b.in_shardings[2]).items()}
+    rest = train_steps._entry_trees(place_tree(params, b.in_shardings[0]),
+                                    ctx.n)[1:]
+    return _loss_and_grads(lambda t, _b, _c: (
+        loss([t] + rest, shards)[0][0], {}), params, None, None)
+
+
+class _MeshWinners:
+    """Within it, ``runtime.gnn_mesh.Graph.max`` (and so ``min``) keeps each
+    call's winners over every entry's edges, in the global edge order:
+    the mask ``_Winners(forced=...)`` feeds the one-card step."""
+
+    def __init__(self):
+        self.winners = []
+
+    def __enter__(self):
+        self._fn = fn = GM.Graph.max
+        rec = self.winners
+
+        def hooked(graph, data, seg_ids, fill):
+            out = fn(graph, data, seg_ids, fill)
+            top = torch.cat([o.detach() for o in out])
+            rec.append(torch.cat([
+                (s >= 0)[:, None] & (x.detach() == top[s.clamp(min=0).long()])
+                for x, s in zip(data, seg_ids)]).to(HOST))
+            return out
+
+        GM.Graph.max = hooked
+        return self
+
+    def __exit__(self, *exc):
+        GM.Graph.max = self._fn
+
+
+def _mm_placed(b, params, batch) -> tuple:
+    """A train bundle's three arguments: ``params`` and ``batch`` placed
+    by its ``in_shardings``, the moments zero."""
+    return (place_tree(params, b.in_shardings[0]),
+            tree_map(_zeros_placed, b.specs[1], b.in_shardings[1]),
+            place_tree(batch, b.in_shardings[2]))
+
+
+def _mm_hold_step(got: tuple, want: tuple, what: str) -> dict:
+    """A GNN bundle's first step ``(params, opt_state, metrics)`` against
+    the one-card (or stacked) ``train_step``'s on the same inputs: every
+    metric (loss, mse, gnorm) within phase gnn's loss limit GNN_LOSS_REL,
+    every param, ``mu`` and ``nu`` leaf within MM_STATE_REL relative L2
+    (``mu`` is the clipped gradient x 0.1), and all of them finite."""
+    (p, o, m), (p1, s1, m1) = got, want
+    metrics = {k: float(gather(v)) for k, v in m.items()}
+    metric_rel = {k: abs(metrics[k] - float(v)) / max(abs(float(v)), 1e-30)
+                  for k, v in m1.items()}
+    state = _state_dist((p, o), {"params": p1, "mu": s1["mu"],
+                                 "nu": s1["nu"]})
+    worst = max(state, key=state.get)
+    res = {"metrics": metrics, "metric_rel": metric_rel,
+           "state_rel_max": state[worst], "state_rel_max_leaf": worst}
+    if not (all(np.isfinite(list(metrics.values())))
+            and all(np.isfinite(list(state.values())))
+            and max(metric_rel.values()) <= GNN_LOSS_REL
+            and state[worst] <= MM_STATE_REL):
+        raise AssertionError(f"{what}: {res} (limits: metrics "
+                             f"{GNN_LOSS_REL}, state {MM_STATE_REL})")
+    return res
+
+
+def _mm_gnn_arch(dev, mesh, arch_id: str, shape, batch_np) -> dict:
+    """One arch's baseline bundle on the mesh: its ``fn`` on the placed
+    params, zero moments and padded batch, the first step held to the
+    one-card ``train_step`` on the same inputs (PNA's on the mesh's max /
+    min winners), then a second bundle step timed beside a one-card step.
+    NequIP's gradients are non-finite (ROADMAP C), so its bundle's loss
+    and gradients are held instead, the same entries non-finite."""
+    arch = get_arch(arch_id)
+    cfg, mod = arch.config, train_steps._GNN_MODELS[arch_id]
+    b = train_steps.build_gnn(arch, shape, mesh)
+    specs = b.specs[2]
+    batch = trainer.batch_tensors(GC.fit_batch(batch_np, specs), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = mod.init_params(cfg, specs["node_feat"].shape[1],
+                             generator=gen, device=dev) \
+        if "node_feat" in specs and arch_id in ("meshgraphnet", "pna") \
+        else mod.init_params(cfg, generator=gen, device=dev)
+    ctx = GM.Ctx(mesh)
+    res = {"shape": shape.name, "n_nodes": b.meta["n_nodes"],
+           "n_edges": b.meta["n_edges"],
+           "edges_in_batch": int((batch_np["senders"] >= 0).sum())}
+    if arch_id == "nequip":
+        split = "graph_id" in specs and tuple(
+            b.in_shardings[2]["targets"].spec) != ()
+
+        def loss(trees, shards):
+            return GM.loss(ctx, mod, cfg, trees, shards, b.meta["n_nodes"],
+                           split)
+
+        collectives.reset_wire_bytes()
+        got = _mm_mesh_grads(b, ctx, loss, params, batch)
+        res["loss_and_grad_wire_bytes"] = _mm_wire(ctx.n)
+        want = _loss_and_grads(mod.loss_fn, params, batch, cfg)
+        res["first_step"] = _hold(got, want, "model_mesh: nequip mesh vs "
+                                  "one card", nonfinite_ok=True)
+        del params, batch, got, want
+        return res
+    opt = train_steps.make_opt()
+    placed = _mm_placed(b, params, batch)
+    with _MeshWinners() as mw:
+        (p, o, m), res["step1"] = _mm_call(b.fn, *placed, n=ctx.n)
+    step = train_steps.train_step(mod.loss_fn, cfg, opt)
+    with _Winners(forced=mw.winners if mw.winners else None):
+        (p1, s1, m1), res["one_card_step1_ms"] = _sync_ms(
+            lambda: step(params, opt.init(params), batch))
+    res["winner_calls"] = len(mw.winners)
+    del mw
+    res["first_step"] = _mm_hold_step((p, o, m), (p1, s1, m1),
+                                      f"model_mesh: {arch_id} bundle vs "
+                                      "one card")
+    _, res["step2"] = _mm_call(b.fn, p, o, placed[2], n=ctx.n)
+    _, res["one_card_step2_ms"] = _sync_ms(lambda: step(p1, s1, batch))
+    del p, o, m, p1, s1, m1, placed, params, batch
+    return res
+
+
+def _mm_twitter_shape(g) -> object:
+    return dataclasses.replace(GNN_SHAPES["ogb_products"], name="twitter",
+                               n_nodes=g.n, n_edges=g.num_edges)
+
+
+def _mm_gnn(dev, mesh, g) -> dict:
+    """Every arch at its CONFIG on the four entries: MeshGraphNet at
+    twitter's full graph, PNA at minibatch_lg's shape sampled from
+    twitter, SchNet and NequIP at molecule."""
+    out = {}
+    full = GC.graph_to_batch(g, GNN_FEAT, seed=0, with_positions=True)
+    out["meshgraphnet"] = _mm_gnn_arch(dev, mesh, "meshgraphnet",
+                                       _mm_twitter_shape(g), full)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    mb = next(dp.graph_minibatches(g, GNN_MB.d_feat, GNN_MB.batch_nodes,
+                                   GNN_MB.fanout, seed=0))
+    out["pna"] = _mm_gnn_arch(dev, mesh, "pna", GNN_MB, mb)
+    mol = GC.batch_molecules(GNN_MOL.mol_batch, GNN_MOL.n_nodes,
+                             GNN_MOL.n_edges, seed=0)
+    for arch_id in ("schnet", "nequip"):
+        out[arch_id] = _mm_gnn_arch(dev, mesh, arch_id, GNN_MOL, mol)
+    return out
+
+
+def _mm_forward_wire(loss, trees, shards, n: int, layers: int) -> dict:
+    """The wire bytes each entry sends in one forward (no autograd), by
+    op, and per layer (all of it over the layers)."""
+    collectives.reset_wire_bytes()
+    with torch.no_grad():
+        loss(trees, shards)
+    torch.cuda.synchronize()
+    wire = _mm_wire(n)
+    return {"forward": wire, "per_layer_entry0": {
+        op: v[0] / layers for op, v in wire.items()}}
+
+
+def _mm_halo(dev, g, specs: dict) -> dict:
+    """MeshGraphNet over the SDP and hash sessions' blocked layouts of
+    twitter, one block a mesh entry of a (data 4, model 2) mesh of eight
+    cuda:0 entries (``build_gnn_halo(layout=...)``: the layout's own block,
+    publish, halo and edge sizes): the bundle's ``fn`` on the placed
+    params, zero moments and the layout's batch, its first step held to
+    the stacked one-device path's ``train_step`` on the same inputs, a
+    second step timed beside a stacked step; each exchange's wire bytes a
+    layer an entry beside the graph-parallel baseline's on the same
+    entries."""
+    arch = get_arch("meshgraphnet")
+    cfg = arch.config
+    mesh = make_mesh(MM_HALO_DIMS, ("data", "model"), devices=[dev] * 8)
+    ctx = GM.Ctx(mesh)
+    shape = _mm_twitter_shape(g)
+    full = GC.graph_to_batch(g, GNN_FEAT, seed=0, with_positions=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = MGN.init_params(cfg, GNN_FEAT, generator=gen, device=dev)
+    opt = train_steps.make_opt()
+    out = {"mesh": mesh.shape, "entries": len(mesh.devices)}
+    for policy in ("sdp", "hash"):
+        spec = specs[policy]
+        b = train_steps.build_gnn_halo(arch, shape, mesh, layout=spec)
+        stacked_np = halo_batch(spec, full["node_feat"], full["targets"])
+        batch = trainer.batch_tensors(
+            GC.fit_batch(stacked_np, b.specs[2], axis=1), dev)
+        nb = spec.block_size
+        placed = _mm_placed(b, params, batch)
+        (p, o, m), step1 = _mm_call(b.fn, *placed, n=ctx.n)
+        stacked = trainer.batch_tensors(stacked_np, dev)
+        step = train_steps.train_step(make_mgn_halo_loss(cfg, nb), cfg, opt)
+        (p1, s1, m1), stacked1_ms = _sync_ms(
+            lambda: step(params, opt.init(params), stacked))
+        res = {"block_rows_Nb": nb, "B_max": spec.publish_size,
+               "published_rows": int((spec.publish_idx >= 0).sum()),
+               "bundle_b_max": b.meta["b_max"],
+               "halo_frac": b.meta["halo_frac"],
+               "first_step": _mm_hold_step(
+                   (p, o, m), (p1, s1, m1),
+                   f"model_mesh: halo {policy} bundle vs stacked"),
+               "step1": step1, "stacked_step1_ms": stacked1_ms}
+
+        def loss(trees, shards, nb=nb):
+            return GH.mgn_halo_mesh_loss(ctx, cfg, trees, shards, nb)
+
+        shards = {k: list(v.shards) for k, v in placed[2].items()}
+        res["exchange"] = _mm_forward_wire(
+            loss, train_steps._entry_trees(p, ctx.n), shards, ctx.n,
+            cfg.n_layers)
+        _, res["step2"] = _mm_call(b.fn, p, o, placed[2], n=ctx.n)
+        _, res["stacked_step2_ms"] = _sync_ms(lambda: step(p1, s1, stacked))
+        out[policy] = res
+        del p, o, m, p1, s1, m1, placed, batch, stacked, shards
+    b = train_steps.build_gnn(arch, shape, mesh)
+    batch = trainer.batch_tensors(GC.fit_batch(full, b.specs[2]), dev)
+    shards = {k: list(v.shards) for k, v in
+              place_tree(batch, b.in_shardings[2]).items()}
+    trees = train_steps._entry_trees(place_tree(params, b.in_shardings[0]),
+                                     ctx.n)
+    out["graph_parallel"] = _mm_forward_wire(
+        lambda t, s: GM.loss(ctx, MGN, cfg, t, s, b.meta["n_nodes"]),
+        trees, shards, ctx.n, cfg.n_layers)
+    del batch, shards, trees, params
+    return out
+
+
+def phase_model_mesh(dev, g, specs: dict, card: str) -> dict:
+    """The recsys and GNN step bundles on meshes of ``cuda:0`` entries: the
+    two-tower train step (baseline and opt) and its serving cells on a
+    (data 2, model 2) mesh, every GNN arch's baseline bundle on the same
+    four entries, and MeshGraphNet's halo bundle over SDP's and hash's 8
+    blocks of twitter, one an entry of a (data 4, model 2) mesh; each held
+    to the port's one-card (or stacked) step, with embedding_bag's
+    launches checked exactly and each entry's wire bytes by op."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MM_DIMS, ("data", "model"), devices=[dev] * 4)
+    out = {"phase": "model_mesh", "card": card, "mesh": mesh.shape,
+           "entries": [str(d) for d in mesh.devices],
+           "reduced": {"rows": [RS.TwoTowerConfig().user_vocab, MM_ROWS],
+                       "train_batch": [RECSYS_SHAPES["train_batch"].batch,
+                                       MM_BATCH],
+                       "graph": ["ogb_products", "twitter (cap 192)"]},
+           "part_s": {}}
+    for name, part in (("recsys_train", lambda: _mm_recsys_train(dev, mesh)),
+                       ("recsys_serve", lambda: _mm_recsys_serve(dev, mesh)),
+                       ("gnn", lambda: _mm_gnn(dev, mesh, g)),
+                       ("halo", lambda: _mm_halo(dev, g, specs))):
+        t = time.perf_counter()
+        out[name] = part()
+        out["part_s"][name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+    tr, sv = out["recsys_train"], out["recsys_serve"]
+    out["launches"] = {
+        "embedding_bag": sum(tr[s][k]["launches"]["embedding_bag"]
+                             for s in MM_SCHEMES for k in ("step1", "step2"))
+        + sum(sv[s][c]["first"]["launches"]["embedding_bag"]
+              for s in MM_SCHEMES for c in ("serve_p99", "serve_bulk",
+                                            "retrieval_cand")),
+        "embedding_bag_backward": sum(
+            tr[s][k]["launches"]["embedding_bag_backward"]
+            for s in MM_SCHEMES for k in ("step1", "step2"))}
+    emit(out)
+    return out
+
+
+def _mm_bag_row(model_mesh: dict, name: str) -> dict:
+    """A bag kernel's launches in phase model_mesh, by call, with the
+    block checks of its train steps."""
+    tr, sv = model_mesh["recsys_train"], model_mesh["recsys_serve"]
+    by_call = {f"{s}:train_{k}": tr[s][k]["launches"][name]
+               for s in MM_SCHEMES for k in ("step1", "step2")}
+    if name == "embedding_bag":
+        by_call.update({f"{s}:{c}": sv[s][c]["first"]["launches"][name]
+                        for s in MM_SCHEMES
+                        for c in ("serve_p99", "serve_bulk",
+                                  "retrieval_cand")})
+    return {"launches": model_mesh["launches"][name], "by_call": by_call,
+            "block_bit_equal": {s: tr[s]["block"]["bags_bit_equal"]
+                                if name == "embedding_bag" else
+                                tr[s]["block"]["backward"]["bit_equal_to_host"]
+                                for s in MM_SCHEMES}}
+
+
 def _shard_launches(shard: dict, name: str) -> dict:
     """A kernel's launches in each sharded run of phase shard."""
     runs = {**shard["twitter"], "grqc": shard["grqc"]}
@@ -6037,7 +6771,7 @@ def _backward_row(train: dict) -> dict:
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                 lm: dict, rebalance: dict, serve: dict, sweep: dict,
                 shard: dict, train: dict, moe_run: dict,
-                lm_train: dict, lm_mesh: dict) -> dict:
+                lm_train: dict, lm_mesh: dict, model_mesh: dict) -> dict:
     pa_timed = {c["shape"][2]: c for c in kernels["partition_affinity"]["cases"]
                 if "ms" in c}
     pa_case = pa_timed[K_MAX]
@@ -6104,6 +6838,9 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          "library": "torch.nn.functional.embedding_bag (bf16 output)",
          "launches_by_kernel": recsys["launches_by_kernel"],
          "train": {"launches": train["launches"]["embedding_bag"]},
+         # the two-tower bundles' row-block bags on four cuda:0 entries
+         # (sum mode on each block, counted exactly a call)
+         "model_mesh": _mm_bag_row(model_mesh, "embedding_bag"),
          "all_slot_bound_ms": eb_p99["all_slot_bound_ms"],
          "all_slot_gb_per_s": eb_p99["all_slot_gb_per_s"],
          "requests_in_turn": eb_p99["requests"],
@@ -6113,6 +6850,8 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                             "all_slot_bound_ms", "all_slot_gb_per_s")}}},
     ]
     rows.append(_backward_row(train))
+    rows[-1]["model_mesh"] = _mm_bag_row(model_mesh,
+                                         "embedding_bag_backward")
     # the sweep form: its launches on the twitter lanes' sweep (the grqc
     # lanes' beside them); ms, plain ms and bound at one lane of twitter's
     # shape, and 1, 16 (the twitter sweep's launch) and 64 lanes on both
@@ -6308,10 +7047,18 @@ def main() -> int:
     build.join()
     if failed:
         raise failed[0]
-    kernels = phase_kernels(dev, graphs, cases)
-    spmm = phase_spmm(dev, graphs)
-    del graphs
-    _, grqc_s, grqc_cfg, grqc_host = phase_grqc(dev)
+    # host references run in worker processes beside the card: phase
+    # grqc's two engines (~100 s on the host) and phase kernels' window
+    # choosers, all done before phase kernels times anything
+    refs = _HostRefs()
+    try:
+        grqc_refs = grqc_host_refs(refs)
+        kernels = phase_kernels(dev, graphs, cases, refs)
+        spmm = phase_spmm(dev, graphs)
+        del graphs
+        _, grqc_s, grqc_cfg, grqc_host = phase_grqc(dev, grqc_refs)
+    finally:
+        refs.close(cancel=True)
     phase_fig12(dev)
     phase_mesh(dev)
     twitter, twitter_part, twitter_g, twitter_s = phase_twitter(dev)
@@ -6325,8 +7072,11 @@ def main() -> int:
     sweep = phase_sweep(dev, twitter_s, cases, info["nvidia_smi"])
     shard = phase_shard(dev, twitter_s, twitter_host, grqc_s, grqc_cfg,
                         grqc_host, info["nvidia_smi"])
-    phase_gnn(dev, twitter_g, info["nvidia_smi"])
-    del twitter_g, twitter_s, cases, twitter_host, grqc_host
+    _, gnn_specs = phase_gnn(dev, twitter_g, info["nvidia_smi"])
+    del twitter_s, cases, twitter_host, grqc_host
+    model_mesh = phase_model_mesh(dev, twitter_g, gnn_specs,
+                                  info["nvidia_smi"])
+    del twitter_g, gnn_specs
     recsys = phase_recsys(dev)
     train = phase_train(dev, info["nvidia_smi"])
     lm = phase_lm(dev)
@@ -6334,7 +7084,8 @@ def main() -> int:
     lm_train = phase_lm_train_process(info["nvidia_smi"])
     lm_mesh = phase_lm_mesh(dev, info["nvidia_smi"])
     emit(kernel_line(kernels, twitter, recsys, spmm, lm, rebalance, serve,
-                     sweep, shard, train, moe_run, lm_train, lm_mesh))
+                     sweep, shard, train, moe_run, lm_train, lm_mesh,
+                     model_mesh))
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 one step per (arch x shape) with its shardings, the layer the trainer, the
 server and the dry-run share.
 
-For an LM cell ``build_lm`` / ``build_step`` give a ``StepBundle``, as the
-JAX package's (``steps.py:41-285, 601-613``):
+``build_step`` gives every cell's ``StepBundle`` — ``build_lm``,
+``build_gnn`` / ``build_gnn_halo`` and ``build_recsys`` — as the JAX
+package's (``steps.py:41-613``):
 
   * ``fn``            — the step (train / prefill / decode) on a mesh: it
                         takes its arguments placed as ``in_shardings``
@@ -20,10 +21,13 @@ JAX package's (``steps.py:41-285, 601-613``):
   * ``meta``          — model FLOPs and the family's counts.
 
 The step runs each mesh entry on its own shards with explicit collectives
-(``runtime.lm_sharded``, ``runtime.collectives``): FSDP on data (x pod),
-TP on model, EP for MoE experts. Only the baseline scheme of the LM cells
-is built; the GNN and recsys cells and the ``opt`` and ``halo`` schemes
-raise, naming their ROADMAP items.
+(``runtime.collectives``): for an LM ``runtime.lm_sharded`` (FSDP on data
+(x pod), TP on model, EP for MoE experts); for a GNN
+``runtime.gnn_mesh`` (graph parallelism over the flattened mesh) or, under
+the ``halo`` scheme, ``runtime.gnn_halo_train`` (one SDP block a mesh
+entry); for the two-tower model ``runtime.recsys_sharded`` (tables
+row-sharded over ``model``, or every axis under ``opt``). Only the LM
+``opt`` scheme's train step raises, naming its ROADMAP item.
 
 Beside the bundles: ``train_step`` (the one-card eager step), ``make_opt``
 and the FLOP counts of the LM and GNN cells.
@@ -35,6 +39,8 @@ on views of the param leaves that require a gradient and takes
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Callable
 
 import torch
@@ -45,6 +51,9 @@ from repro_torch.configs.shapes import LMShape
 from repro_torch.launch.mesh import (
     Mesh, PartitionSpec as P, Placement, SpecBlocks, _block_slices,
 )
+from repro_torch.configs.shapes import GNNShape, RecSysShape
+from repro_torch.graph.sampler import subgraph_sizes
+from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
 from repro_torch.models.gnn import meshgraphnet as MGN
 from repro_torch.models.gnn import nequip as NQ
@@ -54,7 +63,11 @@ from repro_torch.models.gnn import so3
 from repro_torch.optim.optimizers import (
     adamw, apply_updates, tree_leaves, tree_map, tree_paths,
 )
+from repro_torch.runtime import gnn_halo_train as GH
+from repro_torch.runtime import gnn_mesh as GM
 from repro_torch.runtime import lm_sharded as LS
+from repro_torch.runtime import mesh_ctx as MC
+from repro_torch.runtime import recsys_sharded as RSS
 from repro_torch.runtime import sharding as SHR
 
 
@@ -296,10 +309,12 @@ def _lm_meta(cfg: T.LMConfig, flops: float, tokens: int) -> dict:
             "active_params": cfg.active_param_count(), "tokens": tokens}
 
 
-def _lm_train_fn(ctx: LS.Ctx, bundle_in: tuple, specs: tuple, name: str,
-                 sharded_batch: bool, n_tokens: int):
-    """The sharded train step: every entry's loss and gradients on its
-    shards, the global norm, AdamW on each entry's slices in place."""
+def _sharded_train_fn(ctx: MC.MeshCtx, bundle_in: tuple, specs: tuple,
+                      name: str, loss):
+    """The sharded train step: ``loss(trees, batch)`` — one param tree and
+    one batch shard a leaf for each entry → ``(losses, metrics)``, each a
+    list over the entries — its gradients from the first entry's loss,
+    the global norm, and AdamW on each entry's slices in place."""
     opt = make_opt()
     rep = _rep(ctx.mesh)
 
@@ -311,17 +326,16 @@ def _lm_train_fn(ctx: LS.Ctx, bundle_in: tuple, specs: tuple, name: str,
                   for e in range(ctx.n)]
         trees = [_unflatten(paths, lv) for lv in leaves]
         with torch.enable_grad():
-            out = LS.loss(ctx, trees, list(batch["tokens"].shards),
-                          list(batch["labels"].shards), sharded_batch,
-                          n_tokens)
+            losses, metrics = loss(trees, {k: list(v.shards)
+                                           for k, v in batch.items()})
             flat = [x for lv in leaves for x in lv]
-            grads = torch.autograd.grad(out[0][0], flat, allow_unused=True)
+            grads = torch.autograd.grad(losses[0], flat, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(flat, grads)]
         k = len(paths)
         by_entry = [grads[e * k:(e + 1) * k] for e in range(ctx.n)]
         del leaves, trees, flat, grads
-        gnorm = LS.global_norm(ctx, by_entry, paths)
+        gnorm = MC.global_norm(ctx, by_entry, paths)
         mu, nu = _entry_trees(opt_state["mu"], ctx.n), \
             _entry_trees(opt_state["nu"], ctx.n)
         ps = _entry_trees(params, ctx.n)
@@ -338,15 +352,33 @@ def _lm_train_fn(ctx: LS.Ctx, bundle_in: tuple, specs: tuple, name: str,
                 count.copy_(new["count"])
                 opt_state["gnorm"].shards[e].copy_(new["gnorm"])
             del updates
-        metrics = {
-            "xent": [o[1].detach() for o in out],
-            "aux": [o[2].detach() for o in out],
-            "loss": [o[0].detach() for o in out],
-            "gnorm": gnorm}
+        out = {k_: [x.detach() for x in v] for k_, v in metrics.items()}
+        out.update(loss=[x.detach() for x in losses], gnorm=gnorm)
         return params, opt_state, {
-            k_: _placed(rep, (), v) for k_, v in metrics.items()}
+            k_: _placed(rep, (), v) for k_, v in out.items()}
 
     return step
+
+
+def _lm_train_fn(ctx: LS.Ctx, bundle_in: tuple, specs: tuple, name: str,
+                 sharded_batch: bool, n_tokens: int):
+    """The LM's sharded train step (``runtime.lm_sharded.loss``)."""
+    def loss(trees, batch):
+        out = LS.loss(ctx, trees, batch["tokens"], batch["labels"],
+                      sharded_batch, n_tokens)
+        return [o[0] for o in out], {"xent": [o[1] for o in out],
+                                     "aux": [o[2] for o in out]}
+
+    return _sharded_train_fn(ctx, bundle_in, specs, name, loss)
+
+
+def _opt_like(params_like: dict) -> dict:
+    return {"mu": tree_map(lambda p: _meta(p.shape, torch.float32),
+                           params_like),
+            "nu": tree_map(lambda p: _meta(p.shape, torch.float32),
+                           params_like),
+            "count": _meta((), torch.int32),
+            "gnorm": _meta((), torch.float32)}
 
 
 def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
@@ -364,7 +396,7 @@ def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
         raise ValueError(f"{arch.arch_id}:{shape.name}: the opt scheme's "
                          "train step (lm_param_rules_zero, micro=2, sequence "
                          "parallelism) is not ported yet (ROADMAP A18.4, the "
-                         "opt scheme)")
+                         "opt scheme: A item 3.3)")
     cfg = _lm_cfg_for_mesh(arch, mesh)
     ctx = LS.Ctx(mesh, cfg)
     da = SHR.batch_axes(mesh)
@@ -378,11 +410,7 @@ def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
     i32 = torch.int32
 
     if shape.kind == "train":
-        opt_like = {"mu": tree_map(lambda p: _meta(p.shape, torch.float32),
-                                   params_like),
-                    "nu": tree_map(lambda p: _meta(p.shape, torch.float32),
-                                   params_like),
-                    "count": _meta((), i32), "gnorm": _meta((), torch.float32)}
+        opt_like = _opt_like(params_like)
         opt_sh = _opt_shardings(param_sh, mesh)
         batch = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
         batch_sh = {"tokens": bspec, "labels": bspec}
@@ -491,15 +519,305 @@ def _gnn_flops_fwd(arch, n: int, e: int, d_feat: int) -> float:
     raise ValueError(arch.arch_id)
 
 
+def _all_axes(mesh: Mesh) -> tuple:
+    return tuple(mesh.axis_names)
+
+
+def _n_dev(mesh: Mesh) -> int:
+    return len(mesh.devices)
+
+
+def _gnn_param_specs(arch: ArchDef, d_feat: int) -> dict:
+    mod, cfg = _GNN_MODELS[arch.arch_id], arch.config
+    specs = mod.param_specs(cfg, d_feat) if arch.arch_id in (
+        "meshgraphnet", "pna") else mod.param_specs(cfg)
+    return _nest({k: _meta(shape, dt) for k, (shape, dt) in specs.items()})
+
+
+def _gnn_batch_specs(arch: ArchDef, n: int, e: int, d_feat: int,
+                     mol_batch: int = 0) -> dict:
+    f32, i32 = torch.float32, torch.int32
+    specs = {"senders": _meta((e,), i32), "receivers": _meta((e,), i32),
+             "node_mask": _meta((n,), torch.bool)}
+    if arch.arch_id in ("meshgraphnet", "pna"):
+        specs["node_feat"] = _meta((n, d_feat), f32)
+    if "pos" in arch.gnn_inputs or arch.arch_id in ("schnet", "nequip"):
+        specs["positions"] = _meta((n, 3), f32)
+    if arch.arch_id in ("schnet", "nequip"):
+        specs["species"] = _meta((n,), i32)
+    if mol_batch:
+        specs["graph_id"] = _meta((n,), i32)
+        specs["targets"] = _meta((mol_batch, 1), f32)
+    else:
+        specs["targets"] = _meta((n, 1), f32)
+    return specs
+
+
+def _gnn_meta(flops: float, n: int, e: int, **extra) -> dict:
+    return {"family": "gnn", "model_flops": flops, "n_nodes": n,
+            "n_edges": e, **extra}
+
+
+def build_gnn(arch: ArchDef, shape: GNNShape, mesh: Mesh,
+              scheme: str = "baseline") -> StepBundle:
+    """The JAX package's ``build_gnn`` (``steps.py:351-411``): graph
+    parallelism over the flattened mesh (``runtime.gnn_mesh``); the
+    ``halo`` scheme is ``build_gnn_halo``, any other the baseline, as in
+    JAX."""
+    if scheme == "halo":
+        return build_gnn_halo(arch, shape, mesh)
+    ax, n_dev = _all_axes(mesh), _n_dev(mesh)
+    if shape.kind == "molecule":
+        mol = shape.mol_batch
+        e = round_to(2 * shape.n_edges * mol, n_dev)
+        n = round_to(mol * shape.n_nodes, n_dev)
+        d_feat = 16
+    elif shape.kind == "minibatch":
+        n_sub, e_sub = subgraph_sizes(shape.batch_nodes, shape.fanout)
+        n, e = round_to(n_sub, n_dev), round_to(e_sub, n_dev)
+        d_feat, mol = shape.d_feat, 0
+    else:
+        n = round_to(shape.n_nodes, n_dev)
+        e = round_to(2 * shape.n_edges, n_dev)
+        d_feat, mol = shape.d_feat, 0
+    params_like = _gnn_param_specs(arch, d_feat)
+    param_sh = tree_map(lambda _: _rep(mesh), params_like)
+    opt_like, opt_sh = _opt_like(params_like), _opt_shardings(param_sh, mesh)
+    batch = _gnn_batch_specs(arch, n, e, d_feat, mol)
+    split_targets = bool(mol) and mol % n_dev == 0
+    batch_sh = {}
+    for k, v in batch.items():
+        if k == "targets" and mol:
+            batch_sh[k] = _sh(mesh, ax, None) if split_targets \
+                else _rep(mesh)
+        elif v.dim() == 1:
+            batch_sh[k] = _sh(mesh, ax)
+        else:
+            batch_sh[k] = _sh(mesh, ax, None)
+    specs = (params_like, opt_like, batch)
+    in_sh = (param_sh, opt_sh, batch_sh)
+    name = f"{arch.arch_id}:{shape.name}"
+    ctx, mod, cfg = GM.Ctx(mesh), _GNN_MODELS[arch.arch_id], arch.config
+
+    def loss(trees, b):
+        return GM.loss(ctx, mod, cfg, trees, b, n, split_targets)
+
+    flops = 3.0 * _gnn_flops_fwd(arch, n, e, d_feat)
+    return StepBundle(
+        name=name, kind="train",
+        fn=_sharded_train_fn(ctx, in_sh, specs, name, loss),
+        specs=specs, in_shardings=in_sh,
+        out_shardings=(param_sh, opt_sh, _rep(mesh)), donate=(0, 1),
+        meta=_gnn_meta(flops, n, e))
+
+
+HALO_FRAC_PATH = "artifacts/halo_frac.json"
+
+
+def _halo_frac(shape: GNNShape) -> float:
+    """SDP's measured boundary fraction of ``shape`` from
+    ``artifacts/halo_frac.json`` (relative to the working directory, as
+    the JAX package reads it), else 0.5."""
+    frac = 0.5
+    if os.path.exists(HALO_FRAC_PATH):
+        with open(HALO_FRAC_PATH) as f:
+            frac = json.load(f).get(shape.name, {}).get("sdp", frac)
+    return frac
+
+
+def build_gnn_halo(arch: ArchDef, shape: GNNShape, mesh: Mesh,
+                   layout=None) -> StepBundle:
+    """The JAX package's ``build_gnn_halo`` (``steps.py:414-481``):
+    MeshGraphNet over SDP's blocked layout, one block a mesh entry
+    (``runtime.gnn_halo_train.mgn_halo_mesh_loss``). Sizes by JAX's rule
+    (``B_max`` from the boundary fraction of ``artifacts/halo_frac.json``,
+    else 0.5; ``H_max`` 4·frac·Nb; ``E_max`` 1.25× the mean), or, given a
+    ``layout`` (a ``graph.halo.HaloSpec`` of P = the mesh's entries), its
+    own block, publish, halo and edge sizes rounded up to 8 — a port-only
+    argument: JAX's ``H_max`` cannot hold a layout whose halo passes
+    4·B_max (twitter's at k = 8). ``models.gnn.common.fit_batch(...,
+    axis=1)`` pads a layout's batch to the bundle and raises where it
+    does not fit."""
+    if arch.arch_id != "meshgraphnet":
+        raise ValueError(f"{arch.arch_id}: the halo scheme is implemented "
+                         "for the meshgraphnet hillclimb cell")
+    if shape.kind != "full":
+        raise ValueError(f"{shape.name}: the halo scheme takes a full-graph "
+                         f"shape, not {shape.kind!r}")
+    ax, n_dev = _all_axes(mesh), _n_dev(mesh)
+    e2 = round_to(2 * shape.n_edges, n_dev)
+    if layout is None:
+        n = round_to(shape.n_nodes, n_dev)
+        nb = n // n_dev
+        e_max = round_to(int(1.25 * e2 / n_dev), 8)
+        frac = _halo_frac(shape)
+        b_max = min(nb, round_to(max(8, int(frac * nb)), 8))
+        h_max = min(8 * b_max, round_to(max(8, int(frac * nb * 4)), 8))
+    else:
+        if layout.n_shards != n_dev:
+            raise ValueError(f"a layout of {layout.n_shards} blocks on a "
+                             f"mesh of {n_dev} entries")
+        nb = layout.block_size
+        n = nb * n_dev
+        b_max = round_to(layout.publish_size, 8)
+        h_max = round_to(layout.halo_size, 8)
+        e_max = round_to(int(layout.senders.shape[1]), 8)
+        frac = layout.publish_size / nb
+    cfg, d_feat = arch.config, shape.d_feat
+    params_like = _gnn_param_specs(arch, d_feat)
+    param_sh = tree_map(lambda _: _rep(mesh), params_like)
+    opt_like, opt_sh = _opt_like(params_like), _opt_shardings(param_sh, mesh)
+    f32, i32 = torch.float32, torch.int32
+    batch = {
+        "node_feat": _meta((n_dev, nb, d_feat), f32),
+        "targets": _meta((n_dev, nb, 1), f32),
+        "node_mask": _meta((n_dev, nb), torch.bool),
+        "publish_idx": _meta((n_dev, b_max), i32),
+        "halo_map": _meta((n_dev, h_max, 2), i32),
+        "senders": _meta((n_dev, e_max), i32),
+        "receivers": _meta((n_dev, e_max), i32),
+    }
+    batch_sh = {k: _sh(mesh, ax) for k in batch}
+    specs = (params_like, opt_like, batch)
+    in_sh = (param_sh, opt_sh, batch_sh)
+    name = f"{arch.arch_id}:{shape.name}:halo"
+    ctx = GM.Ctx(mesh)
+
+    def loss(trees, b):
+        return GH.mgn_halo_mesh_loss(ctx, cfg, trees, b, nb)
+
+    flops = 3.0 * _gnn_flops_fwd(arch, n, e2, d_feat)
+    return StepBundle(
+        name=name, kind="train",
+        fn=_sharded_train_fn(ctx, in_sh, specs, name, loss),
+        specs=specs, in_shardings=in_sh,
+        out_shardings=(param_sh, opt_sh, _rep(mesh)), donate=(0, 1),
+        meta=_gnn_meta(flops, n, e2, halo_frac=frac, b_max=b_max))
+
+
+# ---------------------------------------------------------------------------
+# RecSys cells
+# ---------------------------------------------------------------------------
+
+def _recsys_param_shardings(params_like: dict, mesh: Mesh,
+                            all_axes: bool = False) -> dict:
+    """Tables row-sharded (model axis, or the whole mesh when all_axes —
+    the 'opt' scheme); towers replicated."""
+    rows = _all_axes(mesh) if all_axes else "model"
+    return SHR._map_paths(params_like, lambda p: _sh(mesh, rows, None)
+                          if "table" in p else _rep(mesh))
+
+
+def _recsys_flops_fwd(cfg: RS.TwoTowerConfig, b: int) -> float:
+    d = cfg.embed_dim
+    tower = 0.0
+    dims_u = [cfg.user_fields * d, *cfg.tower_mlp]
+    dims_i = [cfg.item_fields * d, *cfg.tower_mlp]
+    for a, bb in zip(dims_u[:-1], dims_u[1:]):
+        tower += a * bb
+    for a, bb in zip(dims_i[:-1], dims_i[1:]):
+        tower += a * bb
+    lookups = (cfg.user_fields + cfg.item_fields) * cfg.field_slots * d
+    return 2.0 * b * (tower + lookups)
+
+
+def _recsys_meta(flops: float, b: int) -> dict:
+    return {"family": "recsys", "model_flops": flops, "batch": b}
+
+
+def build_recsys(arch: ArchDef, shape: RecSysShape, mesh: Mesh,
+                 scheme: str = "baseline") -> StepBundle:
+    """The JAX package's ``build_recsys`` (``steps.py:512-598``): train,
+    retrieval and the pairwise serving cells, the tables row-sharded over
+    ``model`` (``opt``: every axis; any other scheme the baseline, as in
+    JAX), each entry running ``runtime.recsys_sharded`` on its shards."""
+    cfg: RS.TwoTowerConfig = arch.config
+    params_like = _nest({k: _meta(sh, dt)
+                         for k, (sh, dt) in RS.param_specs(cfg).items()})
+    param_sh = _recsys_param_shardings(params_like, mesh,
+                                       all_axes=scheme == "opt")
+    ctx = RSS.Ctx(mesh, cfg, "opt" if scheme == "opt" else "baseline")
+    da, ax, n_dev = SHR.batch_axes(mesh), _all_axes(mesh), _n_dev(mesh)
+    b = shape.batch
+    i32, f32 = torch.int32, torch.float32
+    name = f"{arch.arch_id}:{shape.name}"
+
+    def ids_spec(bb, fields):
+        return _meta((bb, fields, cfg.field_slots), i32)
+
+    if shape.kind == "train":
+        batch = {"user_ids": ids_spec(b, cfg.user_fields),
+                 "item_ids": ids_spec(b, cfg.item_fields),
+                 "log_q": _meta((b,), f32)}
+        batch_sh = {"user_ids": _sh(mesh, da, None, None),
+                    "item_ids": _sh(mesh, da, None, None),
+                    "log_q": _sh(mesh, da)}
+        opt_sh = _opt_shardings(param_sh, mesh)
+        specs = (params_like, _opt_like(params_like), batch)
+        in_sh = (param_sh, opt_sh, batch_sh)
+
+        def loss(trees, bt):
+            return RSS.loss(ctx, trees, bt, b)
+
+        flops = 3.0 * (_recsys_flops_fwd(cfg, b)
+                       + 2.0 * b * b * cfg.tower_mlp[-1])
+        return StepBundle(
+            name=name, kind="train",
+            fn=_sharded_train_fn(ctx, in_sh, specs, name, loss),
+            specs=specs, in_shardings=in_sh,
+            out_shardings=(param_sh, opt_sh, _rep(mesh)), donate=(0, 1),
+            meta=_recsys_meta(flops, b))
+
+    def serve_fn(in_sh, specs, out_sh, out_shape, run):
+        def step(params, batch):
+            _check_args((params, batch), in_sh, specs, name)
+            shards = {k: list(v.shards) for k, v in batch.items()}
+            with torch.no_grad():
+                out = run(_entry_trees(params, ctx.n), shards)
+            return _placed(out_sh, out_shape, out)
+        return step
+
+    if shape.kind == "retrieval":
+        nc = shape.n_candidates
+        batch = {"user_ids": ids_spec(b, cfg.user_fields),
+                 "cand_item_emb": _meta((nc, cfg.tower_mlp[-1]), f32)}
+        batch_sh = {"user_ids": _rep(mesh),
+                    "cand_item_emb": _sh(mesh, ax, None)}
+        specs, in_sh = (params_like, batch), (param_sh, batch_sh)
+        out_sh = _sh(mesh, None, ax)
+        flops = _recsys_flops_fwd(cfg, b) + 2.0 * b * nc * cfg.tower_mlp[-1]
+        return StepBundle(
+            name=name, kind="serve",
+            fn=serve_fn(in_sh, specs, out_sh, (b, nc),
+                        lambda p, bt: RSS.score_candidates(ctx, p, bt)),
+            specs=specs, in_shardings=in_sh, out_shardings=out_sh,
+            donate=(), meta=_recsys_meta(flops, b))
+
+    # serve_p99 / serve_bulk: pairwise scores
+    wide = b % n_dev == 0
+    id_axes = ax if wide else (da if b % _n_dp(mesh) == 0 else ())
+    bsh = _sh(mesh, id_axes) if id_axes else _rep(mesh)
+    id_sh = _sh(mesh, id_axes, None, None) if id_axes else _rep(mesh)
+    batch = {"user_ids": ids_spec(b, cfg.user_fields),
+             "item_ids": ids_spec(b, cfg.item_fields)}
+    batch_sh = {"user_ids": id_sh, "item_ids": id_sh}
+    specs, in_sh = (params_like, batch), (param_sh, batch_sh)
+    return StepBundle(
+        name=name, kind="serve",
+        fn=serve_fn(in_sh, specs, bsh, (b,),
+                    lambda p, bt: RSS.serve_score(ctx, p, bt, id_axes)),
+        specs=specs, in_shardings=in_sh, out_shardings=bsh, donate=(),
+        meta=_recsys_meta(_recsys_flops_fwd(cfg, b), b))
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
 def build_step(arch_id: str, shape_name: str, mesh: Mesh,
                scheme: str = "baseline") -> StepBundle:
-    """The bundle of one (arch x shape) cell on ``mesh``: the LM cells
-    (``build_lm``); a skip-marked cell raises, as in JAX, and so do the GNN
-    and recsys cells, whose builders are not ported yet."""
+    """The bundle of one (arch x shape) cell on ``mesh``; a skip-marked
+    cell raises, as in JAX."""
     arch = get_arch(arch_id)
     shape = arch.shapes[shape_name]
     if shape_name in arch.skip_shapes:
@@ -508,7 +826,6 @@ def build_step(arch_id: str, shape_name: str, mesh: Mesh,
             f"{arch.skip_shapes[shape_name]}")
     if arch.family == "lm":
         return build_lm(arch, shape, mesh, scheme)
-    what = ("build_gnn and build_gnn_halo" if arch.family == "gnn"
-            else "build_recsys")
-    raise ValueError(f"{arch_id}:{shape_name}: the {arch.family} bundles "
-                     f"({what}) are not ported yet (ROADMAP A18.4, {what})")
+    if arch.family == "gnn":
+        return build_gnn(arch, shape, mesh, scheme)
+    return build_recsys(arch, shape, mesh, scheme)

@@ -19,6 +19,13 @@ run to run at twitter's size, as much as two partition layouts differ
 or nearly, so its order no longer shows after the rounding: there the
 dense model's step repeated bit for bit, and the SDP, hash and dense
 layouts agreed within 6e-7.
+
+Every model's ``apply`` reaches its edges through a graph object:
+``Local`` here, one device's whole graph, or the mesh program's
+(``runtime.gnn_mesh.Graph``: every value a list of per-entry tensors, a
+node tensor split over the entries and read at edge endpoints through an
+all-gather, segment sums reduce-scattered). The model writes its local
+math once, as functions ``graph.map`` applies to each entry's values.
 """
 from __future__ import annotations
 
@@ -107,6 +114,39 @@ def in_degree(receivers, n: int):
     return segment_sum_pad(ones, receivers, n)[:, 0]
 
 
+class Local:
+    """One device's graph of ``n`` nodes: every value one tensor."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def map(self, fn, *xs):
+        """``fn`` on the values (the mesh applies it to each entry's)."""
+        return fn(*xs)
+
+    def gather(self, x, *idxs) -> tuple:
+        """Node rows ``x`` read at each edge index set (-1 reads row 0)."""
+        return tuple(gather_src(x, i) for i in idxs)
+
+    def sum(self, data, seg_ids):
+        return segment_sum_pad(data, seg_ids, self.n)
+
+    def mean(self, data, seg_ids):
+        return segment_mean_pad(data, seg_ids, self.n)
+
+    def max(self, data, seg_ids, fill):
+        return segment_max_pad(data, seg_ids, self.n, fill=fill)
+
+    def min(self, data, seg_ids, fill):
+        return segment_min_pad(data, seg_ids, self.n, fill=fill)
+
+    def degree(self, receivers):
+        return in_degree(receivers, self.n)
+
+    def loss(self, per_node, batch):
+        return readout_loss(per_node, batch)
+
+
 # --------------------------------------------------------------------------
 # radial bases (schnet / nequip)
 # --------------------------------------------------------------------------
@@ -130,10 +170,17 @@ def bessel_rbf(d, n_rbf: int, cutoff: float):
     return basis * env[:, None]
 
 
-def edge_vectors(positions, senders, receivers):
-    """(vec (E,3), dist (E,), unit (E,3)) with -1-padded edges zeroed."""
+def edge_vectors(positions, senders, receivers, graph=None):
+    """(vec (E,3), dist (E,), unit (E,3)) with -1-padded edges zeroed;
+    ``graph`` the positions' graph (default: ``Local`` of their rows)."""
+    g = graph or Local(positions.shape[0])
+    at_rcv, at_snd = g.gather(positions, receivers, senders)
+    return g.map(_edge_geometry, at_rcv, at_snd, senders, receivers)
+
+
+def _edge_geometry(at_rcv, at_snd, senders, receivers):
     mask = (senders >= 0) & (receivers >= 0)
-    vec = gather_src(positions, receivers) - gather_src(positions, senders)
+    vec = at_rcv - at_snd
     vec = torch.where(mask[:, None], vec, 0.0)
     dist = torch.linalg.vector_norm(vec + 1e-12, dim=-1)
     unit = vec / torch.clamp(dist, min=1e-6)[:, None]
@@ -163,6 +210,30 @@ def graph_to_batch(g: Graph, d_feat: int, *, seed: int = 0,
         batch["positions"] = rng.standard_normal((g.n, 3)).astype(dtype)
         batch["species"] = rng.integers(0, 16, g.n).astype(np.int32)
     return batch
+
+
+INDEX_LEAVES = ("senders", "receivers", "graph_id", "publish_idx", "halo_map")
+
+
+def fit_batch(batch: dict, specs: dict, axis: int = 0) -> dict:
+    """A numpy batch padded along ``axis`` (its rows: nodes, edges,
+    molecules; a halo batch's axis 1 within each block) to a step bundle's
+    batch ``specs``: ``INDEX_LEAVES`` with -1, the rest with 0
+    (``node_mask`` False). Raises where a leaf has more rows than its spec
+    or differs on another axis: a batch is never cut."""
+    out = {}
+    for k, sp in specs.items():
+        x = np.asarray(batch[k])
+        want = tuple(sp.shape)
+        if x.ndim != len(want) or x.shape[axis] > want[axis] or \
+                x.shape[:axis] + x.shape[axis + 1:] \
+                != want[:axis] + want[axis + 1:]:
+            raise ValueError(f"the batch's {k} {x.shape} does not fit the "
+                             f"bundle's {want}")
+        pad = np.full(want, -1 if k in INDEX_LEAVES else 0, dtype=x.dtype)
+        pad[(slice(None),) * axis + (slice(0, x.shape[axis]),)] = x
+        out[k] = pad
+    return out
 
 
 def batch_molecules(n_mol: int, n_nodes: int, n_edges: int, *, seed: int = 0,

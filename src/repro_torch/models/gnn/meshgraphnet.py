@@ -80,25 +80,28 @@ def params_from_jax(np_params: dict, cfg: MGNConfig, d_node: int,
                                cfg.name, resolve_device(device))
 
 
-def edge_features(batch: dict, like):
-    """The mesh edge features: relative position and length where the
-    batch has positions, else ones."""
+def edge_features(batch: dict, like, g):
+    """The mesh edge features on graph ``g``: relative position and length
+    where the batch has positions, else ones."""
     if "edge_feat" in batch:
         return batch["edge_feat"]
     snd = batch["senders"]
     if "positions" in batch:
         vec, dist, _ = C.edge_vectors(batch["positions"], snd,
-                                      batch["receivers"])
-        return torch.cat([vec, dist[:, None]], dim=-1)
-    return torch.ones(tuple(snd.shape) + (4,), dtype=like.dtype,
-                      device=like.device)
+                                      batch["receivers"], g)
+        return g.map(lambda v, d: torch.cat([v, d[:, None]], dim=-1), vec,
+                     dist)
+    return g.map(lambda s, x: torch.ones(tuple(s.shape) + (4,),
+                                         dtype=x.dtype, device=x.device),
+                 snd, like)
 
 
-def run_layers(step, params, cfg: MGNConfig, h, e):
-    """The processor: ``step(lp, h, e) -> (h, e)`` over the stacked layers,
-    each under ``checkpoint`` when ``cfg.remat`` and autograd records."""
+def run_layers(step, params, cfg: MGNConfig, h, e, g):
+    """The processor on graph ``g``: ``step(lp, h, e) -> (h, e)`` over the
+    stacked layers, each under ``checkpoint`` when ``cfg.remat`` and
+    autograd records."""
     for i in range(cfg.n_layers):
-        lp = L.layer_slice(params["proc"], i)
+        lp = g.map(lambda p: L.layer_slice(p["proc"], i), params)
         if cfg.remat and torch.is_grad_enabled():
             h, e = checkpoint(step, lp, h, e, use_reentrant=False)
         else:
@@ -106,26 +109,37 @@ def run_layers(step, params, cfg: MGNConfig, h, e):
     return h
 
 
-def apply(params, batch, cfg: MGNConfig):
-    """→ node outputs (N, out_dim)."""
-    snd, rcv = batch["senders"], batch["receivers"]
-    n = batch["node_feat"].shape[0]
-    emask = (snd >= 0)[:, None]
+def _edge_update(lp, e, hs, hr, emask):
+    e_new = _block(lp["edge"], torch.cat([e, hs, hr], -1))
+    return e + torch.where(emask, e_new, 0.0)
 
-    h = _block(params["enc_node"], batch["node_feat"])
-    e = _block(params["enc_edge"], edge_features(batch, h))
+
+def _node_update(lp, h, agg):
+    return h + _block(lp["node"], torch.cat([h, agg], -1))
+
+
+def apply(params, batch, cfg: MGNConfig, graph=None):
+    """→ node outputs (N, out_dim). ``graph``: ``common.Local`` of the
+    batch's nodes by default, or the mesh program's."""
+    g = graph or C.Local(batch["node_feat"].shape[0])
+    snd, rcv = batch["senders"], batch["receivers"]
+    emask = g.map(lambda s: (s >= 0)[:, None], snd)
+
+    h = g.map(lambda p, x: _block(p["enc_node"], x), params,
+              batch["node_feat"])
+    e = g.map(lambda p, x: _block(p["enc_edge"], x), params,
+              edge_features(batch, h, g))
 
     def step(lp, h, e):
-        hs, hr = C.gather_src(h, snd), C.gather_src(h, rcv)
-        e_new = _block(lp["edge"], torch.cat([e, hs, hr], -1))
-        e = e + torch.where(emask, e_new, 0.0)
-        agg = C.segment_sum_pad(e, rcv, n)
-        h_new = _block(lp["node"], torch.cat([h, agg], -1))
-        return h + h_new, e
+        hs, hr = g.gather(h, snd, rcv)
+        e = g.map(_edge_update, lp, e, hs, hr, emask)
+        agg = g.sum(e, rcv)
+        return g.map(_node_update, lp, h, agg), e
 
-    h = run_layers(step, params, cfg, h, e)
-    return L.mlp_apply(params["dec"]["mlp"], h)
+    h = run_layers(step, params, cfg, h, e, g)
+    return g.map(lambda p, x: L.mlp_apply(p["dec"]["mlp"], x), params, h)
 
 
-def loss_fn(params, batch, cfg: MGNConfig):
-    return C.readout_loss(apply(params, batch, cfg), batch)
+def loss_fn(params, batch, cfg: MGNConfig, graph=None):
+    g = graph or C.Local(batch["node_feat"].shape[0])
+    return g.loss(apply(params, batch, cfg, g), batch)

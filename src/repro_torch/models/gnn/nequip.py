@@ -91,49 +91,60 @@ def spherical_harmonics(unit, l_max: int) -> dict:
     return sh
 
 
-def apply(params, batch, cfg: NequIPConfig):
+def _gate(l: int, feat, mixed):
+    if l == 0:
+        return feat + F.silu(mixed)
+    # norm gate keeps equivariance
+    norm = torch.sqrt(torch.sum(mixed * mixed, dim=-1, keepdim=True))
+    gate = torch.sigmoid(norm - 1.0)
+    return feat + mixed * gate
+
+
+def apply(params, batch, cfg: NequIPConfig, graph=None):
     """→ per-node invariant outputs (N, out_dim)."""
+    g = graph or C.Local(batch["species"].shape[0])
     snd, rcv = batch["senders"], batch["receivers"]
-    n = batch["species"].shape[0]
     c = cfg.channels
     paths = so3.paths(cfg.l_max)
-    dev, dt = snd.device, params["embed"].dtype
 
-    _, dist, unit = C.edge_vectors(batch["positions"], snd, rcv)
-    rbf = C.bessel_rbf(dist, cfg.n_rbf, cfg.cutoff)          # (E, R)
-    emask = (snd >= 0).to(dt)
-    sh = spherical_harmonics(unit, cfg.l_max)
-    cg = {p: torch.as_tensor(so3.clebsch_gordan(*p), dtype=dt, device=dev)
-          for p in paths}
+    _, dist, unit = C.edge_vectors(batch["positions"], snd, rcv, g)
+    rbf = g.map(lambda d: C.bessel_rbf(d, cfg.n_rbf, cfg.cutoff),
+                dist)                                        # (E, R)
+    emask = g.map(lambda s, p: (s >= 0).to(p["embed"].dtype), snd, params)
+    sh = g.map(lambda u: spherical_harmonics(u, cfg.l_max), unit)
+    cg = g.map(lambda p: {pa: torch.as_tensor(
+        so3.clebsch_gordan(*pa), dtype=p["embed"].dtype,
+        device=p["embed"].device) for pa in paths}, params)
 
-    feats = {0: params["embed"][batch["species"].long()][..., None]}
+    feats = {0: g.map(lambda p, s: p["embed"][s.long()][..., None], params,
+                      batch["species"])}
     for l in range(1, cfg.l_max + 1):
-        feats[l] = torch.zeros((n, c, 2 * l + 1), dtype=dt, device=dev)
+        feats[l] = g.map(lambda p, s: torch.zeros(
+            (s.shape[0], c, 2 * l + 1), dtype=p["embed"].dtype,
+            device=s.device), params, batch["species"])
 
     for i in range(cfg.n_layers):
-        lp = L.layer_slice(params["layers"], i)
-        radial = L.mlp_apply(lp["radial"], rbf, act=F.silu)   # (E, P*c)
-        radial = radial.reshape(radial.shape[0], len(paths), c)
+        lp = g.map(lambda p: L.layer_slice(p["layers"], i), params)
+        radial = g.map(lambda p, r: L.mlp_apply(p["radial"], r, act=F.silu)
+                       .reshape(r.shape[0], len(paths), c),
+                       lp, rbf)                              # (E, P, c)
+        # each l1's features read at the senders once, for all its paths
+        xj = {l1: g.gather(feats[l1], snd)[0]
+              for l1 in sorted({p[0] for p in paths})}       # (E,c,2l1+1)
         msgs = {l: [] for l in range(cfg.l_max + 1)}
         for pi, (l1, l2, l3) in enumerate(paths):
-            xj = C.gather_src(feats[l1], snd)                  # (E,c,2l1+1)
-            m = torch.einsum("eci,ej,ijn->ecn", xj, sh[l2], cg[(l1, l2, l3)])
-            m = m * radial[:, pi, :, None] * emask[:, None, None]
-            msgs[l3].append(C.segment_sum_pad(m, rcv, n))      # (N,c,2l3+1)
-        new = {}
-        for l in range(cfg.l_max + 1):
-            stack = torch.cat(msgs[l], dim=1)                  # (N,P_l*c,d)
-            mixed = torch.einsum("npd,pc->ncd", stack, lp[f"mix{l}"])
-            if l == 0:
-                new[l] = feats[0] + F.silu(mixed)
-            else:  # norm gate keeps equivariance
-                norm = torch.sqrt(torch.sum(mixed * mixed, dim=-1,
-                                            keepdim=True))
-                gate = torch.sigmoid(norm - 1.0)
-                new[l] = feats[l] + mixed * gate
-        feats = new
-    return L.mlp_apply(params["head"], feats[0][..., 0], act=F.silu)
+            m = g.map(lambda x, s, cgs, r, em: torch.einsum(
+                "eci,ej,ijn->ecn", x, s[l2], cgs[(l1, l2, l3)])
+                * r[:, pi, :, None] * em[:, None, None],
+                xj[l1], sh, cg, radial, emask)
+            msgs[l3].append(g.sum(m, rcv))                   # (N,c,2l3+1)
+        feats = {l: g.map(lambda p, f, *ms: _gate(l, f, torch.einsum(
+            "npd,pc->ncd", torch.cat(ms, dim=1), p[f"mix{l}"])),
+            lp, feats[l], *msgs[l]) for l in range(cfg.l_max + 1)}
+    return g.map(lambda p, f: L.mlp_apply(p["head"], f[..., 0], act=F.silu),
+                 params, feats[0])
 
 
-def loss_fn(params, batch, cfg: NequIPConfig):
-    return C.readout_loss(apply(params, batch, cfg), batch)
+def loss_fn(params, batch, cfg: NequIPConfig, graph=None):
+    g = graph or C.Local(batch["species"].shape[0])
+    return g.loss(apply(params, batch, cfg, g), batch)

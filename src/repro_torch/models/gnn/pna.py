@@ -65,47 +65,58 @@ def params_from_jax(np_params: dict, cfg: PNAConfig, d_node: int, *,
                                resolve_device(device))
 
 
-def apply(params, batch, cfg: PNAConfig):
-    snd, rcv = batch["senders"], batch["receivers"]
-    n = batch["node_feat"].shape[0]
-    emask = (snd >= 0)[:, None]
-    h = L.mlp_apply(params["enc"], batch["node_feat"])
-
-    deg = C.in_degree(rcv, n)                               # (N,)
+def _scalers(deg, cfg: PNAConfig) -> dict:
     logd = torch.log(deg + 1.0)
-    scal = {
+    return {
         "identity": torch.ones_like(logd),
         "amplification": logd / cfg.delta,
         "attenuation": cfg.delta / torch.clamp(logd, min=1e-3),
     }
 
-    for i in range(cfg.n_layers):
-        lp = L.layer_slice(params["layers"], i)
-        hs, hr = C.gather_src(h, snd), C.gather_src(h, rcv)
+
+def apply(params, batch, cfg: PNAConfig, graph=None):
+    g = graph or C.Local(batch["node_feat"].shape[0])
+    snd, rcv = batch["senders"], batch["receivers"]
+    emask = g.map(lambda s: (s >= 0)[:, None], snd)
+    h = g.map(lambda p, x: L.mlp_apply(p["enc"], x), params,
+              batch["node_feat"])
+    scal = g.map(lambda d: _scalers(d, cfg), g.degree(rcv))
+
+    def message(lp, hs, hr, m):
         msg = L.mlp_apply(lp["pre"], torch.cat([hs, hr], -1))
-        msg = torch.where(emask, msg, 0.0)
+        return torch.where(m, msg, 0.0)
+
+    def update(lp, h, sc, *aggs):
+        z = torch.cat([h] + [a * sc[s][:, None] for a in aggs
+                             for s in cfg.scalers], dim=-1)
+        return h + L.mlp_apply(lp["post"], z)
+
+    for i in range(cfg.n_layers):
+        lp = g.map(lambda p: L.layer_slice(p["layers"], i), params)
+        hs, hr = g.gather(h, snd, rcv)
+        msg = g.map(message, lp, hs, hr, emask)
+        mean = g.mean(msg, rcv)
         aggs = []
-        mean = C.segment_mean_pad(msg, rcv, n)
         for a in cfg.aggregators:
             if a == "mean":
                 agg = mean
             elif a == "max":
-                agg = C.segment_max_pad(
-                    torch.where(emask, msg, -torch.inf), rcv, n, fill=0.0)
+                agg = g.max(g.map(lambda x, m: torch.where(m, x, -torch.inf),
+                                  msg, emask), rcv, 0.0)
             elif a == "min":
-                agg = C.segment_min_pad(
-                    torch.where(emask, msg, torch.inf), rcv, n, fill=0.0)
+                agg = g.min(g.map(lambda x, m: torch.where(m, x, torch.inf),
+                                  msg, emask), rcv, 0.0)
             elif a == "std":
-                sq = C.segment_mean_pad(msg**2, rcv, n)
-                agg = torch.sqrt(torch.clamp(sq - mean**2, min=0.0) + 1e-8)
+                sq = g.mean(g.map(lambda x: x**2, msg), rcv)
+                agg = g.map(lambda s, m: torch.sqrt(
+                    torch.clamp(s - m**2, min=0.0) + 1e-8), sq, mean)
             else:
                 raise ValueError(a)
-            for s in cfg.scalers:
-                aggs.append(agg * scal[s][:, None])
-        z = torch.cat([h] + aggs, dim=-1)
-        h = h + L.mlp_apply(lp["post"], z)
-    return L.mlp_apply(params["dec"], h)
+            aggs.append(agg)
+        h = g.map(update, lp, h, scal, *aggs)
+    return g.map(lambda p, x: L.mlp_apply(p["dec"], x), params, h)
 
 
-def loss_fn(params, batch, cfg: PNAConfig):
-    return C.readout_loss(apply(params, batch, cfg), batch)
+def loss_fn(params, batch, cfg: PNAConfig, graph=None):
+    g = graph or C.Local(batch["node_feat"].shape[0])
+    return g.loss(apply(params, batch, cfg, g), batch)

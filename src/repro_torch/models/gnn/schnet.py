@@ -64,26 +64,34 @@ def params_from_jax(np_params: dict, cfg: SchNetConfig, *, device) -> dict:
                                resolve_device(device))
 
 
-def apply(params, batch, cfg: SchNetConfig):
+def _interaction(lp, x, agg):
+    v = shifted_softplus(L.dense(lp["out1"], agg))
+    return x + L.dense(lp["out2"], v)
+
+
+def apply(params, batch, cfg: SchNetConfig, graph=None):
     """→ per-node outputs (N, out_dim); caller may graph-readout."""
+    g = graph or C.Local(batch["species"].shape[0])
     snd, rcv = batch["senders"], batch["receivers"]
-    n = batch["species"].shape[0]
-    _, dist, _ = C.edge_vectors(batch["positions"], snd, rcv)
-    rbf = C.gaussian_rbf(dist, cfg.n_rbf, cfg.cutoff)        # (E, R)
-    emask = (snd >= 0)[:, None]
+    _, dist, _ = C.edge_vectors(batch["positions"], snd, rcv, g)
+    rbf = g.map(lambda d: C.gaussian_rbf(d, cfg.n_rbf, cfg.cutoff),
+                dist)                                        # (E, R)
+    emask = g.map(lambda s: (s >= 0)[:, None], snd)
 
-    x = params["embed"][batch["species"].long()]             # (N, h)
+    x = g.map(lambda p, s: p["embed"][s.long()], params,
+              batch["species"])                              # (N, h)
     for i in range(cfg.n_interactions):
-        lp = L.layer_slice(params["inter"], i)
-        w = L.mlp_apply(lp["filter"], rbf, act=shifted_softplus,
-                        final_act=True)                      # (E, h)
-        xj = C.gather_src(L.dense(lp["in"], x), snd)
-        msg = torch.where(emask, xj * w, 0.0)
-        agg = C.segment_sum_pad(msg, rcv, n)
-        v = shifted_softplus(L.dense(lp["out1"], agg))
-        x = x + L.dense(lp["out2"], v)
-    return L.mlp_apply(params["head"], x, act=shifted_softplus)
+        lp = g.map(lambda p: L.layer_slice(p["inter"], i), params)
+        w = g.map(lambda p, r: L.mlp_apply(p["filter"], r,
+                                           act=shifted_softplus,
+                                           final_act=True), lp, rbf)
+        (xj,) = g.gather(g.map(lambda p, v: L.dense(p["in"], v), lp, x), snd)
+        msg = g.map(lambda a, b, m: torch.where(m, a * b, 0.0), xj, w, emask)
+        x = g.map(_interaction, lp, x, g.sum(msg, rcv))
+    return g.map(lambda p, v: L.mlp_apply(p["head"], v,
+                                          act=shifted_softplus), params, x)
 
 
-def loss_fn(params, batch, cfg: SchNetConfig):
-    return C.readout_loss(apply(params, batch, cfg), batch)
+def loss_fn(params, batch, cfg: SchNetConfig, graph=None):
+    g = graph or C.Local(batch["species"].shape[0])
+    return g.loss(apply(params, batch, cfg, g), batch)

@@ -25,7 +25,20 @@ overwrites).
 * ``copy_to(xs, mesh, axes)`` — Megatron's "copy": the identity forward,
   an all-reduce of the gradients backward. A replicated parameter's
   copies pass through it, so each copy's gradient is the sum of every
-  copy's, as GSPMD all-reduces a replicated parameter's gradient.
+  copy's, as GSPMD all-reduces a replicated parameter's gradient;
+* ``all_gather_rows(xs, mesh, axes, *idxs)`` — row blocks all-gathered
+  once and read at each index set (a sharded node tensor read at edge
+  endpoints); backward each entry scatter-adds its gradients in f64 and
+  the partials are reduce-scattered in f64, rounded once;
+* ``reduce_scatter_segments(xs, mesh, axes, segs, n)`` — each entry's
+  rows summed into ``n`` segments in f64 (``seg`` -1 dropped), the
+  partials reduce-scattered in f64 and rounded once: each rank's block
+  of the segment sums; backward an all-gather of the gradient read at
+  the segment ids.
+
+The last two keep the port's GNN sums in f64 across entries, as
+``models.gnn.common`` keeps them on one card: a sum split over entries
+is then the one-card sum rounded once, up to f64's own rounding.
 
 Each is a ``torch.autograd.Function`` whose backward is its adjoint: the
 adjoint of ``all_gather`` is ``reduce_scatter`` (where FSDP's
@@ -46,6 +59,7 @@ device's result and ``g`` the group's size: all-gather ``nbytes (g - 1) /
 g``, all-reduce ``2 nbytes (g - 1) / g``, reduce-scatter ``nbytes (g -
 1)``, all-to-all ``nbytes (g - 1) / g``. They are the port's stand-in for
 what the JAX package reads from a compiled step's HLO.
+
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ import torch
 from repro_torch.launch.mesh import Mesh
 
 OPS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
+
 
 _WIRE: dict = {op: defaultdict(float) for op in OPS}
 
@@ -283,6 +298,73 @@ class _CopyTo(torch.autograd.Function):
         return (None, None, *_reduce(_grads(ctx, gs), mesh, axes))
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, k, *args):
+        n = len(mesh.devices)
+        idxs = [args[i * n:(i + 1) * n] for i in range(k)]
+        xs = args[k * n:]
+        full = _gather(xs, mesh, axes, 0)
+        outs = [full[e].index_select(0, idx[e]) for idx in idxs
+                for e in range(n)]
+        ctx.args = (mesh, axes, k, [x.dtype for x in xs])
+        ctx.rows = [tuple(f.shape) for f in full]
+        ctx.save_for_backward(*args[:k * n])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, k, dtypes = ctx.args
+        n = len(mesh.devices)
+        idxs = ctx.saved_tensors
+        parts = []
+        for e in range(n):
+            part = torch.zeros(ctx.rows[e], dtype=torch.float64,
+                               device=mesh.devices[e])
+            for i in range(k):
+                g = gs[i * n + e]
+                if g is not None:
+                    part.index_add_(0, idxs[i * n + e], g.double())
+            parts.append(part)
+        outs = _scatter(parts, mesh, axes, 0)
+        return (None, None, None, *([None] * (k * n)),
+                *(o.to(dt) for o, dt in zip(outs, dtypes)))
+
+
+def _dump_ids(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Segment ids with -1 sent to the dump row ``n``, as int64."""
+    return torch.where(seg >= 0, seg, n).long()
+
+
+class _ReduceScatterSegments(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, n_seg, *args):
+        n = len(mesh.devices)
+        segs, xs = args[:n], args[n:]
+        parts = []
+        for seg, x in zip(segs, xs):
+            part = torch.zeros((n_seg + 1,) + tuple(x.shape[1:]),
+                               dtype=torch.float64, device=x.device)
+            part.index_add_(0, _dump_ids(seg, n_seg), x.double())
+            parts.append(part[:n_seg])
+        outs = [o.to(x.dtype) for o, x in zip(_scatter(parts, mesh, axes, 0),
+                                                xs)]
+        ctx.save_for_backward(*segs)
+        return _saved(ctx, (mesh, axes, n_seg), outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, n_seg = ctx.args
+        segs = ctx.saved_tensors
+        full = _gather([g.contiguous() for g in _grads(ctx, gs)], mesh, axes,
+                       0)
+        outs = []
+        for f, seg in zip(full, segs):
+            pad = torch.cat([f, f.new_zeros((1,) + tuple(f.shape[1:]))])
+            outs.append(pad.index_select(0, _dump_ids(seg, n_seg)))
+        return (None, None, None, *([None] * len(segs)), *outs)
+
+
 def _apply(fn, mesh, what, xs, axes, *args):
     """``fn`` on ``xs`` (autograd records nothing where no tensor needs a
     gradient)."""
@@ -319,3 +401,35 @@ def all_to_all(xs, mesh: Mesh, axes, split_dim: int,
 
 def copy_to(xs, mesh: Mesh, axes) -> list:
     return _apply(_CopyTo, mesh, "copy_to", xs, axes)
+
+
+def all_gather_rows(xs, mesh: Mesh, axes, *idxs) -> tuple:
+    """Each entry's rows of the all-gathered ``xs`` (dim 0, rank order) at
+    each of ``idxs`` (per-entry int64 row indices in range): one list per
+    index set. One all-gather forward; backward each entry's gradients
+    scatter-added in f64, the partials reduce-scattered in f64 and
+    rounded once to the rows' dtype."""
+    xs, n = list(xs), len(mesh.devices)
+    _check(xs, mesh, "all_gather_rows")
+    axes = _axes(axes)
+    groups(mesh, axes)
+    flat = []
+    for idx in idxs:
+        idx = list(idx)
+        _check(idx, mesh, "all_gather_rows (indices)")
+        flat += idx
+    outs = _GatherRows.apply(mesh, axes, len(idxs), *flat, *xs)
+    return tuple(list(outs[i * n:(i + 1) * n]) for i in range(len(idxs)))
+
+
+def reduce_scatter_segments(xs, mesh: Mesh, axes, segs, n_seg: int) -> list:
+    """Each rank's block of the ``n_seg`` segment sums of every entry's
+    rows ``xs`` at segment ids ``segs`` (-1 dropped): f64 partials,
+    reduce-scattered in f64 over ``axes`` and rounded once to the rows'
+    dtype."""
+    xs, segs = list(xs), list(segs)
+    _check(xs, mesh, "reduce_scatter_segments")
+    _check(segs, mesh, "reduce_scatter_segments (segment ids)")
+    axes = _axes(axes)
+    groups(mesh, axes)
+    return list(_ReduceScatterSegments.apply(mesh, axes, n_seg, *segs, *xs))

@@ -4,11 +4,22 @@
 The SDP assignment blocks nodes per shard (``repro_torch.graph.halo``),
 and each message-passing layer reads remote senders only through the
 published boundary rows, whose volume is proportional to the edge-cut SDP
-minimises. All P blocks are stacked on one device (``gnn_sharded``): the
-JAX package's two ``psum``s of the loss become sums over the stacked
-blocks, and autograd over all of them gives the summed gradients that
-``shard_map``'s transpose inserts there. Blocks on distinct cards come
-with the training mesh (ROADMAP A18.4).
+minimises. Two programs run it:
+
+* **stacked** (``mgn_halo_local_loss``): all P blocks on one device
+  (``gnn_sharded``); the JAX package's two ``psum``s of the loss become
+  sums over the stacked blocks, and autograd over all of them gives the
+  summed gradients that ``shard_map``'s transpose inserts there;
+* **on the mesh** (``mgn_halo_mesh_loss``, ``launch.steps.
+  build_gnn_halo``'s step): one block per mesh entry, entry ``i`` holding
+  block ``i`` of the ``(P, ...)`` batch leaves. A layer's exchange is one
+  ``all_gather`` of each entry's ``(B_max, F)`` published rows over every
+  axis (``collectives.all_gather_rows``, whose backward reduce-scatters
+  the gradient sums that ``shard_map``'s transpose inserts), each entry
+  reading its halo rows from the gathered ``(P·B_max, F)``; segment sums
+  stay within the block; the loss's numerator and denominator are summed
+  over every axis. MeshGraphNet's ``apply`` runs on it through
+  :class:`HaloGraph`.
 """
 from __future__ import annotations
 
@@ -19,7 +30,11 @@ from repro_torch.graph.halo import scatter_nodes
 
 from repro_torch.models import layers as L
 from repro_torch.models.gnn import common as C
+from repro_torch.models.gnn import meshgraphnet as MGN
 from repro_torch.models.gnn.meshgraphnet import MGNConfig, _block, run_layers
+from repro_torch.runtime import collectives as CL
+from repro_torch.runtime import gnn_mesh as GM
+from repro_torch.runtime.mesh_ctx import MeshCtx, local_params
 from repro_torch.runtime.gnn_sharded import exchange, halo_index
 
 
@@ -53,7 +68,7 @@ def mgn_halo_local_loss(params, batch, cfg: MGNConfig, *, block_size: int):
         h_new = _block(lp["node"], torch.cat([h, agg], -1))
         return h + h_new, e
 
-    h = run_layers(step, params, cfg, h, e)
+    h = run_layers(step, params, cfg, h, e, C.Local(p * nb))
     pred = L.mlp_apply(params["dec"]["mlp"], h)
 
     mask = batch["node_mask"].reshape(-1, 1).float()
@@ -85,3 +100,53 @@ def halo_batch(spec, node_feat, targets, node_mask=None) -> dict:
             "node_mask": scatter_nodes(spec, mask, fill=False),
             "publish_idx": spec.publish_idx, "halo_map": spec.halo_map,
             "senders": spec.senders, "receivers": spec.receivers}
+
+
+class HaloGraph(GM.MeshGraph):
+    """MeshGraphNet's graph over the blocked layout on the mesh: entry
+    ``i`` holds block ``i``; a node tensor is read at its edges' senders
+    in ``[own block ++ halo]`` after the exchange, and summed into the
+    block's own rows (``batch``: each leaf's per-entry block, its leading
+    dim of one dropped)."""
+
+    def __init__(self, ctx: MeshCtx, batch: dict, block_size: int):
+        super().__init__(ctx, block_size * ctx.n)
+        self.nb = block_size
+        b_max = batch["publish_idx"][0].shape[0]
+        self.pub = [torch.clamp(p, min=0).long() for p in batch["publish_idx"]]
+        self.pub_ok = [(p >= 0)[:, None] for p in batch["publish_idx"]]
+        self.halo = [(torch.clamp(m[:, 0], min=0) * b_max
+                      + torch.clamp(m[:, 1], min=0)).long()
+                     for m in batch["halo_map"]]
+        self.halo_ok = [(m[:, 0] >= 0)[:, None] for m in batch["halo_map"]]
+
+    def exchange(self, x: list) -> list:
+        """Each entry's ``[own block ++ halo rows]``."""
+        pub = [torch.where(ok, C.gather_rows(h, i), 0.0)
+               for h, i, ok in zip(x, self.pub, self.pub_ok)]
+        (halo,) = CL.all_gather_rows(pub, self.mesh, self.axes, self.halo)
+        return [torch.cat([h, torch.where(ok, r, 0.0)])
+                for h, r, ok in zip(x, halo, self.halo_ok)]
+
+    def gather(self, x, *idxs) -> tuple:
+        buf = self.exchange(x)
+        return tuple([C.gather_src(b, i) for b, i in zip(buf, idx)]
+                     for idx in idxs)
+
+    def sum(self, data, seg_ids):
+        return [C.segment_sum_pad(d, s, self.nb) for d, s in zip(data,
+                                                                 seg_ids)]
+
+
+def mgn_halo_mesh_loss(ctx: MeshCtx, cfg: MGNConfig, params: list,
+                       batch: dict, block_size: int):
+    """Each entry's ``(loss, {"mse": ...})`` of MeshGraphNet's masked MSE
+    over the blocked layout, one block an entry: ``params`` one tree an
+    entry (the replicated copies), ``batch`` one list of ``(1, ...)``
+    blocks a leaf of ``mgn_halo_local_loss``'s batch."""
+    blocks = {k: [x[0] for x in v] for k, v in batch.items()}
+    g = HaloGraph(ctx, blocks, block_size)
+    model_batch = {k: blocks[k] for k in ("node_feat", "targets",
+                                          "node_mask", "senders",
+                                          "receivers")}
+    return MGN.loss_fn(local_params(ctx, params), model_batch, cfg, g)

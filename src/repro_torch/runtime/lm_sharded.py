@@ -33,9 +33,10 @@ on its own device. The pieces are the port's one-card model
   columns (the final softcap applied), the max and the sum of
   exponentials reduced over ``model``, the label's logit from the entry
   that holds it; the mean over the global token count.
-* **AdamW** on shards: each entry updates its own slices; the global norm
-  sums each block's squares once (a replicated leaf's copies are counted
-  once, not once an entry) and all-reduces over every axis.
+* **AdamW** on shards (``launch.steps``): each entry updates its own
+  slices; the global norm (``mesh_ctx.global_norm``) sums each block's
+  squares once (a replicated leaf's copies are counted once, not once an
+  entry) and all-reduces over every axis.
 * **Prefill** returns the caches in ``launch.steps._lm_cache_sharding``'s
   layout (sequence on ``model``): the head-sliced K / V the attention made
   are redistributed with ``all_to_all``.
@@ -67,43 +68,22 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.runtime import collectives as C
-from repro_torch.runtime.sharding import _match, batch_axes, lm_param_rules
+from repro_torch.runtime.mesh_ctx import MeshCtx
+from repro_torch.runtime.sharding import lm_param_rules
 
 
-class Ctx:
+class Ctx(MeshCtx):
     """A mesh and an LM config: the axes, each entry's coordinates, and
     how the heads split over ``model``."""
 
     def __init__(self, mesh: Mesh, cfg: T.LMConfig):
-        self.mesh, self.cfg = mesh, cfg
-        self.n = len(mesh.devices)
-        self.axes = tuple(mesh.axis_names)
-        self.da = batch_axes(mesh)
+        super().__init__(mesh, lm_param_rules(mesh))
+        self.cfg = cfg
         self.tp = mesh.shape["model"]
-        self.n_dp = int(np.prod([mesh.shape[a] for a in self.da]))
-        coords = np.unravel_index(np.arange(self.n), mesh.dims)
-        # each axis' coordinate of every entry
-        self.at = {a: [int(x) for x in c] for a, c in zip(self.axes, coords)}
         self.m = self.at["model"]
-        self.rules = lm_param_rules(mesh)
         h, hkv = cfg.n_heads, cfg.n_kv_heads
         self.all_heads = h % self.tp != 0
         self.all_kv = self.all_heads or hkv % self.tp != 0
-
-    def spec(self, path: str) -> tuple:
-        """A param leaf's spec (``lm_param_rules``)."""
-        return tuple(_match(self.rules, path))
-
-    def unnamed(self, spec) -> tuple:
-        named = {a for e in spec for a in _spec_axes(e)}
-        return tuple(a for a in self.axes if a not in named)
-
-    def entry_slice(self, axes, n: int, e: int) -> slice:
-        """Entry ``e``'s block of ``n`` split over ``axes`` (row-major)."""
-        sizes = [self.mesh.shape[a] for a in axes]
-        i = int(np.ravel_multi_index([self.at[a][e] for a in axes], sizes))
-        r = n // int(np.prod(sizes))
-        return slice(i * r, (i + 1) * r)
 
 
 def local(ctx: Ctx, shards: list, spec, *, model: bool = False) -> list:
@@ -420,25 +400,6 @@ def loss(ctx: Ctx, params: list, tokens: list, labels: list,
         xent = s / n
         out.append((xent + a, xent, a))
     return out
-
-
-# --------------------------------------------------------------------------
-# the optimizer on shards
-# --------------------------------------------------------------------------
-
-def global_norm(ctx: Ctx, grads: list, paths: list) -> list:
-    """Each entry's copy of the gradients' global norm: each entry sums the
-    squares of the leaves whose block it holds first (coordinate 0 on the
-    axes the leaf's spec does not name), then a sum over every axis."""
-    parts = []
-    for e, gs in enumerate(grads):
-        tot = torch.zeros((), dtype=torch.float32, device=ctx.mesh.devices[e])
-        for path, g in zip(paths, gs):
-            if all(ctx.at[a][e] == 0 for a in ctx.unnamed(ctx.spec(path))):
-                tot = tot + torch.sum(g.float() ** 2)
-        parts.append(tot)
-    tot = C.all_reduce(parts, ctx.mesh, ctx.axes)
-    return [torch.sqrt(t) for t in tot]
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,12 @@ Every LM arch x LM shape at its full ``CONFIG`` is built on a (16, 16)
 held to JAX's ``build_step`` on ``make_production_mesh()`` (256 forced
 host devices, in a child process, as ``tests/test_steps_and_stats.py``
 builds its bundles): name, kind, each spec's shape and dtype, each in and
-out ``PartitionSpec``, ``donate`` and ``meta``, all exact. The cells JAX
-refuses (skip-marked) and those the port does not build yet (GNN, recsys,
-the ``opt`` scheme's train step, the ``halo`` scheme) raise. A bundle's
+out ``PartitionSpec``, ``donate`` and ``meta``, all exact. So is every GNN
+and recsys cell: the GNNs under ``baseline`` and MeshGraphNet's full-graph
+cells under ``halo`` too, recsys under ``baseline`` and ``opt``. The
+cells JAX refuses (skip-marked, the ``halo`` scheme beyond MeshGraphNet's
+full graphs) raise, and so does the LM ``opt`` scheme's train step, which
+the port does not build yet. A bundle's
 ``fn`` updates donated arguments in place and raises on an argument that
 is not placed as ``in_shardings``. Every decode cell whose cache is split
 over the sequence dispatches its key blocks to the split kernel, the one
@@ -38,6 +41,12 @@ from repro_torch.models import transformer as T
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM_CELLS = [(a, s) for a, d in ARCHS.items() if d.family == "lm"
             for s in d.shapes]
+# (arch, shape, scheme) of every GNN and recsys cell the JAX child builds
+OTHER_CELLS = [(a, s, sch) for a, d in ARCHS.items() if d.family != "lm"
+               for s in d.shapes
+               for sch in (("baseline", "opt") if d.family == "recsys"
+                           else ("baseline", "halo") if a == "meshgraphnet"
+                           else ("baseline",))]
 
 JAX_BUNDLES = """
 import json, os
@@ -60,21 +69,24 @@ def walk(x, pre, out, leaf):
 mesh = make_production_mesh()
 res = {}
 for a, arch in ARCHS.items():
-    if arch.family != "lm":
-        continue
+    schemes = {"lm": ("baseline",), "recsys": ("baseline", "opt"),
+               "gnn": ("baseline", "halo") if a == "meshgraphnet"
+               else ("baseline",)}[arch.family]
     for s in arch.shapes:
+      for sch in schemes:
+        key = f"{a}:{s}" if sch == "baseline" else f"{a}:{s}:{sch}"
         try:
-            b = build_step(a, s, mesh)
-        except ValueError as e:
-            res[f"{a}:{s}"] = {"error": str(e)}
+            b = build_step(a, s, mesh, sch)
+        except (ValueError, AssertionError) as e:
+            res[key] = {"error": str(e)}
             continue
         specs, ins, outs = {}, {}, {}
         walk(b.specs, "", specs, lambda x: [list(x.shape), str(x.dtype)])
         walk(b.in_shardings, "", ins, lambda x: list(x.spec))
         walk(b.out_shardings, "", outs, lambda x: list(x.spec))
-        res[f"{a}:{s}"] = {"name": b.name, "kind": b.kind, "specs": specs,
-                           "in": ins, "out": outs, "donate": list(b.donate),
-                           "meta": b.meta}
+        res[key] = {"name": b.name, "kind": b.kind, "specs": specs,
+                     "in": ins, "out": outs, "donate": list(b.donate),
+                     "meta": b.meta}
 print(json.dumps(res))
 """
 
@@ -111,14 +123,7 @@ def meta_mesh():
     return make_mesh((16, 16), ("data", "model"), devices=["meta"] * 256)
 
 
-@pytest.mark.parametrize("arch_id,shape", LM_CELLS)
-def test_lm_bundle_matches_jax(arch_id, shape, jax_bundles, meta_mesh):
-    want = jax_bundles[f"{arch_id}:{shape}"]
-    if "error" in want:
-        with pytest.raises(ValueError, match="skip-marked"):
-            S.build_step(arch_id, shape, meta_mesh)
-        return
-    b = S.build_step(arch_id, shape, meta_mesh)
+def _assert_bundle_equal(b, want, mesh):
     specs, ins, outs = {}, {}, {}
     _walk(b.specs, "", specs, lambda x: [list(x.shape),
                                          str(x.dtype).replace("torch.", "")])
@@ -132,7 +137,34 @@ def test_lm_bundle_matches_jax(arch_id, shape, jax_bundles, meta_mesh):
     for key in want:
         assert got[key] == want[key], key
     for sh in _leaves(b.in_shardings):
-        assert sh.mesh is meta_mesh
+        assert sh.mesh is mesh
+
+
+@pytest.mark.parametrize("arch_id,shape", LM_CELLS)
+def test_lm_bundle_matches_jax(arch_id, shape, jax_bundles, meta_mesh):
+    want = jax_bundles[f"{arch_id}:{shape}"]
+    if "error" in want:
+        with pytest.raises(ValueError, match="skip-marked"):
+            S.build_step(arch_id, shape, meta_mesh)
+        return
+    _assert_bundle_equal(S.build_step(arch_id, shape, meta_mesh), want,
+                         meta_mesh)
+
+
+@pytest.mark.parametrize("arch_id,shape,scheme", OTHER_CELLS,
+                         ids=lambda x: str(x))
+def test_gnn_and_recsys_bundle_matches_jax(arch_id, shape, scheme,
+                                           jax_bundles, meta_mesh):
+    key = f"{arch_id}:{shape}" if scheme == "baseline" else \
+        f"{arch_id}:{shape}:{scheme}"
+    want = jax_bundles[key]
+    if "error" in want:
+        # JAX asserts a full-graph shape for the halo scheme
+        with pytest.raises(ValueError, match="full-graph shape"):
+            S.build_step(arch_id, shape, meta_mesh, scheme)
+        return
+    _assert_bundle_equal(S.build_step(arch_id, shape, meta_mesh, scheme),
+                         want, meta_mesh)
 
 
 def _leaves(tree):
@@ -143,12 +175,19 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("arch_id", ["meshgraphnet", "nequip",
                                      "two-tower-retrieval"])
-def test_gnn_and_recsys_cells_raise(arch_id, meta_mesh):
+def test_gnn_and_recsys_cells_raise(arch_id, meta_mesh, jax_bundles):
+    """Once raising (ROADMAP A18.4's builders), each family's first cell
+    now builds, equal to JAX's; the halo scheme raises where JAX asserts
+    (an arch other than MeshGraphNet, a shape that is not a full graph)."""
     shape = next(iter(ARCHS[arch_id].shapes))
-    what = "build_recsys" if arch_id == "two-tower-retrieval" else \
-        "build_gnn and build_gnn_halo"
-    with pytest.raises(ValueError, match=f"ROADMAP A18.4, {what}"):
-        S.build_step(arch_id, shape, meta_mesh)
+    _assert_bundle_equal(S.build_step(arch_id, shape, meta_mesh),
+                         jax_bundles[f"{arch_id}:{shape}"], meta_mesh)
+    if arch_id == "nequip":
+        with pytest.raises(ValueError, match="meshgraphnet hillclimb"):
+            S.build_step(arch_id, shape, meta_mesh, "halo")
+    if arch_id == "meshgraphnet":
+        with pytest.raises(ValueError, match="full-graph shape"):
+            S.build_step(arch_id, "molecule", meta_mesh, "halo")
 
 
 def test_opt_and_halo_schemes(meta_mesh, jax_bundles):
