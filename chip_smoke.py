@@ -786,17 +786,30 @@ def _window_cases(dev):
             for name, spec in fsweep.WINDOW_SETUPS.items()}
 
 
+def _rng_bound(tables: int, rows: int, k: int) -> dict:
+    """window_rng's bound for ``tables`` (rows, k) tables: five threefry
+    blocks of ~117 operations a slot, and 10 for each table entry's range
+    reduction (five modulos and five products, masks and sums, each modulo
+    counted as one operation, so a lower bound); the keys in, the tables
+    out."""
+    return _bound(8 * tables + tables * rows * k * 4,
+                  tables * rows * (5 * 117 + 2 + 10 * k))
+
+
 def check_window_rng(dev) -> dict:
     """Bit-equal to the plain version at the session's t0s, the uint32
-    wrap and K from 1 to 1,000; timed at the session's (W, K)."""
-    out = {"name": "window_rng", "cases": []}
+    wrap and K from 1 to 1,000, one table and L = 16 and 64 tables (a
+    sweep step's lanes) in one launch, those also held to their L
+    one-table draws; timed at the session's (W, K) for L = 1, 16, 64
+    (ms a launch and a table against the bound)."""
+    out = {"name": "window_rng", "cases": [], "tables": []}
     for seed in (0, 2**40 + 5):
         key = prng_key(seed, device=dev)
         for t0 in (0, 114_958, 2**32 - 100):
             for k in (1, K_MAX, 200, 1000):
                 got = rops.window_rng(key, t0, WINDOW, k)
-                want = window_rng_ref(key, t0, WINDOW, k)
-                torch.cuda.synchronize()
+                want = on_host(lambda *a: (window_rng_ref(*a),), key, t0,
+                               WINDOW, k)[0]
                 err = max_abs_diff([got], [want])
                 case = {"seed": seed, "t0": t0, "shape": [WINDOW, k],
                         "max_abs_err": err}
@@ -809,19 +822,52 @@ def check_window_rng(dev) -> dict:
                         key, t0, WINDOW, k), 5)
                     case["plain_eager_ms"] = eager_ms(lambda: window_rng_ref(
                         key, t0, WINDOW, k), 5)
-                    # five threefry blocks of ~117 operations a slot, and
-                    # 10 for each table entry's range reduction (five
-                    # modulos and five products, masks and sums, each
-                    # modulo counted as one operation, so a lower bound);
-                    # the key in, the table out
-                    case.update(_bound(8 + WINDOW * k * 4,
-                                       WINDOW * (5 * 117 + 2 + 10 * k)))
+                    case.update(_rng_bound(1, WINDOW, k))
                 out["cases"].append(case)
                 if err:
                     raise AssertionError(f"window_rng seed={seed} t0={t0} "
                                          f"k={k}: kernel differs from the "
                                          f"plain version by {err}")
+    for lanes in SWEEP_TIMED_LANES:
+        keys = torch.stack([prng_key(7 * j + (2**40 if j % 2 else 0),
+                                     device=dev) for j in range(lanes)])
+        for t0 in (114_958, 2**32 - 100):
+            got = rops.window_rng(keys, t0, WINDOW, K_MAX)
+            one = torch.stack([rops.window_rng(keys[j], t0, WINDOW, K_MAX)
+                               for j in range(lanes)])
+            want = on_host(lambda *a: (window_rng_ref(*a),), keys, t0,
+                           WINDOW, K_MAX)[0]
+            err = max_abs_diff([got], [want])
+            if err or not torch.equal(got, one):
+                raise AssertionError(f"window_rng at {lanes} tables: differs "
+                                     f"from the plain version by {err}, or "
+                                     "from one draw a table")
+        row = {"tables": lanes, "shape": [lanes, WINDOW, K_MAX],
+               "max_abs_err": err, "equal_to_one_draw_a_table": True,
+               "ms": graph_ms(lambda: rops.window_rng(keys, 114_958, WINDOW,
+                                                      K_MAX), 100),
+               "eager_ms": eager_ms(lambda: rops.window_rng(
+                   keys, 114_958, WINDOW, K_MAX), 100),
+               **_rng_bound(lanes, WINDOW, K_MAX)}
+        row["ms_per_table"] = row["ms"] / lanes
+        out["tables"].append(row)
     return out
+
+
+def _draws_held(hook, what: str) -> dict:
+    """Every window_rng draw ``hook`` kept (``fops.window_rng``'s calls:
+    key or keys, t0, rows, K) bit-equal to the plain version on host
+    copies of its keys."""
+    rows = 0
+    for (key, t0, w, k), _, got, _ in hook.kept.values():
+        want = window_rng_ref(key.to(HOST), t0, w, k)
+        if not torch.equal(got.to(HOST), want):
+            raise AssertionError(f"{what}: the window_rng draw at t0={t0} "
+                                 f"({tuple(got.shape)}) differs from the "
+                                 "plain version")
+        rows += got.numel() // k
+    return {"draws": len(hook.kept), "rows": rows,
+            "bit_equal_to_plain": True}
 
 
 def _prep_bytes(prep, state, rows) -> int:
@@ -1255,7 +1301,33 @@ SESSION_KERNELS = ("partition_affinity", "fused_chooser", "window_prep",
 SWEEP_KERNELS = SESSION_KERNELS + ("fused_chooser_sweep",)
 
 
+# every card session's feed since _reset_launches: (windows whose tables
+# it draws ahead — Partitioner.windows_drawn_ahead —, window, K)
+_FEEDS: list = []
+
+
+def _logged_feed(feed_prepared):
+    @functools.wraps(feed_prepared)
+    def feed(self, chunk):
+        if self.device.type == "cuda":
+            _FEEDS.append((self.windows_drawn_ahead(chunk.num_events),
+                           self.window, self.geometry.k_max))
+        return feed_prepared(self, chunk)
+    feed.logged = True
+    return feed
+
+
+def _expected_draws() -> int:
+    """The window_rng launches the logged feeds need: each feed's windows
+    drawn ahead, ``fops.windows_per_draw`` of them a launch."""
+    return sum(-(-windows // fops.windows_per_draw(w, k))
+               for windows, w, k in _FEEDS)
+
+
 def _reset_launches():
+    if not getattr(Partitioner.feed_prepared, "logged", False):
+        Partitioner.feed_prepared = _logged_feed(Partitioner.feed_prepared)
+    _FEEDS.clear()
     for fn in _WRAPPERS.values():
         fn.launches = 0
     fa.flash_attention.kernel_launches = dict.fromkeys(fa.KERNELS, 0)
@@ -1275,14 +1347,16 @@ def _check_session_launches(launches: dict, windows: dict, what: str,
                             histograms: int = 0, every: bool = True):
     """Every session kernel launched, once a window of its kind: the prep
     scan and the fused chooser per mixed window, partition_affinity and
-    the pure-ADD fixup per pure-ADD window, the RNG per window — and
-    partition_affinity once more for each of the session's ``histograms``
-    rebalance histograms. ``every``: each kernel at least once."""
+    the pure-ADD fixup per pure-ADD window — and partition_affinity once
+    more for each of the session's ``histograms`` rebalance histograms;
+    the RNG exactly as often as the feeds since ``_reset_launches`` and
+    the draw budget give (``_expected_draws``: one launch for many
+    windows). ``every``: each kernel at least once."""
     want = {"window_prep": windows["mixed"],
             "fused_chooser": windows["mixed"],
             "partition_affinity": windows["add"] + histograms,
             "add_window_choose": windows["add"],
-            "window_rng": windows["mixed"] + windows["add"]}
+            "window_rng": _expected_draws()}
     if (every and min(launches.values()) < 1) or launches != want \
             or launches["partition_affinity"] < 1:
         raise AssertionError(f"{what} missed a kernel: launched {launches}, "
@@ -1516,7 +1590,7 @@ def phase_fig12(dev) -> dict:
     torch.cuda.synchronize()
     prefix_s = time.perf_counter() - t
     launches = _read_launches(SWEEP_KERNELS)
-    want = {"window_prep": L * windows, "window_rng": L * windows,
+    want = {"window_prep": L * windows, "window_rng": windows,
             "fused_chooser_sweep": windows, "fused_chooser": 0,
             "add_window_choose": 0, "partition_affinity": 0}
     if launches != want:
@@ -1765,9 +1839,10 @@ def phase_twitter(dev) -> dict:
 
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_launches()
-    t = time.perf_counter()
-    part = _session(s, cfg, dev, WINDOW)
-    run_s = time.perf_counter() - t
+    with _Hook(fops, "window_rng", lambda i: i, clone=False) as draws:
+        t = time.perf_counter()
+        part = _session(s, cfg, dev, WINDOW)
+        run_s = time.perf_counter() - t
     launches = _read_launches()
     by_kernel = dict(fk.fused_window_choose.kernel_launches)
     add_by_kernel = dict(fk.add_window_choose.kernel_launches)
@@ -1785,6 +1860,9 @@ def phase_twitter(dev) -> dict:
     st = part.state
     check_recount(st, "twitter")
     m = part.metrics()
+    rng_out = {**_draws_held(draws, "twitter session"),
+               **_session_draw_timing(draws)}
+    del draws
 
     # wall-time split over a prefix of the same stream, every stage timed
     # with synchronizes around it (which is why it is a separate run)
@@ -1845,10 +1923,25 @@ def phase_twitter(dev) -> dict:
                                          "scale_events")},
            **_scaling(st, cfg.k_init),
            "recount_ok": True, "max_memory_allocated": peak,
-           "split": split_out,
+           "window_rng": rng_out, "split": split_out,
            "loops": _window_loops(s, cfg, dev, prefix)}
     emit(out)
     return out, part, g, s
+
+
+def _session_draw_timing(draws) -> dict:
+    """The main path's window_rng launch (the session's first draw: its
+    rows cover the feed's full windows) timed again on its own key and
+    shape: the kernel and the plain version from CUDA-graph replay, and
+    the bound."""
+    (key, t0, rows, k), _, _, _ = draws.kept[0]
+    return {"shape": [rows, k], "t0": t0,
+            "ms": graph_ms(lambda: rops.window_rng(key, t0, rows, k), 20),
+            "eager_ms": eager_ms(lambda: rops.window_rng(key, t0, rows, k),
+                                 20),
+            "plain_ms": graph_ms(lambda: window_rng_ref(key, t0, rows, k),
+                                 2),
+            **_rng_bound(1, rows, k)}
 
 
 def _rebalance_labels(st) -> torch.Tensor:
@@ -2585,10 +2678,13 @@ def phase_serve(dev, s, card: str) -> dict:
                              "mean_batch_events": T / len(batches)}}
     del part
     _reset_launches()
-    part, drivers["service"], _ = _run_service(s, dev, batches, due)
+    with _Hook(fops, "window_rng", lambda i: i, clone=False) as draws:
+        part, drivers["service"], _ = _run_service(s, dev, batches, due)
     launches = _read_launches()
     windows = _window_kinds(part)
     _check_session_launches(launches, windows, "serve: the service")
+    service_draws = _draws_held(draws, "serve: the service")
+    del draws
     assert_states_equal(part.state, ref.state, "serve: service")
     if state_digest(part.state) != sc.TWITTER_SESSION_DIGEST:
         raise AssertionError("serve: the service's state differs from the "
@@ -2607,6 +2703,7 @@ def phase_serve(dev, s, card: str) -> dict:
            "max_pending_chunks": SERVE_MAX_PENDING,
            "whole_stream_s": ref_s, "arrival_rate_eps": lam,
            "drivers": drivers, "launches": launches, "windows": windows,
+           "window_rng_draws": service_draws,
            "states_equal": True, "digest_ok": True,
            "traced_service": traced,
            "raced_service": {**raced, "queries": queries},
@@ -2717,14 +2814,17 @@ def _sweep_vs_sessions(name, s, runs, dev, kernel: str) -> dict:
     windows = -(-s.num_events // WINDOW)
     L = len(runs)
     _reset_launches()
+    held = {0, windows // 2, windows - 1}
     t = time.perf_counter()
-    with _capture_sweep(windows // 2) as cap:
+    with _capture_sweep(windows // 2) as cap, \
+            _Hook(fops, "window_rng", lambda i: i if i in held else None,
+                  clone=False) as draws:
         res = Sweep(s, device=dev).lanes(runs).windowed(WINDOW).kernel().run()
         torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t
     launches = _read_launches(SWEEP_KERNELS)
     by_kernel = dict(fk.fused_window_choose_lanes.kernel_launches)
-    want = {"window_prep": L * windows, "window_rng": L * windows,
+    want = {"window_prep": L * windows, "window_rng": windows,
             "fused_chooser_sweep": windows, "fused_chooser": 0,
             "add_window_choose": 0, "partition_affinity": 0}
     if launches != want or by_kernel[f"sweep_{kernel}"] != windows:
@@ -2747,6 +2847,10 @@ def _sweep_vs_sessions(name, s, runs, dev, kernel: str) -> dict:
             "session_events_per_s": L * s.num_events / sessions_s,
             "speedup": sessions_s / sweep_s, "launches": launches,
             "launches_by_kernel": by_kernel, "lanes_equal_sessions": True,
+            # the first, middle and last window step's one draw for every
+            # lane, each held to the plain version
+            "window_rng_draws": {"steps": sorted(held),
+                                 **_draws_held(draws, f"sweep {name}")},
             "policies": [r.policy for r in runs],
             "plain": _sweep_form_plain(cap.kept[0], res[0].state,
                                        f"sweep {name}", windows // 2)}, res
@@ -2944,9 +3048,10 @@ def _sweep_form_timing(dev, cases) -> dict:
 
 
 def _sweep_profile(s, runs, dev) -> dict:
-    """torch.profiler over a run of the twitter lanes on the stream's first
-    SWEEP_PROFILE_EVENTS (set-up included): the host-issued device ops per
-    window step and the device's busy share."""
+    """torch.profiler over a run of the lanes ``runs`` (twitter's 16, or
+    grqc's 64) on the stream's first SWEEP_PROFILE_EVENTS (set-up
+    included): the host-issued device ops per window step and the
+    device's busy share."""
     s = _prefix(s, SWEEP_PROFILE_EVENTS)
     windows = -(-s.num_events // WINDOW)
     with _profiler() as prof:
@@ -2955,7 +3060,8 @@ def _sweep_profile(s, runs, dev) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     busy = _profiled_busy(prof, wall)
-    return {"events": s.num_events, "window_steps": windows, **busy,
+    return {"lanes": len(runs), "events": s.num_events,
+            "window_steps": windows, **busy,
             "device_ops_per_window_step": busy["device_ops"] / windows}
 
 
@@ -2969,9 +3075,12 @@ def phase_sweep(dev, twitter_s, cases, card: str) -> dict:
     sweep timed against those sessions in turn; the large layout at
     k_max = 200; short prefixes of the plain and scan lanes; rebalance
     lanes; the sweep form's device time at L = 1, 16, 64 against the
-    single-session kernel; a profile of the twitter lanes. In each of the
-    grqc, twitter and K = 200 sweeps, one launch's lanes are also held to
-    the sweep form's plain version (``_sweep_form_plain``)."""
+    single-session kernel; a profile of the twitter lanes and one of
+    grqc's 64. In each of the grqc, twitter and K = 200 sweeps, one
+    launch's lanes are also held to the sweep form's plain version
+    (``_sweep_form_plain``); in the grqc and twitter sweeps the first,
+    middle and last window step's window_rng draw (all lanes in one
+    launch) to the plain RNG."""
     t_phase = time.perf_counter()
     part_s = {}
 
@@ -3004,7 +3113,9 @@ def phase_sweep(dev, twitter_s, cases, card: str) -> dict:
            "rebalance": rebalance,
            "sweep_form": part("sweep_form", _sweep_form_timing, dev, cases),
            "profile": part("profile", _sweep_profile, twitter_s, tw_runs,
-                           dev)}
+                           dev),
+           "profile_64": part("profile_64", _sweep_profile, grqc, runs,
+                              dev)}
     out["part_s"] = part_s
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
@@ -3819,11 +3930,13 @@ class _PlainLoops:
 
 
 def _window_loops(s, cfg, dev, prefix: int) -> dict:
-    """The window pipelines with the host loops (before) and with the
-    window kernels (after), on one card, on the first ``prefix`` events of
-    the session's stream: each window function on the same state, timed
-    on the host's clock with a sync after it, for 4 pure-ADD and 4 mixed
-    windows (the states after both held equal); then, over 8 windows of
+    """The window pipelines with the host loops (before: the plain RNG
+    drawing the window's own table) and with the window kernels (after:
+    the window's rows of one draw for the prefix, as a session takes
+    them), on one card, on the first ``prefix`` events of the session's
+    stream: each window function on the same state, timed on the host's
+    clock with a sync after it, for 4 pure-ADD and 4 mixed windows (the
+    states after both held equal); then, over 8 windows of
     each kind with the kernels, the device's launches a window
     (torch.profiler) and its busy share of the windows' untraced wall, and
     one window of each kind replayed from a CUDA graph (capture fails on a
@@ -3845,21 +3958,26 @@ def _window_loops(s, cfg, dev, prefix: int) -> dict:
     state = init_state(s.n, nb.shape[1], cfg.k_max, cfg.k_init, seed=0,
                        device=dev)
     knobs = knob_tensor(cfg, s.n, dev)
+    # the prefix's tables in one draw, as the session draws a feed's: each
+    # window with the kernels takes its rows as an input
+    tables = rops.window_rng(state.key, 0, len(kinds) * W, cfg.k_max)
 
-    def run(st, j):
+    def run(st, j, plain=False):
         sl = slice(j * W, (j + 1) * W)
+        tab = None if plain else tables[sl]
         if kinds[j] == "add":
             return fops.run_window_adds_fused(
-                st, vx[sl], nb[sl], j * W, policy="sdp", cfg=cfg, knobs=knobs)
+                st, vx[sl], nb[sl], j * W, policy="sdp", cfg=cfg, knobs=knobs,
+                rand_tab=tab)
         return fops.run_window_mixed_fused(
             st, et[sl], vx[sl], nb[sl], j * W, policy="sdp", cfg=cfg,
-            knobs=knobs)
+            knobs=knobs, rand_tab=tab)
 
-    def timed(st, js):
+    def timed(st, js, plain=False):
         torch.cuda.synchronize()
         t = time.perf_counter()
         for j in js:
-            st = run(st, j)
+            st = run(st, j, plain)
         torch.cuda.synchronize()
         return time.perf_counter() - t, st
 
@@ -3870,7 +3988,7 @@ def _window_loops(s, cfg, dev, prefix: int) -> dict:
     for j in range(len(kinds)):
         if j in picks:
             with _PlainLoops():
-                before_s, b = timed(fsweep.clone_state(state), [j])
+                before_s, b = timed(fsweep.clone_state(state), [j], True)
             after_s, a = timed(fsweep.clone_state(state), [j])
             assert_states_equal(a, b, f"twitter window {j}: kernels vs "
                                       f"host loops")
@@ -3900,7 +4018,9 @@ def _window_loops(s, cfg, dev, prefix: int) -> dict:
                 del c
                 # one window captured in a CUDA graph, which a read back to
                 # the host would break (its replays re-apply the window to
-                # the state it left, so their time is not a window's)
+                # the state it left, so their time is not a window's); the
+                # graph holds the window's kernels and torch ops, its table
+                # rows an input drawn before it
                 c = fsweep.clone_state(state)
                 graph_ms(lambda c=c, j=j: run(c, j), 1, replays=1)
                 graph[kind] = {"window": j, "captured": True}
@@ -4216,22 +4336,23 @@ def _plain_backward_on_host(g, idx, v: int, mode: str) -> torch.Tensor:
 def _check_backward(g, idx, v: int, mode: str, got, what: str) -> dict:
     """``got`` (the kernel's table gradient for cotangent ``g`` over bags
     ``idx``) bit-equal to the plain backward on host copies, and a second
-    launch (uncounted: ``backward_launch`` on a fresh order and zero
-    table) bit-equal to it."""
+    run (uncounted: a fresh ``backward_order`` and ``backward_launch``'s
+    pass into a NaN-filled table, so every row must be written) bit-equal
+    to it."""
     want = _plain_backward_on_host(g, idx, v, mode)
     same = _same_bits(got, want)
     err = 0.0 if same else float((got - want).abs().max())
     del want
-    keys, counts = eb.backward_order(idx, v)
-    again = torch.zeros_like(got)
-    eb.backward_launch(g, keys, counts, again, idx.shape[1], mode == "mean")
+    order = eb.backward_order(idx, v)
+    again = torch.full_like(got, float("nan"))
+    eb.backward_launch(g, idx, order, again, mode == "mean")
     torch.cuda.synchronize()
     same_again = _same_bits(again, got)
-    del again, keys, counts
+    del again, order
     if not same or not same_again:
         raise AssertionError(f"embedding_bag_backward {what}: bit-equal to "
                              f"the plain backward on the host: {same} (max "
-                             f"abs {err}); to a second launch: {same_again}")
+                             f"abs {err}); to a second run: {same_again}")
     return {"shape": [v, g.shape[1], idx.shape[0], idx.shape[1]],
             "mode": mode, "max_abs_err": err, "bit_equal_to_host": True,
             "two_launches_equal": same_again,
@@ -4259,50 +4380,82 @@ def _bwd_inputs(dev, v, d, b, l, kind, seed):
     return idx, g
 
 
+def _clock() -> str:
+    """The card's SM clock, temperature and power draw, as ``nvidia-smi``
+    reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
 def _time_backward(g, idx, v: int, mode: str) -> dict:
-    """The backward kernel alone (its walk over a built order into a
-    zeroed table), the order's preparation (``backward_order``: the int64
-    keys' sort and the counts), the zero fill, the whole wrapper, the plain
-    version and ``index_add_`` of the slot gradients into a zero table
-    (the library call), at the training step's bags; and the bounds."""
+    """The backward at the training step's bags, device ms from CUDA-graph
+    replay: the whole function (the order and the pass, what a training
+    step runs: ``ms``; also issued eagerly, ``function_eager_ms``, as an
+    eager caller pays it), the order alone (``backward_order``: int32
+    counts, scan, placement, long-run sort), the pass alone (every row of
+    the table written once, on a built order), a torch fill of the table
+    (the dense write by itself), the plain version, and ``index_add_`` of
+    the slot gradients into the table (the library call); with the
+    function's bound (g and the ids read, the table written) and the
+    pass's (g, the order and the counts read, the table written). The
+    pass is timed first and again last (``pass_again_ms``), each after
+    ``nvidia-smi``'s reading of the SM clock, temperature and power: the
+    phase's first timing has read up to 16 % slow. Each timed call drops
+    its output, so one 4.29 GB table is live at a time."""
     torch.cuda.empty_cache()
     b, l = idx.shape
     d = g.shape[1]
-    keys, counts = eb.backward_order(idx, v)
-    out = torch.zeros((v, d), dtype=torch.float32, device=g.device)
     mean = mode == "mean"
-    ms = eager_ms(lambda: eb.backward_launch(g, keys, counts, out, l, mean),
-                  20)
-    order_ms = eager_ms(lambda: eb.backward_order(idx, v), 20)
-    zero_ms = eager_ms(out.zero_, 20)
-    function_ms = eager_ms(
-        lambda: eb.embedding_bag_backward(g, idx, v, mode=mode), 10)
+    order = eb.backward_order(idx, v)
+
+    def time_pass():
+        out = torch.empty((v, d), dtype=torch.float32, device=g.device)
+        return _clock(), graph_ms(
+            lambda: eb.backward_launch(g, idx, order, out, mean), 10)
+    clock, pass_ms = time_pass()
+    out = torch.empty((v, d), dtype=torch.float32, device=g.device)
+    order_ms = graph_ms(lambda: eb.backward_order(idx, v) is None, 10)
+    fill_ms = graph_ms(out.zero_, 10)
     valid = idx >= 0
-    gs = g / torch.clamp(counts, min=1)[:, None].float() if mean else g
+    gs = g / torch.clamp(order.counts, min=1)[:, None].float() if mean else g
     slots = torch.where(valid[..., None], gs[:, None, :].expand(b, l, d),
                         0.0).reshape(-1, d)
     safe = torch.where(valid, idx, 0).reshape(-1).to(torch.int64)
-    library_ms = eager_ms(lambda: out.index_add_(0, safe, slots), 20)
-    del slots, safe, gs
-    plain_ms = eager_ms(
-        lambda: embedding_bag_backward_ref(g, idx, v, mode=mode), 2)
+    library_ms = graph_ms(lambda: out.index_add_(0, safe, slots), 10)
+    del slots, safe, gs, out
+    function_ms = graph_ms(
+        lambda: eb.embedding_bag_backward(g, idx, v, mode=mode) is None, 10)
+    function_eager_ms = eager_ms(
+        lambda: eb.embedding_bag_backward(g, idx, v, mode=mode) is None, 10)
+    plain_ms = graph_ms(
+        lambda: embedding_bag_backward_ref(g, idx, v, mode=mode) is None, 2)
+    clock_again, pass_again_ms = time_pass()
     touched = torch.unique(idx[valid]).numel()
-    kernel_bytes = (g.numel() * 4 + keys.numel() * 8
-                    + (counts.numel() * 4 if mean else 0) + touched * d * 4)
+    n_valid = int(valid.sum())
+    pass_bytes = (g.numel() * 4 + (v + 1) * 4 + n_valid * 4
+                  + (b * 4 if mean else 0) + v * d * 4)
     fn_bytes = g.numel() * 4 + idx.numel() * 4 + v * d * 4
-    del out, keys, counts
+    del order
     torch.cuda.empty_cache()
     return {"shape": [v, d, b, l], "mode": mode, "touched_rows": touched,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": function_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library": "Tensor.index_add_ of the (B*L, D) slot gradients "
-                       "into a zero table (atomics, no fixed order)",
-            "bound_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "kernel_bytes": kernel_bytes,
-            "order_ms": order_ms, "zero_ms": zero_ms,
+                       "into the table (atomics, no fixed order; no zero "
+                       "fill counted)",
+            "bound_ms": fn_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "function_bytes": fn_bytes,
             "function_ms": function_ms,
+            "function_eager_ms": function_eager_ms,
             "function_bound_ms": fn_bytes / HBM_BYTES_PER_S * 1e3,
-            "function_bytes": fn_bytes,
-            "gb_per_s": kernel_bytes / (ms * 1e-3) / 1e9}
+            "order_ms": order_ms, "pass_ms": pass_ms,
+            "pass_again_ms": pass_again_ms,
+            "clock_temp_power": [clock, clock_again],
+            "pass_bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
+            "pass_bytes": pass_bytes, "fill_ms": fill_ms,
+            "gb_per_s": fn_bytes / (function_ms * 1e-3) / 1e9}
 
 
 def _split_step(loss_fn, params, opt_state, batch, opt, cfg):
@@ -4538,7 +4691,8 @@ def phase_train(dev, card: str) -> dict:
            "first_step": first, "kernel": kernel, "cases": cases,
            "cli": cli,
            "backward_share_of_step": {
-               "kernels_ms": kernel["user"]["ms"] + kernel["item"]["ms"],
+               "passes_ms": (kernel["user"]["pass_ms"]
+                             + kernel["item"]["pass_ms"]),
                "functions_ms": (kernel["user"]["function_ms"]
                                 + kernel["item"]["function_ms"]),
                "step_ms_p50": step_ms}}
@@ -6746,8 +6900,10 @@ def _shard_launches(shard: dict, name: str) -> dict:
 
 
 def _backward_row(train: dict) -> dict:
-    """The backward kernel's row: launches on the training steps, timed at
-    the first step's user-table bags (the item table's beside them)."""
+    """The backward kernel's row: launches on the training steps (each
+    the order and the pass), timed as a whole function at the first
+    step's user-table bags (the item table's beside them), with the
+    order and the pass apart."""
     bk = train["kernel"]
     checks = train["cases"] + [train["first_step"][t] for t in ("user", "item")]
     return {"name": "embedding_bag_backward", "route": "cuda",
@@ -6761,11 +6917,14 @@ def _backward_row(train: dict) -> dict:
             "mismatches": sum(c["max_abs_err"] != 0 for c in checks),
             **{k: bk["user"][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library", "order_ms", "zero_ms", "function_ms",
-                "function_bound_ms", "touched_rows", "gb_per_s")},
+                "library_ms", "library", "order_ms", "pass_ms",
+                "pass_bound_ms", "fill_ms", "function_ms",
+                "function_eager_ms", "function_bound_ms", "touched_rows",
+                "gb_per_s")},
             "item": {k: bk["item"][k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms",
-                "order_ms", "zero_ms", "function_ms", "function_bound_ms")}}
+                "order_ms", "pass_ms", "pass_bound_ms", "fill_ms",
+                "function_ms", "function_eager_ms", "function_bound_ms")}}
 
 
 def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
@@ -6890,8 +7049,6 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              "src/repro/kernels/fused_chooser/ops.py:113",
              ("session", "stream"), (("grqc_wide", "stream"),
                                      ("odd", "stream"))),
-            ("window_rng", "src/repro_torch/csrc/window_rng.cu",
-             "src/repro/core/transition.py:374", None, ()),
             ("add_window_choose", "src/repro_torch/csrc/fused_chooser.cu",
              "src/repro/core/windowed.py:167",
              ("session", "first"), (("session", "crafted"),
@@ -6908,8 +7065,6 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              "replaces": replaces,
              "launches": twitter["launches"][name],
              "serve": {"launches": serve["launches"][name]},
-             **({"shard": _shard_launches(shard, name)}
-                if name == "window_rng" else {}),
              "max_abs_err": max(c["max_abs_err"] for c in cases),
              "shape": case["shape"], "cases": len(cases),
              "mismatches": sum(c["max_abs_err"] != 0 for c in cases),
@@ -6923,6 +7078,42 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
              **{"_".join(o): {k: timed_cases[o][k] for k in
                               ("shape",) + timed_scan if k in timed_cases[o]}
                 for o in others}})
+    # window_rng: launched once a twitter session (one draw for the feed's
+    # windows), timed at that draw's shape; a table of one window and a
+    # sweep step's 16 and 64 tables in one launch beside it (phase kernels)
+    rng_cases = kernels["window_rng"]["cases"]
+    rng_main = twitter["window_rng"]
+    rng_one = next(c for c in rng_cases if "ms" in c)
+    rows.insert(-1, {
+        "name": "window_rng", "route": "cuda",
+        "source": "src/repro_torch/csrc/window_rng.cu",
+        "replaces": "src/repro/core/transition.py:374",
+        "form": "no Pallas counterpart: rand_index_table and the fold_in "
+                "of src/repro/core/windowed.py:140; (L, w, K) tables a "
+                "launch",
+        "launches": twitter["launches"]["window_rng"],
+        "serve": {"launches": serve["launches"]["window_rng"],
+                  "draws_held": serve["window_rng_draws"]},
+        "shard": _shard_launches(shard, "window_rng"),
+        "sweep": {c: {"launches": sweep[c]["launches"]["window_rng"],
+                      "window_steps": sweep[c]["windows"],
+                      "lanes": sweep[c]["lanes"]}
+                  for c in ("grqc", "twitter")},
+        "max_abs_err": max([c["max_abs_err"] for c in rng_cases]
+                           + [r["max_abs_err"]
+                              for r in kernels["window_rng"]["tables"]]),
+        "cases": len(rng_cases) + len(kernels["window_rng"]["tables"]),
+        "mismatches": sum(c["max_abs_err"] != 0 for c in rng_cases),
+        "shape": rng_main["shape"], "ms": rng_main["ms"],
+        "eager_ms": rng_main["eager_ms"], "plain_ms": rng_main["plain_ms"],
+        "bound_ms": rng_main["bound_ms"], "bound_by": rng_main["bound_by"],
+        "library_ms": None,
+        "one_window": {k: rng_one[k] for k in (
+            "shape", "ms", "eager_ms", "plain_ms", "plain_eager_ms",
+            "bound_ms", "bound_by")},
+        "tables": {f"L{r['tables']}": {k: r[k] for k in (
+            "shape", "ms", "ms_per_table", "eager_ms", "bound_ms",
+            "bound_by")} for r in kernels["window_rng"]["tables"]}})
     # the row-block form: launches on twitter's P = 4 run (the other runs'
     # beside them), timed at block 0 of four at twitter's shape
     rk = shard["rows_kernel"]

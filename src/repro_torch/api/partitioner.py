@@ -105,6 +105,7 @@ from repro_torch.core.transition import EventTrace, knob_tensor
 from repro_torch.graph.stream import (
     EVENT_ADD, EVENT_PAD, VertexStream, normalize_rows, required_geometry_of,
 )
+from repro_torch.kernels.fused_chooser import ops as fops
 from repro_torch.kernels.fused_chooser.ops import check_shape_limits
 from repro_torch.launch.mesh import resolve_vertices_mesh
 from repro_torch.rebalance import rebalance_state
@@ -732,6 +733,10 @@ class Partitioner:
         vx = torch.tensor(chunk.vertex, device=dev)
         nb = torch.tensor(normalize_rows(chunk.nbrs, self.max_deg), device=dev)
         use_scan = self.collect_trace or self.engine == "scan"
+        windows = self.windows_drawn_ahead(T)
+        tables = (fops.WindowTables(self.window,
+                                    self._cursor + windows * self.window)
+                  if windows else None)
         t = 0
         while t < T:
             if use_scan:
@@ -747,7 +752,7 @@ class Partitioner:
                     self._feed_scan(et_d[t:], vx[t:], nb[t:])
                 else:
                     self._feed_window(et[t:end], et_d[t:end], vx[t:end],
-                                      nb[t:end])
+                                      nb[t:end], tables)
             # advance per processed slice, so a failure in a later slice
             # leaves the cursor matching the state
             self._cursor += end - t
@@ -766,6 +771,20 @@ class Partitioner:
             self.maybe_shrink()
         return self
 
+    def windows_drawn_ahead(self, T: int) -> int:
+        """How many windows a feed of ``T`` events takes through the kernel
+        pipelines with their random tables drawn ahead
+        (``fused_chooser.ops.WindowTables``, ``windows_per_draw`` windows a
+        ``window_rng`` launch): the full windows under "auto" (its short
+        tail rides the per-event loop), every window under "windowed" (the
+        tail padded); 0 for a session that runs no kernel window here
+        (plain engines, the scan engine, traces, and a sharded session,
+        which draws a table a window)."""
+        if not self.use_kernel or self.collect_trace or self.engine == "scan":
+            return 0
+        return T // self.window if self.engine == "auto" \
+            else -(-T // self.window)
+
     def _feed_scan(self, et, vx, nb):
         # the per-event loop is outside the kernel surface (it is the
         # faithful reference) — count it as fallback coverage
@@ -776,12 +795,15 @@ class Partitioner:
         if self.collect_trace:
             self._traces.append(tr)
 
-    def _feed_window(self, et_host, et, vx, nb):
+    def _feed_window(self, et_host, et, vx, nb, tables=None):
         """One (possibly right-padded) window. Pad slots are no-ops that
         occupy RNG indices past the true events; the cursor advances by
         the true count only. A sharded session takes every window through
         ``shard_session.sharded_window`` (the mixed path, as the JAX
-        package's)."""
+        package's). ``tables`` (``fused_chooser.ops.WindowTables``, kernel
+        sessions) gives the window its random table from a draw shared
+        with the feed's other windows: no window writes ``state.key``, in
+        this package or in JAX's ``core/windowed.py``."""
         if self.use_kernel or (self._sharded and self.device.type == "cuda"):
             self._kernel_windows += 1
         else:
@@ -796,17 +818,20 @@ class Partitioner:
                 self._state, wnd._pad_to(et, w, EVENT_PAD), vs_w, rows_w,
                 self._cursor, n_sem=self._sem_geom.n, policy=self.policy,
                 cfg=self.cfg, knobs=self._knobs)
-        elif np.all(et_host == EVENT_ADD):
+            return
+        kw = {} if tables is None else {
+            "rand_tab": tables.take(self._state, self._cursor)}
+        if np.all(et_host == EVENT_ADD):
             self._add_windows += 1
             self._state = self._adds_fn(
                 self._state, vs_w, rows_w, self._cursor, policy=self.policy,
-                cfg=self.cfg, knobs=self._knobs)
+                cfg=self.cfg, knobs=self._knobs, **kw)
         else:
             self._mixed_windows += 1
             self._state = self._mixed_fn(
                 self._state, wnd._pad_to(et, w, EVENT_PAD), vs_w, rows_w,
                 self._cursor, policy=self.policy, cfg=self.cfg,
-                knobs=self._knobs)
+                knobs=self._knobs, **kw)
 
     def sync(self) -> "Partitioner":
         """Block until every enqueued feed has executed on the device (on

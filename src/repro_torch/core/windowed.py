@@ -478,11 +478,16 @@ def run_stream_windowed(
     state = init_state(geom.n, geom.max_deg, geom.k_max, cfg.k_init, seed,
                        device=device)
     dev = state.edge_load.device
+    T = stream.num_events
+    kw = {}
     if use_kernel:
         from repro_torch.kernels.fused_chooser.ops import (
-            run_window_adds_fused as adds_fn,
+            WindowTables, run_window_adds_fused as adds_fn,
             run_window_mixed_fused as mixed_fn,
         )
+        # every window's random table from draws of many windows each (no
+        # window writes state.key)
+        tables = WindowTables(window, -(-T // window) * window)
     else:
         adds_fn, mixed_fn = run_window_adds, run_window_mixed
     knobs = tx.knob_tensor(cfg, geom.n, dev)
@@ -492,16 +497,17 @@ def run_stream_windowed(
     vx = torch.as_tensor(stream.vertex, dtype=_I32).to(dev)
     nb = torch.as_tensor(normalize_rows(stream.nbrs, geom.max_deg)).to(dev)
 
-    T = stream.num_events
     for t in range(0, T, window):
         end = min(t + window, T)
         vs_w = _pad_to(vx[t:end], window, -1)
         rows_w = _pad_to(nb[t:end], window, -1)
+        if use_kernel:
+            kw["rand_tab"] = tables.take(state, t)
         if np.all(et[t:end] == EVENT_ADD):
             state = adds_fn(state, vs_w, rows_w, t, policy=policy, cfg=cfg,
-                            knobs=knobs)
+                            knobs=knobs, **kw)
         else:
             state = mixed_fn(state, _pad_to(et_d[t:end], window, EVENT_PAD),
                              vs_w, rows_w, t, policy=policy, cfg=cfg,
-                             knobs=knobs)
+                             knobs=knobs, **kw)
     return state

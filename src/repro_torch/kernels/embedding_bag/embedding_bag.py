@@ -24,11 +24,15 @@ bag lookup: each row the sum of its slots' bag gradients (divided by the
 bag's count of valid slots for ``mean``) in ascending flat position
 order from +0.0 — the order of JAX's scatter in ``bag_lookup``'s backward
 (``repro.kernels.embedding_bag.ops._bwd``) and of ``index_add_`` on the
-host, so it is bit-equal to ``embedding_bag_backward_ref``. The wrapper
-sorts int64 keys ``row << 32 | position`` on the card (``torch.sort``:
-index preparation, the order the kernel follows) and zero-fills the
-output; one warp a row then walks its run of positions in order
-(``csrc/embedding_bag.cu``'s note says why).
+host, so it is bit-equal to ``embedding_bag_backward_ref``. On the card
+it is an order and a pass (``csrc/embedding_bag.cu``'s note says why):
+``backward_order`` builds int32 CSR runs of positions by row (counts,
+a scan to offsets, positions placed by atomic cursors, the runs of more
+than 32 sorted), then one row-major pass writes every row of the dense
+gradient once — zeros where no slot points, else the run's sum in
+ascending position order (a row whose run is one slot is written from
+its bag, which reads the bag's gradient row once for all such rows). No
+int64 keys are sorted and nothing is zero-filled first.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.kernels.common import (
     check_input, check_launch, load_kernel, on_cuda, stream_ptr,
 )
 from repro_torch.kernels.embedding_bag.ref import (
-    embedding_bag_backward_ref, embedding_bag_ref,
+    BackwardOrder, backward_order_ref, embedding_bag_backward_ref,
+    embedding_bag_ref,
 )
 
 _INT32_MAX = 2 ** 31 - 1
@@ -110,37 +115,67 @@ embedding_bag.launches = 0
 embedding_bag.kernel_launches = dict.fromkeys(KERNELS, 0)
 
 
-def _backward_lib():
-    fn = load_kernel("embedding_bag").embedding_bag_backward_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+def _backward_fns():
+    lib = load_kernel("embedding_bag")
+    order, walk = (lib.embedding_bag_backward_order,
+                   lib.embedding_bag_backward_pass)
+    if order.argtypes is None:
+        order.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p] * 7
+        order.restype = ctypes.c_int
+        walk.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+        walk.restype = ctypes.c_int
+        lib.embedding_bag_backward_scan_tile.restype = ctypes.c_int
+    return order, walk, lib.embedding_bag_backward_scan_tile()
 
 
-def backward_order(indices: torch.Tensor, num_rows: int):
-    """The backward kernel's index preparation: the flat (row, position)
-    keys ``row << 32 | position`` of (B, L) ``indices``, sorted (a -1 slot
-    keyed to the sentinel row ``num_rows``, after every real row), and each
-    bag's count of valid slots as int32."""
-    valid = indices >= 0
-    rows = torch.where(valid, indices, num_rows).reshape(-1).to(torch.int64)
-    pos = torch.arange(rows.numel(), dtype=torch.int64, device=rows.device)
-    keys = torch.sort(torch.bitwise_or(torch.bitwise_left_shift(rows, 32),
-                                       pos)).values
-    return keys, valid.sum(dim=1, dtype=torch.int32)
+def backward_order(indices: torch.Tensor, num_rows: int) -> BackwardOrder:
+    """The backward's order of (B, L) int32 ``indices`` over ``num_rows``
+    rows, as int32 arrays: ``offsets`` (V + 1,), the CSR offsets of each
+    row's run of flat positions; ``perm`` (B * L,), the runs (its first
+    ``offsets[V]`` entries); ``counts`` (B,), each bag's valid slots. On
+    the card (``csrc/embedding_bag.cu``, step (a)) a run of more than 32
+    positions is ascending and a shorter one in no fixed order (the pass
+    sorts it); on the CPU every run is ascending
+    (``ref.backward_order_ref``)."""
+    if not on_cuda(indices):
+        return backward_order_ref(indices, num_rows)
+    b, l = indices.shape
+    check_input(indices, "indices", torch.int32, (b, l))
+    order_fn, _, tile = _backward_fns()
+    dev = indices.device
+    n = b * l
+
+    def ints(size):
+        return torch.empty(size, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(num_rows, dtype=torch.int32, device=dev)
+    out = BackwardOrder(ints(num_rows + 1), ints(n), ints(b))
+    part, long_rows = ints(-(-num_rows // tile) + 2), ints(n // 33 + 1)
+    err = order_fn(indices.data_ptr(), b, l, num_rows, cnt.data_ptr(),
+                   out.offsets.data_ptr(), out.perm.data_ptr(),
+                   out.counts.data_ptr(), part.data_ptr(),
+                   long_rows.data_ptr(), stream_ptr(dev))
+    check_launch(err, "embedding_bag_backward (order)")
+    return out
 
 
-def backward_launch(g: torch.Tensor, keys: torch.Tensor, counts: torch.Tensor,
-                    out: torch.Tensor, slots: int, mean: bool) -> None:
-    """One launch of the backward kernel into the zero-filled ``out``, on
-    the order ``backward_order`` built; not counted (``chip_smoke.py``
-    times and re-checks the kernel through it)."""
+def backward_launch(g: torch.Tensor, indices: torch.Tensor,
+                    order: BackwardOrder, out: torch.Tensor,
+                    mean: bool) -> None:
+    """The pass over ``order`` (``backward_order(indices, V)``'s) into
+    ``out`` (V, D), every row written: the rows of a one-slot run from
+    their bags, the others row-major; not counted (``chip_smoke.py`` times
+    and re-checks the pass through it)."""
     v, d = out.shape
-    err = _backward_lib()(g.data_ptr(), keys.data_ptr(), counts.data_ptr(),
-                          out.data_ptr(), keys.numel(), slots, d, v,
-                          int(mean), stream_ptr(g.device))
+    b, l = indices.shape
+    _, walk, _ = _backward_fns()
+    vec = 4 if d % 4 == 0 and g.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0 else 1
+    err = walk(g.data_ptr(), indices.data_ptr(), order.offsets.data_ptr(),
+               order.perm.data_ptr(), order.counts.data_ptr(),
+               out.data_ptr(), b, v, l, d, int(mean), vec,
+               stream_ptr(g.device))
     check_launch(err, "embedding_bag_backward")
 
 
@@ -149,10 +184,10 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
     """The (num_rows, D) f32 table gradient of ``embedding_bag(table,
     indices, mode=mode)`` for the (B, D) f32 bag gradient ``g``.
 
-    CUDA tensors launch the kernel (counted in
-    ``embedding_bag_backward.launches``) after the wrapper has sorted the
-    order and zero-filled the output; CPU tensors run the plain version.
-    """
+    CUDA tensors build the order (``backward_order``) and launch the pass
+    that writes every row once (the call counted in
+    ``embedding_bag_backward.launches``); CPU tensors run the plain
+    version."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode must be 'sum' or 'mean', got {mode!r}")
     if not on_cuda(g, indices):
@@ -166,11 +201,11 @@ def embedding_bag_backward(g: torch.Tensor, indices: torch.Tensor,
     if b * l > _INT32_MAX:
         raise ValueError(f"{b} x {l} slots do not fit the kernel: B * L "
                          "< 2^31")
-    out = torch.zeros((num_rows, d), dtype=torch.float32, device=g.device)
-    if b * l == 0 or d == 0:
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=g.device)
+    if d == 0:
         return out
-    keys, counts = backward_order(indices, num_rows)
-    backward_launch(g, keys, counts, out, l, mode == "mean")
+    backward_launch(g, indices, backward_order(indices, num_rows), out,
+                    mode == "mean")
     embedding_bag_backward.launches += 1
     return out
 

@@ -2,9 +2,12 @@
 same function as ``repro.kernels.embedding_bag.ref.embedding_bag_ref`` in
 the Pallas kernel's order of operations, and the backward, JAX's
 ``bag_lookup`` backward (``repro.kernels.embedding_bag.ops._bwd``) written
-out literally — so that both frameworks and the CUDA kernels agree bit for
-bit."""
+out literally, and the order the backward kernel walks
+(``backward_order_ref``) — so that both frameworks and the CUDA kernels
+agree bit for bit."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -57,3 +60,32 @@ def embedding_bag_backward_ref(g: torch.Tensor, indices: torch.Tensor,
     dtable = torch.zeros((num_rows, d), dtype=g.dtype, device=g.device)
     return dtable.index_add_(0, safe.reshape(-1).to(torch.int64),
                              gl.reshape(-1, d))
+
+
+class BackwardOrder(NamedTuple):
+    """The backward kernel's order of (B, L) bag ids over V rows, int32:
+    row r's run of flat positions ``b * L + l`` is ``perm[offsets[r]:
+    offsets[r + 1]]``; ``counts`` is each bag's number of valid slots."""
+    offsets: torch.Tensor      # (V + 1,)
+    perm: torch.Tensor         # (B * L,), the first offsets[V] used
+    counts: torch.Tensor       # (B,)
+
+
+def backward_order_ref(indices: torch.Tensor, num_rows: int) -> BackwardOrder:
+    """The order of ``embedding_bag.backward_order`` with every run in
+    ascending position order: the per-row counts of the valid slots, their
+    exclusive prefix sums as CSR offsets, and the valid positions stably
+    sorted by row (-1 slots in no run)."""
+    flat = indices.reshape(-1)
+    valid = flat >= 0
+    pos = torch.nonzero(valid).reshape(-1)
+    rows = flat[pos].to(torch.int64)
+    run_len = torch.bincount(rows, minlength=num_rows)
+    offsets = torch.zeros(num_rows + 1, dtype=torch.int64,
+                          device=indices.device)
+    offsets[1:] = torch.cumsum(run_len, 0)
+    perm = torch.zeros(flat.numel(), dtype=torch.int32, device=indices.device)
+    perm[:pos.numel()] = pos[torch.sort(rows, stable=True).indices].to(
+        torch.int32)
+    counts = (indices >= 0).sum(dim=1, dtype=torch.int32)
+    return BackwardOrder(offsets.to(torch.int32), perm, counts)

@@ -5,7 +5,8 @@ Pure-ADD window (``run_window_adds_fused``):
   1. ``windowed.prepare_add_window`` — the committed scores (W, K) from the
      ``partition_affinity`` kernel, each row entry's window slot and the
      fresh flags (a few batched torch ops);
-  2. ``window_rng`` — the slots' random table, one launch;
+  2. the slots' random table: rows of a ``WindowTables`` draw, or one
+     ``window_rng`` launch of its own;
   3. ONE ``add_window_choose`` launch for the W slots' fixup;
   4. ``windowed.commit_add_window`` — the O(n) writes.
 
@@ -18,16 +19,23 @@ design):
      tables, and performs the faithful adjacency row writes, each touched
      row through its own chain of slots (adjacency never depends on
      partition choices);
-  2. ``window_rng`` — the per-slot random draw for every possible
-     partition count, one launch;
+  2. the per-slot random draw for every possible partition count: rows of
+     a ``WindowTables`` draw, or one ``window_rng`` launch of its own;
   3. ONE ``fused_window_choose`` launch for all W slots;
   4. apply — two O(n) gathers rebuild the final journal from
      (w_label, remap): ``label = w_label[last_touch]`` where touched, else
      ``remap[committed]``.
 
-Sweep lanes (``sweep_window_mixed_fused``): steps 1 and 2 per lane, then
-ONE launch of the chooser's sweep form for every lane's window, then the
-apply for all lanes at once.
+Sweep lanes (``sweep_window_mixed_fused``): step 1 per lane, ONE
+``window_rng`` launch for every lane's table, ONE launch of the chooser's
+sweep form for every lane's window, then the apply for all lanes at once.
+
+A window's random table depends only on ``state.key``, the window's first
+event index and K (``state.edge_load.shape[0]``): no window engine writes
+``state.key`` (the port's window functions and JAX's ``core/windowed.py``
+replace every other leaf and carry the key through), and neither does a
+rebalance. So a session draws the tables of many consecutive windows in one
+launch (``WindowTables``) and hands each window its rows.
 
 Nothing here reads the card back to the host. Each kernel's wrapper runs
 its plain version for CPU tensors.
@@ -86,13 +94,56 @@ def _apply(w_label, remap, last_touch, label0):
     return torch.where(last_touch >= 0, lbl_touched, lbl_kept)
 
 
+# the most bytes one multi-window draw holds (K int32 entries a row)
+DRAW_BUDGET_BYTES = 64 << 20
+
+
+def windows_per_draw(window: int, k: int) -> int:
+    """How many windows of ``window`` events one draw covers at K = ``k``:
+    as many as fit ``DRAW_BUDGET_BYTES``, at least one (4,096 at the twitter
+    session's (256, 16), 6 at K = 9,587)."""
+    return max(1, DRAW_BUDGET_BYTES // (4 * k * window))
+
+
+class WindowTables:
+    """The random tables of a run of consecutive windows of one session,
+    drawn ahead: ``take(state, t)`` gives the (window, K) table of the
+    window at global event ``t`` as rows of one ``window_rng`` draw that
+    starts at the first window it serves and covers up to
+    ``windows_per_draw`` windows, never past ``end`` (the global event
+    index after the run's last window). A draw serves later windows while
+    the state's key tensor and K are the ones it was drawn for and the
+    window lies inside it; otherwise ``take`` draws again from ``t``.
+    Rows ``[t - start, t - start + window)`` of a table drawn from
+    ``start`` are the table ``window_rng(key, t, window, K)`` bit for bit
+    (a row depends only on its own event index)."""
+
+    def __init__(self, window: int, end: int):
+        self.window, self.end = int(window), int(end)
+        self._tab = self._key = None
+        self._start = self._rows = self._k = 0
+
+    def take(self, state: PartitionState, t: int) -> torch.Tensor:
+        k = state.edge_load.shape[0]
+        w = self.window
+        if (self._tab is None or state.key is not self._key or k != self._k
+                or not self._start <= t <= self._start + self._rows - w):
+            windows = min(windows_per_draw(w, k),
+                          max(1, -(-(self.end - t) // w)))
+            self._tab = window_rng(state.key, t, windows * w, k)
+            self._key, self._k = state.key, k
+            self._start, self._rows = t, windows * w
+        return self._tab[t - self._start:t - self._start + w]
+
+
 def _fused_lane(state: PartitionState, ets, vs, rows, t0: int, knobs, *,
-                policy: str, balance_guard: str,
-                autoscaling: bool) -> PartitionState:
+                policy: str, balance_guard: str, autoscaling: bool,
+                rand_tab: torch.Tensor | None = None) -> PartitionState:
     """One mixed window through prep → rand table → kernel → apply."""
     w = vs.shape[0]
     prep = _prepare_window(state, ets, vs, rows)
-    rand_tab = window_rng(state.key, t0, w, state.edge_load.shape[0])
+    if rand_tab is None:
+        rand_tab = window_rng(state.key, t0, w, state.edge_load.shape[0])
     w_label, _psel, remap, *small_out = fk.fused_window_choose(
         prep.ev, prep.src_lbl, prep.touch, rand_tab, *wnd.small_args(state),
         knobs, n=state.assignment.shape[0], policy=policy,
@@ -104,33 +155,39 @@ def _fused_lane(state: PartitionState, ets, vs, rows, t0: int, knobs, *,
 
 def run_window_mixed_fused(state: PartitionState, ets, vs, rows, t0: int,
                            *, policy: str, cfg: EngineConfig,
-                           knobs: torch.Tensor | None = None
+                           knobs: torch.Tensor | None = None,
+                           rand_tab: torch.Tensor | None = None
                            ) -> PartitionState:
     """Drop-in for ``windowed.run_window_mixed`` (static knob),
     bit-identical to the faithful engine. ``knobs`` is
-    ``transition.knob_tensor(cfg, n, device)``, made here when not given."""
+    ``transition.knob_tensor(cfg, n, device)``, made here when not given;
+    ``rand_tab`` the window's (W, K) random table (``WindowTables.take``),
+    drawn here when not given."""
     check_row_width(state, rows)
     if knobs is None:
         knobs = tx.knob_tensor(cfg, state.assignment.shape[0], vs.device)
     return _fused_lane(state, ets, vs, rows, t0, knobs, policy=policy,
                        balance_guard=cfg.balance_guard,
-                       autoscaling=policy == "sdp" and cfg.autoscale)
+                       autoscaling=policy == "sdp" and cfg.autoscale,
+                       rand_tab=rand_tab)
 
 
 def run_window_adds_fused(state: PartitionState, vs, rows, t0: int, *,
                           policy: str, cfg: EngineConfig,
-                          knobs: torch.Tensor | None = None
+                          knobs: torch.Tensor | None = None,
+                          rand_tab: torch.Tensor | None = None
                           ) -> PartitionState:
     """Drop-in for ``windowed.run_window_adds`` through the kernels
-    (``partition_affinity``, ``window_rng``, ``add_window_choose``),
-    bit-identical to the faithful engine."""
+    (``partition_affinity``, ``window_rng`` unless ``rand_tab`` is given,
+    ``add_window_choose``), bit-identical to the faithful engine."""
     check_row_width(state, rows)
     n = state.assignment.shape[0]
     if knobs is None:
         knobs = tx.knob_tensor(cfg, n, vs.device)
     prep = wnd.prepare_add_window(state, vs, rows, scores_for_state)
-    rand_tab = window_rng(state.key, t0, vs.shape[0],
-                          state.edge_load.shape[0])
+    if rand_tab is None:
+        rand_tab = window_rng(state.key, t0, vs.shape[0],
+                              state.edge_load.shape[0])
     out = fk.add_window_choose(
         *prep, vs, rand_tab, *wnd.small_args(state), knobs, n=n,
         policy=policy, balance_guard=cfg.balance_guard,
@@ -156,10 +213,11 @@ def sweep_window_mixed_fused(states: list, kns: torch.Tensor, policy_idx,
                              shared_stream: bool = False) -> list:
     """Drop-in for ``windowed.sweep_window_mixed`` through the kernels, the
     port's ``sweep_window_mixed_fused``: per window step, every lane's
-    ``window_prep`` and ``window_rng`` (a launch each, on the lane's own
-    state), then ONE launch of the chooser's sweep form
-    (``fused_window_choose_lanes``) for all lanes, each lane under its own
-    policy and scale gate (``flags``), then the apply for all lanes at
+    ``window_prep`` (a launch each, on the lane's own state), ONE
+    ``window_rng`` launch for every lane's table (the lanes' keys stacked
+    once: no window writes a key), then ONE launch of the chooser's sweep
+    form (``fused_window_choose_lanes``) for all lanes, each lane under its
+    own policy and scale gate (``flags``), then the apply for all lanes at
     once: two batched gathers rebuild every lane's journal. Nothing reads
     the card back to the host. Bit-identical per lane to
     ``sweep_window_mixed``."""
@@ -173,12 +231,12 @@ def sweep_window_mixed_fused(states: list, kns: torch.Tensor, policy_idx,
                          dtype=torch.int32, device=dev)
     lanes = [tuple(wnd.lane_events(x, b, shared_stream)
                    for x in (ets, vs, rows)) for b in range(len(states))]
+    keys = torch.stack([st.key for st in states])
     for i0 in starts:
         sl = slice(i0, i0 + window)
         preps = [_prepare_window(st, et_b[sl], vs_b[sl], rows_b[sl])
                  for st, (et_b, vs_b, rows_b) in zip(states, lanes)]
-        rand_tab = torch.stack([window_rng(st.key, t0 + i0, window, k)
-                                for st in states])
+        rand_tab = window_rng(keys, t0 + i0, window, k)
         w_label, _psel, remap, active, loads, cut_matrix, scalars = \
             fk.fused_window_choose_lanes(
                 *(torch.stack([getattr(p, f) for p in preps])

@@ -1,1 +1,1 @@
-"""A window's random draw table in one kernel."""
+"""Windows' random draw tables, many tables in one kernel launch."""

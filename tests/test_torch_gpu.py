@@ -23,11 +23,12 @@ from repro_torch.graph.stream import EVENT_ADD, interleaved_churn
 from repro_torch.api import Partitioner
 from repro_torch.kernels import common
 from repro_torch.kernels.embedding_bag.embedding_bag import (
-    embedding_bag, embedding_bag_backward, load_width,
+    backward_launch, backward_order, embedding_bag, embedding_bag_backward,
+    load_width,
 )
 from repro_torch.kernels.embedding_bag.ops import bag_lookup
 from repro_torch.kernels.embedding_bag.ref import (
-    embedding_bag_backward_ref, embedding_bag_ref,
+    backward_order_ref, embedding_bag_backward_ref, embedding_bag_ref,
 )
 from repro_torch.data import pipeline as dp
 from repro_torch.launch import steps as train_steps
@@ -1110,7 +1111,8 @@ def test_partitioner_twitter_prefix_kernels_match_plain(cuda):
     """The twitter session (scale 1.0, degree cap 192) over its first 66
     windows — 63 pure-ADD, 3 mixed — with use_kernel=True, leaf for leaf
     equal to use_kernel=False on the card; every window went through its
-    kernels, every pure-ADD one through the lanes add kernel."""
+    kernels, every pure-ADD one through the lanes add kernel, and the 66
+    windows' random tables came from one window_rng draw."""
     g = cap_degree(load_dataset("twitter"), 192)
     s = interleaved_churn(g, warmup_frac=0.2, del_every=3, edge_del_every=5,
                           seed=0)
@@ -1124,7 +1126,7 @@ def test_partitioner_twitter_prefix_kernels_match_plain(cuda):
     kernel = Partitioner.from_stream(sub, cfg, policy="sdp", seed=0,
                                      use_kernel=True, device=cuda).feed(sub)
     launched = [c.launches - b for c, b in zip(counters, before)]
-    assert launched == [3, 66, 63, 3, 63]
+    assert launched == [3, 1, 63, 3, 63]     # one draw for the 66 windows
     assert fk.add_window_choose.kernel_launches == {
         "lanes": by["lanes"] + 63, "large": by["large"]}
     m = kernel.metrics()
@@ -1593,3 +1595,132 @@ def test_halo_mgn_step_on_card_matches_host_and_dense(cuda, p):
     dense = _gnn_grads(MGN.loss_fn, card, train.batch_tensors(batch, cuda),
                        cfg)
     _assert_gnn_close(got, dense)
+
+
+# ---------------------------------------------------------------------------
+# the backward's order and pass, window_rng's table axis and its callers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("v,d,b,l,kind", [
+    ((1 << 22), 256, 131_072, 8, "random"), (50, 256, 4096, 8, "hot"),
+    (7, 130, 300, 37, "random"), (300, 5, 45, 2000, "padded"),
+    (1000, 24, 512, 9, "dup"), (1, 16, 40, 3, "random")])
+def test_embedding_bag_backward_order_and_pass(cuda, v, d, b, l, kind):
+    """The card's order against the plain one: the same CSR offsets and bag
+    counts, each run the same positions (a run of more than 32 in the same
+    ascending order; shorter ones sorted by the pass); then the pass over
+    it into a NaN-filled table writes every row, bit-equal to the plain
+    backward on the host, twice."""
+    idx, g = bwd_case(cuda, v, d, b, l, kind, seed=7 * v + l)
+    got = backward_order(idx, v)
+    want = backward_order_ref(idx.cpu(), v)
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.int32 for x in got)
+    assert torch.equal(got.offsets.cpu(), want.offsets)
+    assert torch.equal(got.counts.cpu(), want.counts)
+    off = want.offsets.tolist()
+    perm, ref = got.perm.cpu(), want.perm
+    for r in range(v):
+        run, ref_run = perm[off[r]:off[r + 1]], ref[off[r]:off[r + 1]]
+        if run.numel() > 32:
+            assert torch.equal(run, ref_run), r
+        else:
+            assert torch.equal(torch.sort(run).values, ref_run), r
+    for mode in ("sum", "mean"):
+        plain = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, mode=mode)
+        for _ in range(2):
+            out = torch.full((v, d), float("nan"), device=cuda)
+            backward_launch(g, idx, got, out, mode == "mean")
+            torch.cuda.synchronize()
+            assert _same_bits(out.cpu(), plain), mode
+
+
+def test_embedding_bag_backward_odd_alignment_takes_the_scalar_pass(cuda):
+    """A g whose base is not 16-byte aligned (a row view at an odd offset)
+    takes the one-float pass, bit-equal to the plain backward."""
+    v, d, b, l = 500, 64, 300, 6
+    idx, g = bwd_case(cuda, v, d, b, l, "random", seed=11)
+    flat = torch.empty(b * d + 1, device=cuda)
+    g_odd = flat[1:].view(b, d)
+    g_odd.copy_(g)
+    for mode in ("sum", "mean"):
+        got = embedding_bag_backward(g_odd, idx, v, mode=mode)
+        want = embedding_bag_backward_ref(g.cpu(), idx.cpu(), v, mode=mode)
+        assert _same_bits(got.cpu(), want), mode
+
+
+@pytest.mark.parametrize("k", [1, 16, 1000])
+@pytest.mark.parametrize("lanes", [1, 3, 64])
+def test_window_rng_table_axis_matches_one_window_draws(cuda, lanes, k):
+    """(L, 2) keys draw the (L, w, K) tables in one launch, each bit-equal
+    to its one-window draw and to the plain version, at a shared start and
+    at one whose window wraps past 2^32."""
+    keys = torch.stack([prng_key(7 * j + (2**40 if j % 2 else 0),
+                                 device=cuda) for j in range(lanes)])
+    w = 256
+    for t0 in (114_958, 2**32 - 100):
+        before = window_rng.launches
+        got = window_rng(keys, t0, w, k)
+        assert window_rng.launches == before + 1
+        assert got.shape == (lanes, w, k)
+        one = torch.stack([window_rng(keys[j], t0, w, k)
+                           for j in range(lanes)])
+        assert torch.equal(got, one)
+        assert torch.equal(got.cpu(), window_rng_ref(keys.cpu(), t0, w, k))
+
+
+@pytest.mark.parametrize("k_max,window", [(16, 128), (200, 256)])
+def test_session_multi_window_draws_equal_one_draw_a_window(cuda, monkeypatch,
+                                                            k_max, window):
+    """A card session whose windows take their tables from draws of many
+    windows (one launch for the feed) equals one that draws a table a
+    window, fed in chunks that cut windows; then a rebalance and more
+    feeds."""
+    s = _grqc_stream()
+    T = s.num_events
+    bounds = [0, 1000, 1001, T // 2, T]
+    cfg = EngineConfig(k_max=k_max, k_init=1, max_cap=300, autoscale=True)
+
+    def run(per_draw):
+        monkeypatch.setattr(fops, "windows_per_draw",
+                            lambda w, k: per_draw or (1 << 30))
+        part = Partitioner.from_stream(s, cfg, policy="sdp", seed=0,
+                                       use_kernel=True, window=window,
+                                       device=cuda)
+        before = window_rng.launches
+        for a, b in zip(bounds[:-2], bounds[1:-1]):
+            part.feed((s.etype[a:b], s.vertex[a:b], s.nbrs[a:b]))
+        part.rebalance(m=32, passes=1)
+        a = bounds[-2]
+        part.feed((s.etype[a:], s.vertex[a:], s.nbrs[a:]))
+        part.sync()
+        return part, window_rng.launches - before
+
+    many, draws = run(None)
+    one, per_window = run(1)
+    feeds = [b - a for a, b in zip(bounds[:-1], bounds[1:])]
+    assert draws == sum(f >= window for f in feeds)
+    assert per_window == sum(f // window for f in feeds)
+    _assert_states_equal(many.state, one.state)
+
+
+def test_sweep_one_window_rng_launch_a_step(cuda):
+    """Sweep(...).windowed(64).kernel(): one window_rng launch a window
+    step for all six lanes, every lane equal to its own card session."""
+    from repro_torch.api import Sweep
+    s = interleaved_churn(load_dataset("grqc", scale=0.2), warmup_frac=0.2,
+                          del_every=3, edge_del_every=5, seed=0)
+    runs = [(p, EngineConfig(k_max=16, k_init=1 if p == "sdp" else 4,
+                             max_cap=60, autoscale=p == "sdp"), b)
+            for b, p in enumerate(POLICIES)]
+    before = window_rng.launches
+    res = Sweep(s, device=cuda).lanes(runs).windowed(64).kernel().run()
+    assert window_rng.launches - before == -(-s.num_events // 64)
+    for r in res:
+        part = Partitioner.from_stream(s, r.cfg, policy=r.policy, seed=r.seed,
+                                       window=64, engine="windowed",
+                                       use_kernel=True, device=cuda)
+        draws = window_rng.launches
+        part.feed(s)
+        assert window_rng.launches - draws == 1
+        _assert_states_equal(part.state, r.state)

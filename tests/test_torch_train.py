@@ -1,7 +1,7 @@
 """The port's two-tower training slice against the JAX package on the same
 inputs, on the CPU: bag_lookup's plain backward (bit for bit against
-jax.vjp of JAX's bag_lookup, and a model of the CUDA kernel's walk over
-the sorted keys), loss_fn's value, metrics and gradients, the train step
+jax.vjp of JAX's bag_lookup, and a model of the CUDA kernel's pass over
+its int32 CSR order), loss_fn's value, metrics and gradients, the train step
 with and without microbatches, the data readers, the trainer CLI, a
 checkpoint JAX's trainer wrote resumed by the port's, and the reference's
 resume, which restarts the batches (mirrored, ROADMAP C). Tolerances are
@@ -68,26 +68,23 @@ def _bwd_case(v, d, b, l, kind, seed):
 
 
 def _kernel_walk(g, idx, v, mode):
-    """The CUDA kernel's algorithm on the host: the sorted keys of
-    ``backward_order``, each row's run of positions walked in order into
-    an f32 sum from +0.0, mean slots divided by their bag's count, -1
-    slots skipped, untouched rows zero."""
-    keys, counts = backward_order(idx, v)
-    rows, pos = (keys >> 32).numpy(), (keys & 0xFFFFFFFF).numpy()
+    """The CUDA kernel's algorithm on the host: the int32 CSR order of
+    ``backward_order``, one pass over the rows, each row's run of
+    positions walked in ascending order into an f32 sum from +0.0, mean
+    slots divided by their bag's count, -1 slots in no run, rows with an
+    empty run written as zeros."""
+    order = backward_order(idx, v)
+    off, perm = order.offsets.numpy(), order.perm.numpy()
     l = idx.shape[1]
-    gn, cnt = g.numpy(), np.maximum(counts.numpy(), 1).astype(np.float32)
-    out = np.zeros((v, g.shape[1]), np.float32)
-    for i in range(len(keys)):
-        r = rows[i]
-        if r >= v:
-            continue
-        x = gn[pos[i] // l]
-        if mode == "mean":
-            x = x / cnt[pos[i] // l]
-        if i == 0 or rows[i - 1] != r:
-            out[r] = np.float32(0.0) + x
-        else:
-            out[r] = out[r] + x
+    gn = g.numpy()
+    cnt = np.maximum(order.counts.numpy(), 1).astype(np.float32)
+    out = np.empty((v, g.shape[1]), np.float32)
+    for r in range(v):
+        acc = np.zeros(g.shape[1], np.float32)
+        for pos in np.sort(perm[off[r]:off[r + 1]]):
+            x = gn[pos // l]
+            acc = acc + (x / cnt[pos // l] if mode == "mean" else x)
+        out[r] = acc
     return out
 
 
@@ -125,12 +122,14 @@ def test_plain_backward_bit_equal_to_jax_vjp(v, d, b, l, mode, kind):
 
 
 def test_backward_order_keys():
+    """The order as int32 CSR arrays: row r's run of flat positions is
+    ``perm[offsets[r]:offsets[r + 1]]``, ascending; -1 slots in no run."""
     idx = torch.tensor([[2, -1, 0], [0, 2, 2]], dtype=torch.int32)
-    keys, counts = backward_order(idx, 3)
-    assert keys.dtype == torch.int64
-    assert (keys >> 32).tolist() == [0, 0, 2, 2, 2, 3]
-    assert (keys & 0xFFFFFFFF).tolist() == [2, 3, 0, 4, 5, 1]
-    assert counts.tolist() == [2, 3] and counts.dtype == torch.int32
+    order = backward_order(idx, 3)
+    assert all(x.dtype == torch.int32 for x in order)
+    assert order.offsets.tolist() == [0, 2, 2, 5]
+    assert order.perm[:5].tolist() == [2, 3, 0, 4, 5]
+    assert order.counts.tolist() == [2, 3]
 
 
 def test_bag_lookup_raises_for_a_bf16_table_that_needs_a_gradient():
