@@ -84,9 +84,11 @@ its 48 layers through ``launch.train --full`` (phase ``lm_train``: 2 x
 plain attention's, the CLI resumed), and runs moonshot and gemma2 at
 every width with 2 layers as ``launch.steps``' step bundles on a (data 2,
 model 2) mesh of four ``cuda:0`` entries, each entry on its own shards
-with explicit collectives (phase ``lm_mesh``: a train step, a prefill, a
-4-slot decode and gemma2's 1-slot decode over a cache split over every
-axis, each held to the one-card step). One JSON line per phase; the last
+with explicit collectives (phase ``lm_mesh``: a train step under the
+baseline scheme and one under the ``opt`` scheme — ZeRO-3 weights,
+sequence parallelism, two microbatches —, a prefill, a 4-slot decode and
+gemma2's 1-slot decode over a cache split over every axis, each held to
+the one-card step). One JSON line per phase; the last
 line is ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero without that line. Needs one CUDA
 card; imports nothing of JAX.
@@ -210,8 +212,9 @@ from repro_torch.optim import (  # noqa: E402
 from repro_torch.runtime import collectives  # noqa: E402
 from repro_torch.runtime import gnn_halo_train as GH  # noqa: E402
 from repro_torch.runtime import gnn_mesh as GM  # noqa: E402
-from repro_torch.runtime import recsys_sharded as RSS  # noqa: E402
+from repro_torch.runtime import lm_seqpar  # noqa: E402
 from repro_torch.runtime import lm_sharded  # noqa: E402
+from repro_torch.runtime import recsys_sharded as RSS  # noqa: E402
 from repro_torch.runtime import sharding as SHR  # noqa: E402
 from repro_torch.runtime import sweep as sweep_rt  # noqa: E402
 from repro_torch.kernels.fused_chooser.ref import prepare_rows_ref  # noqa: E402
@@ -5853,20 +5856,23 @@ def lm_train_main(card: str) -> int:
     return 0
 
 
-# phase lm_mesh: launch.steps' LM bundles (build_lm, baseline scheme) on a
-# (data 2, model 2) mesh of four cuda:0 entries, each entry running its own
-# shards with explicit collectives (runtime.lm_sharded): moonshot and
-# gemma2 at every width of CONFIG, n_layers cut to 2 (48 and 42 layers
-# cannot share one 80 GB card with a one-card reference, and four entries
-# on one card shard nothing away); a train step at train_4k's length with
-# one sequence a data rank, a prefill of 2 x 4,096 tokens, a decode of 4
-# slots at 8,192 keys and, for gemma2, a decode of one slot whose cache is
-# split over every axis. The loss's vocabulary chunk is cut to 1,024 tokens
-# on both paths (four entries' logits share one card; the chunk changes
-# only the order of the loss's sums)
+# phase lm_mesh: launch.steps' LM bundles (build_lm) on a (data 2, model 2)
+# mesh of four cuda:0 entries, each entry running its own shards with
+# explicit collectives (runtime.lm_sharded; the opt scheme's train step
+# runtime.lm_seqpar): moonshot and gemma2 at every width of CONFIG,
+# n_layers cut to 2 (48 and 42 layers cannot share one 80 GB card with a
+# one-card reference, and four entries on one card shard nothing away); a
+# baseline train step at train_4k's length with one sequence a data rank,
+# an opt train step at that length with batch 8 (each microbatch two rows
+# a data rank: its MoE tokens regrouped into JAX's dispatch groups and its
+# microbatches spread over the data ranks), a prefill of 2 x 4,096 tokens,
+# a decode of 4 slots at 8,192 keys and, for gemma2, a decode of one slot
+# whose cache is split over every axis. The loss's vocabulary chunk is cut
+# to 1,024 tokens on both paths (four entries' logits share one card; the
+# chunk changes only the order of the loss's sums)
 LM_MESH_ARCHS = (MOE_ARCH, LM_ARCH)
 LM_MESH_DIMS, LM_MESH_LAYERS, LM_MESH_XENT_CHUNK = (2, 2), 2, 1024
-LM_MESH_BATCH, LM_MESH_SEQ = 2, 4096
+LM_MESH_BATCH, LM_MESH_OPT_BATCH, LM_MESH_SEQ = 2, 8, 4096
 LM_MESH_SLOTS, LM_MESH_KEYS = 4, 8192
 LM_MESH_REPS = 3
 # the sharded step against the one-card step on the same params and inputs
@@ -5917,10 +5923,11 @@ def _entry_bytes(tree: dict) -> list:
 
 def _mesh_hook(module, attr: str, n: int) -> _Hook:
     """Keeps the arguments, as given, of the first ``n`` calls of
-    ``module.<attr>`` in a sharded call: ``layers.attention`` (a train
-    step's forward, a prefill, a decode over a cache split over heads;
-    one call an entry a layer) or ``lm_sharded.flash_attention`` (a
-    decode's key blocks where the cache is split over the sequence)."""
+    ``module.<attr>`` in a sharded call: ``layers.attention`` (a prefill,
+    a decode over a cache split over heads; one call an entry a layer) or
+    ``lm_sharded.flash_attention`` (a decode's key blocks where the cache
+    is split over the sequence). A train step keeps its forward calls by
+    ``_forward_key``."""
     return _Hook(module, attr, lambda i: i if i < n else None, clone=False)
 
 
@@ -5994,35 +6001,68 @@ def _mesh_call(fn, *args):
                  "wire_bytes": wire}
 
 
-def _mesh_train(arch, mesh, cfg, params, dev) -> dict:
+def _forward_key(cfg, n_entries: int, micro: int):
+    """A ``_Hook`` key that keeps a sharded train step's forward calls of a
+    function called once an entry a layer (``layers.attention``,
+    ``moe.route``): each microbatch's forward, then its backward's
+    recompute (layers in reverse), each ``n_layers · n_entries`` calls."""
+    per = cfg.n_layers * n_entries
+    return lambda i: i if i < 2 * micro * per and (i // per) % 2 == 0 \
+        else None
+
+
+def _mesh_train(arch, mesh, cfg, params, dev,
+                scheme: str = "baseline") -> dict:
     """A sharded train step (step one checked against the one-card step's,
     step two timed: step one carries the process's first backward) beside
-    the one-card step (its first, run after the sharded one, while the
-    sharded state stays on the card); for an MoE model also the one-card
-    step fed the sharded step's expert choices."""
-    b = train_steps.build_lm(arch, dataclasses.replace(
+    the one-card step (its first, run after the sharded ones, the sharded
+    step one's ``mu`` kept on the host: a moonshot opt step and its
+    one-card reference at batch 8 do not fit the card together); for an
+    MoE model also the one-card step fed the sharded step's expert
+    choices. Under ``opt`` the batch is LM_MESH_OPT_BATCH, the one-card
+    step ``train_step(micro=2)`` on the bundle's config (dispatch groups
+    n_dp · tp), and every forward attention call runs with the entry's
+    ``q_offset``."""
+    opt = scheme == "opt"
+    shape = dataclasses.replace(
         LM_SHAPES["train_4k"], seq_len=LM_MESH_SEQ,
-        global_batch=LM_MESH_BATCH), mesh)
+        global_batch=LM_MESH_OPT_BATCH if opt else LM_MESH_BATCH)
+    b = train_steps.build_lm(arch, shape, mesh, scheme)
+    micro = lm_seqpar.MICRO if opt else 1
+    if opt:
+        cfg = train_steps._lm_opt_cfg(arch, shape, mesh)
     batch = trainer.batch_tensors(dp.lm_batch(
-        cfg.vocab, LM_MESH_BATCH, LM_MESH_SEQ, seed=0, step=0), dev)
+        cfg.vocab, shape.global_batch, LM_MESH_SEQ, seed=0, step=0), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     p_sh = place_tree(params, b.in_shardings[0])
     o_sh = tree_map(_zeros_placed, b.specs[1], b.in_shardings[1])
     b_sh = place_tree(batch, b.in_shardings[2])
-    out = {"bundle": b.name, "meta": b.meta,
+    out = {"bundle": b.name, "scheme": scheme, "batch": shape.global_batch,
+           "micro": micro, "meta": b.meta,
            "param_entry_bytes": _entry_bytes(p_sh),
            "opt_entry_bytes": _entry_bytes(o_sh)}
-    forward = len(mesh.devices) * cfg.n_layers
-    with _mesh_routes(cfg, len(mesh.devices)) as routes, \
-            _mesh_hook(layers, "attention", forward) as rec:
+    n_entries = len(mesh.devices)
+    forward = micro * n_entries * cfg.n_layers
+    key = _forward_key(cfg, n_entries, micro)
+    with _Hook(moe, "route", key, clone=False) as routes, \
+            _Hook(layers, "attention", key, clone=False) as rec:
         (p_sh, o_sh, metrics), call = _mesh_call(b.fn, p_sh, o_sh, b_sh)
+    out["sharded_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     sharded = {k: float(gather(v)) for k, v in metrics.items()}
     out["sharded"] = {**sharded, **call}
-    out["attention"] = _mesh_attention(rec, f"{b.name} forward",
+    out["attention"] = _mesh_attention(rec, f"{b.name} {scheme} forward",
                                        cfg.attn_chunk)
-    choices = _mesh_choices(routes, cfg)
+    offsets = sorted({r["q_offset"] for r in out["attention"].values()})
+    choices = _mesh_choices(routes, cfg, mesh, micro)
+    attention_calls = rec.calls
     del routes, rec
-    mu_sh = dict(tree_paths(o_sh["mu"]))
-    step = train_steps.train_step(T.loss_fn, cfg, train_steps.make_opt())
+    mu_sh = {path: gather(x, HOST) for path, x in tree_paths(o_sh["mu"])}
+    out["sharded"]["step2"] = _mesh_call(b.fn, p_sh, o_sh, b_sh)[1]
+    del p_sh, o_sh, b_sh, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = train_steps.train_step(T.loss_fn, cfg, train_steps.make_opt(),
+                                  micro)
     runs = [("one_card", None)]
     if choices is not None:
         runs.append(("one_card_same_routes", choices))
@@ -6035,15 +6075,13 @@ def _mesh_train(arch, mesh, cfg, params, dev) -> dict:
         if choices is not None and forced is None:
             out["routing"] = _routing_diff(choices, _choices(hook))
         del hook
-        rel = {"/".join(path): _rel_l2(gather(mu_sh[path]), want)
+        rel = {"/".join(path): _rel_l2(mu_sh[path].to(dev), want)
                for path, want in tree_paths(state["mu"])}
         out[name] = {**{k: float(v) for k, v in m.items()}, "ms": ms,
                      "flash_attention": fa.flash_attention.launches,
                      "mu_rel_l2": rel}
         del new, state, m
         torch.cuda.empty_cache()
-    _, call2 = _mesh_call(b.fn, p_sh, o_sh, b_sh)
-    out["sharded"]["step2"] = call2
     ref = out["one_card"]
     out["loss_rel"] = abs(sharded["loss"] - ref["loss"]) / abs(ref["loss"])
     same = out.get("one_card_same_routes", ref)
@@ -6052,39 +6090,54 @@ def _mesh_train(arch, mesh, cfg, params, dev) -> dict:
     out["limits"] = {"loss_rel": LM_MESH_LOSS_REL,
                      "mu_rel_l2": LM_MESH_GRAD_REL,
                      "mu_rel_l2_same_routes": LM_MESH_SAME_ROUTES_REL}
+    what = f"lm_mesh {arch.arch_id} ({scheme})"
     if not np.isfinite(list(sharded.values())).all() \
             or out["loss_rel"] > LM_MESH_LOSS_REL:
-        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded step's "
-                             f"loss differs from the one-card step's: {out}")
+        raise AssertionError(f"{what}: the sharded step's loss differs from "
+                             f"the one-card step's: {out}")
     if not out["mu_rel_l2_max"] <= LM_MESH_GRAD_REL \
             or not out["mu_rel_l2_same_routes_max"] <= \
             LM_MESH_SAME_ROUTES_REL:
-        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded step's "
-                             f"gradients differ from the one-card step's: "
-                             f"{out}")
-    if call["flash_attention"] != 2 * forward:      # forward, recompute
-        raise AssertionError(f"lm_mesh {arch.arch_id}: the sharded train "
-                             f"step launched flash_attention "
-                             f"{call['flash_attention']} times, not "
-                             f"{2 * forward}")
+        raise AssertionError(f"{what}: the sharded step's gradients differ "
+                             f"from the one-card step's: {out}")
+    # forward and recompute; every forward call checked against the plain
+    # attention, and under opt the model rank 1 entries' at q_offset S / 2
+    if call["flash_attention"] != 2 * forward \
+            or attention_calls != 2 * forward \
+            or len(out["attention"]) != forward \
+            or (opt and offsets != [0, LM_MESH_SEQ // 2]):
+        raise AssertionError(f"{what}: the sharded train step launched "
+                             f"flash_attention {call['flash_attention']} "
+                             f"times in {attention_calls} attention calls, "
+                             f"{len(out['attention'])} checked at q_offset "
+                             f"{offsets}, not {2 * forward} / {forward}")
     return out
 
 
 def _mesh_routes(cfg, n_entries: int) -> _Hook:
     """Keeps a sharded call's ``moe.route`` calls (one an entry a layer)."""
-    n = cfg.n_layers * n_entries
-    return _Hook(moe, "route", lambda i: i if i < n else None, clone=False)
+    return _Hook(moe, "route", _forward_key(cfg, n_entries, 1), clone=False)
 
 
-def _mesh_choices(hook: _Hook, cfg) -> list | None:
-    """Each layer's global expert choices from a sharded call on a (data
-    2, model 2) mesh with the batch split over data: its model-rank-0
-    entries' (0 and 2) in data order; None for a dense model."""
+def _mesh_choices(hook: _Hook, cfg, mesh, micro: int = 1) -> list | None:
+    """Each (microbatch, layer)'s global expert choices, in the one-card
+    step's token order, from a sharded call's ``moe.route`` calls that
+    ``hook`` kept (one an entry a layer, the forward's only); None for a
+    dense model. Under the baseline scheme the model entries of a data
+    rank route the same tokens: its model-rank-0 entries' choices in data
+    order; under ``opt`` (``micro`` 2) entry e routes JAX's dispatch group
+    e of the microbatch: every entry's, in entry order."""
     if cfg.moe is None:
         return None
-    got = _choices(hook)
-    return [torch.cat([got[4 * i], got[4 * i + 2]])
-            for i in range(cfg.n_layers)]
+    n = len(mesh.devices)
+    tp = mesh.shape["model"]
+    got = dict(zip(sorted(hook.kept), _choices(hook)))
+    if micro == 1:
+        return [torch.cat([got[n * i + e] for e in range(0, n, tp)])
+                for i in range(cfg.n_layers)]
+    per = cfg.n_layers * n
+    return [torch.cat([got[2 * per * j + n * i + e] for e in range(n)])
+            for j in range(micro) for i in range(cfg.n_layers)]
 
 
 def _logit_dist(got, want) -> dict:
@@ -6147,7 +6200,7 @@ def _mesh_prefill(arch, mesh, cfg, params, dev) -> dict:
             (lg, ck, cv), call = _mesh_call(b.fn, p_sh, t_sh)
             calls.append(call)
     attention = _mesh_attention(rec, b.name, cfg.attn_chunk)
-    choices = _mesh_choices(routes, cfg)
+    choices = _mesh_choices(routes, cfg, mesh)
     del routes, p_sh, rec
     lg, ck, cv = gather(lg), gather(ck), gather(cv)
 
@@ -6189,7 +6242,7 @@ def _mesh_decode(arch, mesh, cfg, params, dev, slots: int) -> dict:
             calls.append(call)
     attention = {**_mesh_attention(rec, b.name, cfg.attn_chunk),
                  **_mesh_lse(blocks, b.name)}
-    choices = _mesh_choices(routes, cfg) if slots > 1 else None
+    choices = _mesh_choices(routes, cfg, mesh) if slots > 1 else None
     del routes, rec, blocks
     donated = k2 is args[2] and v2 is args[3]
     lg, gk, gv = gather(lg), gather(k2), gather(v2)
@@ -6255,13 +6308,33 @@ def _check_lse(dev) -> dict:
             "lse_atol": LSE_ATOL}
 
 
+def _scheme_summary(res: dict) -> dict:
+    """A model's baseline and opt train steps side by side: each entry's
+    param and optimizer bytes, entry 0's wire bytes by op, the sharded
+    (step two) and one-card ms, the peak while the sharded step ran."""
+    out = {}
+    for key in ("train", "train_opt"):
+        r = res[key]
+        out[r["scheme"]] = {
+            "batch": r["batch"], "micro": r["micro"],
+            "param_entry_bytes": r["param_entry_bytes"],
+            "opt_entry_bytes": r["opt_entry_bytes"],
+            "wire_bytes_entry0": {op: v[0] for op, v in
+                                  r["sharded"]["wire_bytes"].items()},
+            "sharded_ms": r["sharded"]["step2"]["ms"],
+            "one_card_ms": r["one_card"]["ms"],
+            "sharded_max_memory_allocated": r["sharded_max_memory_allocated"]}
+    return out
+
+
 def phase_lm_mesh(dev, card: str) -> dict:
     """The LM step bundles on a (data 2, model 2) mesh of four cuda:0
-    entries (see LM_MESH_ARCHS' note): for each model a train step,
-    a prefill and a decode, each held to the port's one-card step on the
-    same params and inputs, with each entry's bytes, the card's peak, the
-    sharded and one-card times, the wire bytes each entry sent by op (the
-    collectives' counters) and flash_attention's launches in each call."""
+    entries (see LM_MESH_ARCHS' note): for each model a train step under
+    the baseline and the ``opt`` scheme, a prefill and a decode, each held
+    to the port's one-card step on the same params and inputs, with each
+    entry's bytes, the card's peak, the sharded and one-card times, the
+    wire bytes each entry sent by op (the collectives' counters) and
+    flash_attention's launches in each call."""
     gc.collect()
     torch.cuda.empty_cache()
     mesh = make_mesh(LM_MESH_DIMS, ("data", "model"), devices=[dev] * 4)
@@ -6280,11 +6353,20 @@ def phase_lm_mesh(dev, card: str) -> dict:
                "reduced": {"n_layers": [get_arch(arch_id).config.n_layers,
                                         cfg.n_layers],
                            "xent_chunk": [get_arch(arch_id).config.xent_chunk,
-                                          cfg.xent_chunk]},
+                                          cfg.xent_chunk],
+                           "train_batch": [LM_SHAPES["train_4k"].global_batch,
+                                           LM_MESH_BATCH],
+                           "opt_train_batch": [
+                               LM_SHAPES["train_4k"].global_batch,
+                               LM_MESH_OPT_BATCH]},
                "param_count": cfg.param_count(),
                "params_grads_moments_bytes": trainer.lm_state_bytes(cfg),
                "memory_allocated_before": before}
         res["train"] = _mesh_train(arch, mesh, cfg, params, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["train_opt"] = _mesh_train(arch, mesh, cfg, params, dev, "opt")
+        res["schemes"] = _scheme_summary(res)
         gc.collect()
         torch.cuda.empty_cache()
         res["prefill"] = _mesh_prefill(arch, mesh, cfg, params, dev)
@@ -6301,12 +6383,13 @@ def phase_lm_mesh(dev, card: str) -> dict:
     calls = [m[k] for m in out["models"].values()
              for k in ("prefill", "decode", "decode_b1") if k in m]
     out["launches"] = {"flash_attention": sum(
-        [m["train"]["sharded"]["flash_attention"]
-         for m in out["models"].values()]
+        [m[k]["sharded"]["flash_attention"] for m in out["models"].values()
+         for k in ("train", "train_opt")]
         + [c["sharded"]["flash_attention"] for c in calls])}
     checked = [r for m in out["models"].values()
-               for c in [m["train"], *[m[k] for k in ("prefill", "decode",
-                                                       "decode_b1") if k in m]]
+               for c in [m["train"], m["train_opt"],
+                         *[m[k] for k in ("prefill", "decode", "decode_b1")
+                           if k in m]]
                for r in c["attention"].values()]
     out["attention"] = {"calls": len(checked), "max_abs_err": max(
         r["max_abs_err"] for r in checked)}
@@ -7169,8 +7252,8 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
          # the sharded bundles on the (data 2, model 2) mesh: each call's
          # launches (a train step's include its checkpointed layers'
          # recompute), and the kernel held to the plain version at the
-         # q/k/v of every call of a train step's forward, a prefill and
-         # each decode
+         # q/k/v of every call of a train step's forward (baseline and
+         # opt), a prefill and each decode
          "lm_mesh": {"launches": lm_mesh["launches"]["flash_attention"],
                      "checked_calls": lm_mesh["attention"]["calls"],
                      "max_abs_err": lm_mesh["attention"]["max_abs_err"],
@@ -7178,8 +7261,8 @@ def kernel_line(kernels: dict, twitter: dict, recsys: dict, spmm: dict,
                          f"{arch}:{kind}": m[kind]["sharded"][
                              "flash_attention"]
                          for arch, m in lm_mesh["models"].items()
-                         for kind in ("train", "prefill", "decode",
-                                      "decode_b1") if kind in m}},
+                         for kind in ("train", "train_opt", "prefill",
+                                      "decode", "decode_b1") if kind in m}},
          **{f"{kind}_{name}": {k: lm["kernel"][kind][layer][k]
                                for k in timed + (
                                    "bound_by", "window", "kernel", "n_split",

@@ -22,12 +22,14 @@ package's (``steps.py:41-613``):
 
 The step runs each mesh entry on its own shards with explicit collectives
 (``runtime.collectives``): for an LM ``runtime.lm_sharded`` (FSDP on data
-(x pod), TP on model, EP for MoE experts); for a GNN
-``runtime.gnn_mesh`` (graph parallelism over the flattened mesh) or, under
-the ``halo`` scheme, ``runtime.gnn_halo_train`` (one SDP block a mesh
-entry); for the two-tower model ``runtime.recsys_sharded`` (tables
-row-sharded over ``model``, or every axis under ``opt``). Only the LM
-``opt`` scheme's train step raises, naming its ROADMAP item.
+(x pod), TP on model, EP for MoE experts) or, for the ``opt`` scheme's
+train step, ``runtime.lm_seqpar`` (ZeRO-3 weights, sequence parallelism,
+two microbatches); for a GNN ``runtime.gnn_mesh`` (graph parallelism over
+the flattened mesh) or, under the ``halo`` scheme,
+``runtime.gnn_halo_train`` (one SDP block a mesh entry); for the
+two-tower model ``runtime.recsys_sharded`` (tables row-sharded over
+``model``, or every axis under ``opt``). ``build_step`` builds every cell
+of every family.
 
 Beside the bundles: ``train_step`` (the one-card eager step), ``make_opt``
 and the FLOP counts of the LM and GNN cells.
@@ -65,6 +67,7 @@ from repro_torch.optim.optimizers import (
 )
 from repro_torch.runtime import gnn_halo_train as GH
 from repro_torch.runtime import gnn_mesh as GM
+from repro_torch.runtime import lm_seqpar as SP
 from repro_torch.runtime import lm_sharded as LS
 from repro_torch.runtime import mesh_ctx as MC
 from repro_torch.runtime import recsys_sharded as RSS
@@ -286,9 +289,11 @@ def _lm_param_specs(cfg: T.LMConfig) -> dict:
                   for k, (shape, dt) in T.param_specs(cfg).items()})
 
 
-def _lm_shardings(params_like, mesh: Mesh) -> dict:
-    return SHR.shardings_from_rules(params_like, SHR.lm_param_rules(mesh),
-                                    mesh)
+def _lm_shardings(params_like, mesh: Mesh, rules: list = None) -> dict:
+    """Placements by ``rules`` (``lm_param_rules`` unless given)."""
+    return SHR.shardings_from_rules(
+        params_like, SHR.lm_param_rules(mesh) if rules is None else rules,
+        mesh)
 
 
 def _lm_cache_sharding(mesh: Mesh, batch: int,
@@ -310,31 +315,63 @@ def _lm_meta(cfg: T.LMConfig, flops: float, tokens: int) -> dict:
 
 
 def _sharded_train_fn(ctx: MC.MeshCtx, bundle_in: tuple, specs: tuple,
-                      name: str, loss):
+                      name: str, loss, micro_batches=None):
     """The sharded train step: ``loss(trees, batch)`` — one param tree and
     one batch shard a leaf for each entry → ``(losses, metrics)``, each a
     list over the entries — its gradients from the first entry's loss,
-    the global norm, and AdamW on each entry's slices in place."""
+    the global norm, and AdamW on each entry's slices in place. With
+    ``micro_batches`` (the batch's shards → a list of such batches, one a
+    microbatch) the gradients are summed in f32 over the microbatches and
+    divided by their count (a tensor), the loss is their mean and no other
+    metric is returned, as the JAX package's ``micro > 1`` step does."""
     opt = make_opt()
     rep = _rep(ctx.mesh)
 
-    def step(params, opt_state, batch):
-        _check_args((params, opt_state, batch), bundle_in, specs, name)
-        paths = ["/".join(p) for p, _ in tree_paths(params)]
-        blocks = tree_leaves(params)
+    def grads_of(blocks: list, paths: list, batch: dict):
         leaves = [[b.shards[e].detach().requires_grad_(True) for b in blocks]
                   for e in range(ctx.n)]
         trees = [_unflatten(paths, lv) for lv in leaves]
         with torch.enable_grad():
-            losses, metrics = loss(trees, {k: list(v.shards)
-                                           for k, v in batch.items()})
+            losses, metrics = loss(trees, batch)
             flat = [x for lv in leaves for x in lv]
             grads = torch.autograd.grad(losses[0], flat, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(flat, grads)]
         k = len(paths)
-        by_entry = [grads[e * k:(e + 1) * k] for e in range(ctx.n)]
-        del leaves, trees, flat, grads
+        return ([x.detach() for x in losses],
+                {k_: [x.detach() for x in v] for k_, v in metrics.items()},
+                [grads[e * k:(e + 1) * k] for e in range(ctx.n)])
+
+    def step(params, opt_state, batch):
+        _check_args((params, opt_state, batch), bundle_in, specs, name)
+        paths = ["/".join(p) for p, _ in tree_paths(params)]
+        blocks = tree_leaves(params)
+        shards = {k_: list(v.shards) for k_, v in batch.items()}
+        if micro_batches is None:
+            losses, metrics, by_entry = grads_of(blocks, paths, shards)
+        else:
+            by_entry = lsum = None
+            mbs = micro_batches(shards)
+            for mb in mbs:
+                losses, _, grads = grads_of(blocks, paths, mb)
+                if by_entry is None:
+                    by_entry = [[g.float() for g in ge] for ge in grads]
+                    lsum = losses
+                else:
+                    for acc, ge in zip(by_entry, grads):
+                        for a, g in zip(acc, ge):
+                            a.add_(g.float())
+                    lsum = [a + b for a, b in zip(lsum, losses)]
+                del grads
+            # divide by a tensor: a Python divisor may become a reciprocal
+            # multiply on the card
+            ns = [torch.tensor(float(len(mbs)), dtype=torch.float32,
+                               device=d) for d in ctx.mesh.devices]
+            for acc, n in zip(by_entry, ns):
+                for a in acc:
+                    a.div_(n)
+            losses = [a / n for a, n in zip(lsum, ns)]
+            metrics = {}
         gnorm = MC.global_norm(ctx, by_entry, paths)
         mu, nu = _entry_trees(opt_state["mu"], ctx.n), \
             _entry_trees(opt_state["nu"], ctx.n)
@@ -352,8 +389,7 @@ def _sharded_train_fn(ctx: MC.MeshCtx, bundle_in: tuple, specs: tuple,
                 count.copy_(new["count"])
                 opt_state["gnorm"].shards[e].copy_(new["gnorm"])
             del updates
-        out = {k_: [x.detach() for x in v] for k_, v in metrics.items()}
-        out.update(loss=[x.detach() for x in losses], gnorm=gnorm)
+        out = dict(metrics, loss=losses, gnorm=gnorm)
         return params, opt_state, {
             k_: _placed(rep, (), v) for k_, v in out.items()}
 
@@ -381,27 +417,71 @@ def _opt_like(params_like: dict) -> dict:
             "gnorm": _meta((), torch.float32)}
 
 
+def _lm_opt_cfg(arch: ArchDef, shape: LMShape, mesh: Mesh) -> T.LMConfig:
+    """The config of the ``opt`` scheme's train step, as JAX's
+    ``build_lm`` makes it (``steps.py:180-196``): query chunking off, MoE
+    dispatch groups one an activation shard (``n_dp · tp``) and the
+    buffer's spec. JAX's ``act_pspec``, ``kv_pspec`` and ``kv_chunk`` are
+    the layout ``runtime.lm_seqpar`` runs (the port's config has no such
+    fields)."""
+    cfg = _lm_cfg_for_mesh(arch, mesh)
+    da = SHR.batch_axes(mesh)
+    tp = mesh.shape["model"]
+    return dataclasses.replace(
+        cfg, attn_chunk=max(cfg.attn_chunk, shape.seq_len),
+        moe=None if cfg.moe is None else dataclasses.replace(
+            cfg.moe, dispatch_groups=_n_dp(mesh) * tp,
+            buf_pspec=(tuple(da), "model", None, None)))
+
+
+def _lm_opt_train_fn(ctx: LS.Ctx, bundle_in: tuple, specs: tuple, name: str,
+                     batch: int, seq: int):
+    """The ``opt`` scheme's sharded train step (``runtime.lm_seqpar``):
+    two microbatches, their gradients summed in f32. A layout the program
+    cannot split evenly raises when the step is called."""
+    why = SP.layout_error(ctx, batch, seq)
+    n_tokens = batch // SP.MICRO * seq
+
+    def loss(trees, mb):
+        out = SP.loss(ctx, trees, mb["tokens"], mb["labels"], n_tokens)
+        return [o[0] for o in out], {}
+
+    def micro_batches(shards):
+        return SP.micro_batches(ctx, shards["tokens"], shards["labels"],
+                                batch)
+
+    step = _sharded_train_fn(ctx, bundle_in, specs, name, loss,
+                             micro_batches)
+    if why is None:
+        return step
+
+    def refuse(*args):
+        raise ValueError(f"{name}: the opt scheme's train step needs the "
+                         f"batch split evenly over the mesh, and {why} "
+                         "(ROADMAP A18.4, the opt scheme: A item 3.5)")
+    return refuse
+
+
 def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
              scheme: str = "baseline") -> StepBundle:
-    """The JAX package's ``build_lm`` (``steps.py:175-285``), baseline
-    scheme. ``opt`` changes only the train cells there (ZeRO-3 rules,
-    ``micro=2``, sequence parallelism) and raises here for them (ROADMAP
-    A18.4, the ``opt`` scheme); on prefill and decode its bundle is the
-    baseline's, as in JAX."""
+    """The JAX package's ``build_lm`` (``steps.py:175-285``). Under the
+    baseline scheme each entry runs ``runtime.lm_sharded``; ``opt``
+    changes only the train cells, as in JAX: ZeRO-3 params
+    (``lm_param_rules_zero``), the batch at ``(da, "model")`` where the
+    sequence splits over ``model``, sequence parallelism and ``micro=2``,
+    each entry running ``runtime.lm_seqpar``. On prefill and decode the
+    ``opt`` bundle is the baseline's."""
     if scheme == "halo" or scheme not in ("baseline", "opt"):
         raise ValueError(f"scheme {scheme!r} is not an LM scheme of the "
                          "port: the halo scheme is MeshGraphNet's "
                          "(ROADMAP A18.4, build_gnn_halo)")
-    if scheme == "opt" and shape.kind == "train":
-        raise ValueError(f"{arch.arch_id}:{shape.name}: the opt scheme's "
-                         "train step (lm_param_rules_zero, micro=2, sequence "
-                         "parallelism) is not ported yet (ROADMAP A18.4, the "
-                         "opt scheme: A item 3.3)")
-    cfg = _lm_cfg_for_mesh(arch, mesh)
-    ctx = LS.Ctx(mesh, cfg)
+    opt = scheme == "opt" and shape.kind == "train"
+    cfg = _lm_opt_cfg(arch, shape, mesh) if opt \
+        else _lm_cfg_for_mesh(arch, mesh)
+    ctx = SP.make_ctx(mesh, cfg) if opt else LS.Ctx(mesh, cfg)
     da = SHR.batch_axes(mesh)
     params_like = _lm_param_specs(cfg)
-    param_sh = _lm_shardings(params_like, mesh)
+    param_sh = _lm_shardings(params_like, mesh, ctx.rules)
     b, s = shape.global_batch, shape.seq_len
     n_dp = _n_dp(mesh)
     sharded = b % n_dp == 0
@@ -410,6 +490,8 @@ def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
     i32 = torch.int32
 
     if shape.kind == "train":
+        if opt and s % mesh.shape["model"] == 0:
+            bspec = _sh(mesh, da, "model")
         opt_like = _opt_like(params_like)
         opt_sh = _opt_shardings(param_sh, mesh)
         batch = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
@@ -417,11 +499,11 @@ def build_lm(arch: ArchDef, shape: LMShape, mesh: Mesh,
         specs = (params_like, opt_like, batch)
         in_sh = (param_sh, opt_sh, batch_sh)
         flops = 3.0 * _lm_flops_fwd(cfg, b * s, kv_len=s // 2)
+        fn = _lm_opt_train_fn(ctx, in_sh, specs, name, b, s) if opt else \
+            _lm_train_fn(ctx, in_sh, specs, name, sharded and n_dp > 1,
+                         b * s)
         return StepBundle(
-            name=name, kind="train",
-            fn=_lm_train_fn(ctx, in_sh, specs, name, sharded and n_dp > 1,
-                            b * s),
-            specs=specs, in_shardings=in_sh,
+            name=name, kind="train", fn=fn, specs=specs, in_shardings=in_sh,
             out_shardings=(param_sh, opt_sh, _rep(mesh)),
             donate=(0, 1), meta=_lm_meta(cfg, flops, b * s))
 

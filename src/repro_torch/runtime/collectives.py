@@ -22,6 +22,11 @@ overwrites).
   tensor cut into equal blocks along ``split_dim``, block ``j`` to rank
   ``j``, which concatenates what it gets along ``concat_dim`` in rank
   order;
+* ``permute_chunks(xs, mesh, axes, split_dim, concat_dim, routes)`` —
+  an all-to-all with any routing: rank ``r``'s tensor cut into equal
+  chunks along ``split_dim``, rank ``r`` concatenating along
+  ``concat_dim`` the chunks ``routes[r]`` names, each ``(source rank,
+  chunk)`` of the group once; its adjoint is the inverse routing;
 * ``copy_to(xs, mesh, axes)`` — Megatron's "copy": the identity forward,
   an all-reduce of the gradients backward. A replicated parameter's
   copies pass through it, so each copy's gradient is the sum of every
@@ -57,7 +62,9 @@ device to the entries' counters by operation (``wire_bytes``), with the
 formulas of the JAX package's HLO statistics, ``nbytes`` the bytes of one
 device's result and ``g`` the group's size: all-gather ``nbytes (g - 1) /
 g``, all-reduce ``2 nbytes (g - 1) / g``, reduce-scatter ``nbytes (g -
-1)``, all-to-all ``nbytes (g - 1) / g``. They are the port's stand-in for
+1)``, all-to-all ``nbytes (g - 1) / g``; ``permute_chunks`` counts as an
+all-to-all the bytes each rank receives from the others (the same figure
+where the routing is an all-to-all's). They are the port's stand-in for
 what the JAX package reads from a compiled step's HLO.
 
 """
@@ -219,6 +226,42 @@ def _to_all(xs, mesh, axes, split_dim, concat_dim):
     return outs
 
 
+def _permute(xs, mesh, axes, split_dim, concat_dim, routes):
+    """``routes[r]``: the (source rank, chunk) pairs rank ``r`` of every
+    group concatenates; each rank's tensor is cut into as many equal
+    chunks as each rank takes."""
+    gs = groups(mesh, axes)
+    c = len(routes[0])
+    outs = [None] * len(xs)
+    for group in gs:
+        for r, i in enumerate(group):
+            dev = mesh.devices[i]
+            parts = []
+            for src, j in routes[r]:
+                x = xs[group[src]]
+                n = x.shape[split_dim]
+                if n % c:
+                    raise ValueError(f"permute_chunks: dim {split_dim} of "
+                                     f"{tuple(x.shape)} does not split into "
+                                     f"{c} chunks")
+                part = x.narrow(split_dim, j * (n // c), n // c).to(dev)
+                if src != r:
+                    _WIRE["all_to_all"][i] += part.numel() * \
+                        part.element_size()
+                parts.append(part)
+            outs[i] = torch.cat(parts, dim=concat_dim)
+    return outs
+
+
+def _inverse(routes) -> list:
+    """The routing that sends every chunk of ``routes`` back."""
+    inv = [[None] * len(routes[0]) for _ in routes]
+    for r, route in enumerate(routes):
+        for pos, (src, j) in enumerate(route):
+            inv[src][j] = (r, pos)
+    return inv
+
+
 def _saved(ctx, args, outs) -> tuple:
     ctx.args = args
     ctx.out_shapes = [o.shape for o in outs]
@@ -285,6 +328,20 @@ class _AllToAll(torch.autograd.Function):
         return (None, None, None, None,
                 *_to_all(_grads(ctx, gs), mesh, axes, concat_dim,
                          split_dim))
+
+
+class _PermuteChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, split_dim, concat_dim, routes, *xs):
+        return _saved(ctx, (mesh, axes, split_dim, concat_dim, routes),
+                      _permute(xs, mesh, axes, split_dim, concat_dim, routes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axes, split_dim, concat_dim, routes = ctx.args
+        return (None, None, None, None, None,
+                *_permute(_grads(ctx, gs), mesh, axes, concat_dim,
+                          split_dim, _inverse(routes)))
 
 
 class _CopyTo(torch.autograd.Function):
@@ -397,6 +454,27 @@ def all_to_all(xs, mesh: Mesh, axes, split_dim: int,
                concat_dim: int) -> list:
     return _apply(_AllToAll, mesh, "all_to_all", xs, axes, split_dim,
                   concat_dim)
+
+
+def permute_chunks(xs, mesh: Mesh, axes, split_dim: int, concat_dim: int,
+                   routes) -> list:
+    """Within each group over ``axes``, rank ``r``'s result is the chunks
+    ``routes[r]`` names — ``(source rank, chunk index)`` pairs, each
+    source's tensor cut into ``len(routes[r])`` equal chunks along
+    ``split_dim`` — concatenated along ``concat_dim`` in that order. The
+    routing must take every chunk of the group exactly once; backward
+    sends each chunk's gradient back by the inverse routing."""
+    routes = tuple(tuple((int(s), int(j)) for s, j in r) for r in routes)
+    g = len(groups(mesh, _axes(axes))[0])
+    c = len(routes[0]) if routes else 0
+    taken = sorted(p for r in routes for p in r)
+    if len(routes) != g or any(len(r) != c for r in routes) \
+            or taken != [(s, j) for s in range(g) for j in range(c)]:
+        raise ValueError(f"permute_chunks: routes {routes} do not take each "
+                         f"of the {g} ranks' chunks exactly once, the same "
+                         f"number to each rank")
+    return _apply(_PermuteChunks, mesh, "permute_chunks", xs, axes,
+                  split_dim, concat_dim, routes)
 
 
 def copy_to(xs, mesh: Mesh, axes) -> list:

@@ -74,10 +74,13 @@ from repro_torch.runtime.sharding import lm_param_rules
 
 class Ctx(MeshCtx):
     """A mesh and an LM config: the axes, each entry's coordinates, and
-    how the heads split over ``model``."""
+    how the heads split over ``model``; ``rules`` the param rules
+    (``lm_param_rules`` unless given: ``runtime.lm_seqpar`` passes
+    ``lm_param_rules_zero``)."""
 
-    def __init__(self, mesh: Mesh, cfg: T.LMConfig):
-        super().__init__(mesh, lm_param_rules(mesh))
+    def __init__(self, mesh: Mesh, cfg: T.LMConfig, rules: list = None):
+        super().__init__(mesh, lm_param_rules(mesh) if rules is None
+                         else rules)
         self.cfg = cfg
         self.tp = mesh.shape["model"]
         self.m = self.at["model"]
@@ -86,22 +89,24 @@ class Ctx(MeshCtx):
         self.all_kv = self.all_heads or hkv % self.tp != 0
 
 
-def local(ctx: Ctx, shards: list, spec, *, model: bool = False) -> list:
+def local(ctx: Ctx, shards: list, spec, *, model: bool = False,
+          every: bool = False) -> list:
     """A leaf's per-entry tensor for the matmuls: its copies passed through
     ``copy_to`` over the axes its spec does not name, then gathered over
-    the data axes on the dim the spec splits over them (FSDP), and with
-    ``model`` over ``model`` too. ``spec`` is the leaf's (a layer slice's
-    without the leading layer entry)."""
+    the data axes on the dim the spec splits over them (FSDP), with
+    ``model`` over ``model`` too, and with ``every`` on every dim the spec
+    splits, whatever its axes (ZeRO-3: the whole leaf). ``spec`` is the
+    leaf's (a layer slice's without the leading layer entry)."""
     xs = list(shards)
     unnamed = ctx.unnamed(spec)
-    if int(np.prod([ctx.mesh.shape[a] for a in unnamed])) > 1:
+    if ctx.size(unnamed) > 1:
         xs = C.copy_to(xs, ctx.mesh, unnamed)
     for dim, entry in enumerate(spec):
         axes = _spec_axes(entry)
-        if axes and set(axes) <= set(ctx.da) and ctx.n_dp > 1:
+        if axes and ctx.size(axes) > 1 and (
+                every or set(axes) <= set(ctx.da)
+                or (model and axes == ("model",))):
             xs = C.all_gather(xs, ctx.mesh, axes, dim)
-        if model and axes == ("model",) and ctx.tp > 1:
-            xs = C.all_gather(xs, ctx.mesh, "model", dim)
     return xs
 
 
@@ -113,10 +118,12 @@ def _data_sum(ctx: Ctx, xs: list) -> list:
     return C.all_reduce(xs, ctx.mesh, ctx.da) if ctx.n_dp > 1 else list(xs)
 
 
-def _layer_leaf(ctx: Ctx, lps: list, path: str, *, model: bool = False):
+def _layer_leaf(ctx: Ctx, lps: list, path: str, *, model: bool = False,
+                every: bool = False):
     a, b = path.split("/")
     spec = ctx.spec(f"layers/{path}")[1:]
-    return local(ctx, [lp[a][b] for lp in lps], spec, model=model)
+    return local(ctx, [lp[a][b] for lp in lps], spec, model=model,
+                 every=every)
 
 
 def _norm(ctx: Ctx, lps: list, name: str, xs: list) -> list:
@@ -133,7 +140,9 @@ def embed_table(ctx: Ctx, params: list) -> list:
     return local(ctx, [p["embed"] for p in params], ctx.spec("embed"))
 
 
-def embed(ctx: Ctx, table: list, tokens: list) -> list:
+def lookup(ctx: Ctx, table: list, tokens: list) -> list:
+    """Each entry's lookup of ``tokens`` in its vocabulary rows (other
+    tokens give 0): summed over ``model``, the embedding."""
     xs = []
     for e, (t, tok) in enumerate(zip(table, tokens)):
         rows = t.shape[0]
@@ -142,7 +151,11 @@ def embed(ctx: Ctx, table: list, tokens: list) -> list:
         x = t[torch.clamp(idx, 0, rows - 1)]
         xs.append(torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
                                                             device=x.device)))
-    return _model_sum(ctx, xs)
+    return xs
+
+
+def embed(ctx: Ctx, table: list, tokens: list) -> list:
+    return _model_sum(ctx, lookup(ctx, table, tokens))
 
 
 def head(ctx: Ctx, params: list, table: list) -> list:

@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_ref, attention_split_ref, split_plan,
 )
 from repro_torch.models import layers as L
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 # tests/test_kernels.py's cases, kwargs and tolerances
 ATTN_CASES = [

@@ -17,6 +17,7 @@ from repro_torch.kernels.embedding_bag.embedding_bag import (
     backward_order, embedding_bag_backward,
 )
 from repro_torch.kernels.embedding_bag.ref import backward_order_ref
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 SHORT_RUN = 32             # the pass sorts runs of at most this many slots
 

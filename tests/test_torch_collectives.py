@@ -14,6 +14,7 @@ import torch
 from repro.launch import hlo_stats
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.runtime import collectives as C
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 MESHES = {1: ((1,), ("x",)), 2: ((2,), ("x",)), 4: ((4,), ("x",)),
           "2x2": ((2, 2), ("a", "b"))}

@@ -32,6 +32,7 @@ from repro_torch.optim import (
     compressed_allreduce_grads, init_error_feedback, int8_compress,
     int8_decompress,
 )
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"w": (64,), "big": (4099,), "blk": {"a": (3, 5), "b": (7, 2, 3)}}

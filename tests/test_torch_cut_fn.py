@@ -23,6 +23,7 @@ from repro_torch.graph import stream as tstream
 from repro_torch.runtime import sweep as tsweep
 
 from test_torch_engine import assert_same
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 # fig12's churn mix and knobs (benchmarks/fig12_autoscale_churn.py) on a
 # 150-vertex graph, with a max_cap small enough that every lane scales in

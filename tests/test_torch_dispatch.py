@@ -29,6 +29,7 @@ from repro_torch.kernels.partition_affinity import partition_affinity as pa
 
 from test_torch_engine import assert_same, churn_pair
 from test_torch_partitioner import _feed_chunks
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 # (D, element size, base address, width): the widest of 16, 8, 4 dividing

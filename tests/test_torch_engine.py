@@ -3,6 +3,8 @@ is bit-identical to the JAX package's on interleaved churn streams — every
 PartitionState leaf and every EventTrace field, load_std included — for
 every policy, both balance guards, autoscale on and off. Plus the port's
 state helpers against their JAX twins."""
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,45 @@ from repro_torch.graph import generators as tgen
 from repro_torch.graph import stream as tstream
 
 CHURN = dict(warmup_frac=0.15, del_every=2, edge_del_every=4, readd_every=6)
+
+
+def _map_count() -> int:
+    """The memory mappings this process holds (0 where /proc has none)."""
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return 0
+
+
+def _map_limit() -> int:
+    try:
+        with open("/proc/sys/vm/max_map_count") as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        return 0
+
+
+@pytest.fixture(autouse=True)
+def release_jax_executables():
+    """After a test, drops every program JAX has compiled in this process
+    (``jax.clear_caches``) once the process holds more than a sixth of the
+    kernel's limit of memory mappings; every ``tests/test_torch_*.py`` that
+    runs the JAX package imports this fixture. XLA's CPU backend maps each
+    compiled program's code into memory — about 400 mappings a
+    ``run_stream`` — and keeps them while the program is cached, so a test
+    worker that outlives a few hundred compiles reaches the limit
+    (``vm.max_map_count``, 65,530 by default on Linux): LLVM then fails
+    with "Cannot allocate memory" and the worker dies inside XLA's
+    compiler, failing whichever test was compiling. The JAX package's own
+    test modules, which a worker runs between these, compile without
+    dropping anything, so the mark is low; below it nothing is dropped
+    and a module's tests keep sharing their compiled programs."""
+    yield
+    limit = _map_limit()
+    if limit and _map_count() > limit // 6:
+        jax.clear_caches()
+        gc.collect()
 
 
 def churn_pair(seed=7, n=120, m=360):

@@ -24,6 +24,7 @@ from repro_torch.launch.mesh import (
 from repro_torch.runtime.elastic import ElasticRunner
 from repro_torch.runtime.fault import FaultTolerantLoop
 from repro_torch.runtime.shard_session import sharded_window
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def _events(loop):

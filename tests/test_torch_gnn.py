@@ -29,6 +29,7 @@ from repro_torch.launch.train import batch_tensors
 from repro_torch.models import layers as L
 from repro_torch.models.gnn import common as C
 from repro_torch.models.gnn import so3
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 GNN = ["meshgraphnet", "pna", "schnet", "nequip"]
 RTOL, ATOL = 1e-4, 1e-5          # the port's training tests' bar

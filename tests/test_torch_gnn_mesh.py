@@ -58,6 +58,7 @@ from repro_torch.optim.optimizers import opt_state_from_jax
 from repro_torch.runtime import collectives as C
 from repro_torch.runtime import gnn_halo_train as GH
 from repro_torch.runtime import gnn_mesh as GM
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 ARCH_IDS = ("meshgraphnet", "pna", "schnet", "nequip")
 GRAPH = ("mesh", 60, 150, 0)

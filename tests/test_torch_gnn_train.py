@@ -34,6 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.gnn import common as C
 from repro_torch.models.gnn import meshgraphnet as MGN
 from repro_torch.runtime.gnn_halo_train import halo_batch, make_mgn_halo_loss
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5          # the port's training tests' bar

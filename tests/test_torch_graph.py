@@ -11,6 +11,7 @@ from repro_torch.graph import csr as tcsr
 from repro_torch.graph import datasets as tds
 from repro_torch.graph import generators as tgen
 from repro_torch.graph import stream as tstream
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def _same_graph(a, b):

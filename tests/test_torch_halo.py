@@ -21,6 +21,7 @@ from repro_torch.graph import halo, sampler
 from repro_torch.graph import stream as gstream
 from repro_torch.graph.generators import make_graph
 from repro_torch.runtime.gnn_sharded import halo_aggregate, naive_aggregate
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 SPEC_ARRAYS = ("perm", "block_of", "publish_idx", "halo_map", "senders",
                "receivers")

@@ -30,6 +30,7 @@ from repro_torch.kernels.partition_affinity.partition_affinity import (
 from repro_torch.kernels.partition_affinity.ref import partition_affinity_ref
 
 from test_torch_windowed import _mid_state
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 @pytest.mark.parametrize("w,d,k", [(1, 1, 1), (7, 3, 2), (100, 37, 5),

@@ -35,6 +35,7 @@ from repro_torch.core.geometry import Geometry as TGeom
 from repro_torch.core.state import state_from_numpy, state_to_numpy
 
 from test_torch_engine import assert_same, cfg_kw, churn_pair
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 RING_CFG = dict(k_max=4, k_init=2, max_cap=10**6)
 

@@ -22,6 +22,7 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 DENSE = ["gemma2-9b", "phi3-mini-3.8b", "deepseek-coder-33b"]
 TOL = 2e-4                 # tests/test_models_lm.py's decode tolerance

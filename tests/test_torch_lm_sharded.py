@@ -49,6 +49,7 @@ from repro_torch.launch.mesh import gather, make_mesh, place_tree
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import opt_state_from_jax
 from repro_torch.runtime import collectives as C
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH_IDS = ["gemma2-9b", "moonshot-v1-16b-a3b", "phi3-mini-3.8b",

@@ -33,6 +33,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw, linear_warmup_cosine
 from repro_torch.optim.optimizers import tree_leaves
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 LM = [a for a, d in JARCHS.items() if d.family == "lm"]
 RTOL, ATOL = 1e-4, 1e-5

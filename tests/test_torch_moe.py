@@ -25,6 +25,7 @@ from repro_torch.launch import serve
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 MOE = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e"]
 RTOL = 1e-5                # f32, one framework's sums against the other's

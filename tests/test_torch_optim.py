@@ -21,6 +21,7 @@ from repro_torch.optim import (
     linear_warmup_cosine, opt_state_from_jax, sgd_momentum,
 )
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 RTOL = 1e-5
 # the tree's shapes: nested dicts, a 0-dim leaf, keys out of sorted order

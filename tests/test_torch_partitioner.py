@@ -17,6 +17,7 @@ from repro_torch.core.state import state_from_numpy
 from repro_torch.kernels.fused_chooser.ops import run_window_mixed_fused
 
 from test_torch_engine import assert_same, cfg_kw, churn_pair
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def _feed_chunks(part, s, chunk):

@@ -30,6 +30,7 @@ from repro_torch.rebalance import passes as tpasses
 
 from test_torch_engine import assert_same, cfg_kw, churn_pair
 from test_torch_graph import _same_stream
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 _J_RB = jax.jit(jpasses.rebalance_state, static_argnames=("m", "passes"))
 _J_LPA = jax.jit(jpasses.lpa_pass, static_argnames=("passes",))

@@ -37,6 +37,7 @@ from repro_torch.runtime import (
 )
 
 from test_torch_engine import assert_same
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(k_max=8, k_init=1, max_cap=100)

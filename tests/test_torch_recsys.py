@@ -27,6 +27,7 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.launch import serve, train
 from repro_torch.models import layers as L
 from repro_torch.models import recsys as RS
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 # (V, D, B, L, mode): tests/test_kernels.py's embedding_bag shapes
 BAG_SHAPES = [(10, 8, 4, 1, "sum"), (50, 24, 12, 5, "sum"),

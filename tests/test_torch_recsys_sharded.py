@@ -44,6 +44,7 @@ from repro_torch.models import recsys as RS
 from repro_torch.optim.optimizers import opt_state_from_jax
 from repro_torch.runtime import collectives as C
 from repro_torch.runtime import recsys_sharded as RSS
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"d2m2": (2, 2), "d1m4": (1, 4)}

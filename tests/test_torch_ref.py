@@ -22,6 +22,7 @@ from repro_torch.graph import generators as tgen
 from repro_torch.graph import stream as tstream
 
 from test_sdp_engine import CASES, _assert_match
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def _cfg(jcfg) -> EngineConfig:

@@ -10,6 +10,7 @@ import torch
 from repro.core import transition as jtx
 from repro_torch.core import rng
 from repro_torch.core import transition as ttx
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 SEEDS = [0, 1, 3, 12345, 2**31 - 1, -1, -7]
 

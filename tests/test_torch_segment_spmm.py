@@ -19,6 +19,7 @@ from repro.kernels.segment_spmm.segment_spmm import (
 from repro_torch.kernels.segment_spmm.ops import ell_aggregate
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
 from repro_torch.kernels.segment_spmm.segment_spmm import plan, segment_spmm
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 # tests/test_kernels.py's shapes (N, Dmax, F, mode) and tolerances, plus a
 # row wider than a 32-id tile of the kernel's slot loop

@@ -27,6 +27,7 @@ from repro_torch.graph import generators as tgen
 from repro_torch.graph import stream as tstream
 
 from test_torch_engine import assert_same
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 CFG = dict(k_max=8, k_init=1, max_cap=100)
 WAIT = 60          # seconds: the bound of every flush / join in this file

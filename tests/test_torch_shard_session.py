@@ -41,6 +41,7 @@ from repro_torch.launch.mesh import (
 )
 from repro_torch.runtime.recovery import RecoverableSession
 from repro_torch.runtime.shard_session import run_stream_sharded
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 W = 64  # small window: more windows (and sums) per stream
 

@@ -37,6 +37,7 @@ from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.runtime import sharding as SHR
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"data4_model2": ((4, 2), ("data", "model")),

@@ -6,12 +6,12 @@ Every LM arch x LM shape at its full ``CONFIG`` is built on a (16, 16)
 held to JAX's ``build_step`` on ``make_production_mesh()`` (256 forced
 host devices, in a child process, as ``tests/test_steps_and_stats.py``
 builds its bundles): name, kind, each spec's shape and dtype, each in and
-out ``PartitionSpec``, ``donate`` and ``meta``, all exact. So is every GNN
+out ``PartitionSpec``, ``donate`` and ``meta``, all exact, and so is every
+LM arch's ``train_4k`` cell under the ``opt`` scheme. So is every GNN
 and recsys cell: the GNNs under ``baseline`` and MeshGraphNet's full-graph
 cells under ``halo`` too, recsys under ``baseline`` and ``opt``. The
 cells JAX refuses (skip-marked, the ``halo`` scheme beyond MeshGraphNet's
-full graphs) raise, and so does the LM ``opt`` scheme's train step, which
-the port does not build yet. A bundle's
+full graphs) raise. A bundle's
 ``fn`` updates donated arguments in place and raises on an argument that
 is not placed as ``in_shardings``. Every decode cell whose cache is split
 over the sequence dispatches its key blocks to the split kernel, the one
@@ -37,6 +37,7 @@ from repro_torch.launch.mesh import (
     place_tree,
 )
 from repro_torch.models import transformer as T
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM_CELLS = [(a, s) for a, d in ARCHS.items() if d.family == "lm"
@@ -69,11 +70,13 @@ def walk(x, pre, out, leaf):
 mesh = make_production_mesh()
 res = {}
 for a, arch in ARCHS.items():
-    schemes = {"lm": ("baseline",), "recsys": ("baseline", "opt"),
+    schemes = {"lm": ("baseline", "opt"), "recsys": ("baseline", "opt"),
                "gnn": ("baseline", "halo") if a == "meshgraphnet"
                else ("baseline",)}[arch.family]
     for s in arch.shapes:
       for sch in schemes:
+        if arch.family == "lm" and sch == "opt" and s != "train_4k":
+            continue
         key = f"{a}:{s}" if sch == "baseline" else f"{a}:{s}:{sch}"
         try:
             b = build_step(a, s, mesh, sch)
@@ -191,8 +194,15 @@ def test_gnn_and_recsys_cells_raise(arch_id, meta_mesh, jax_bundles):
 
 
 def test_opt_and_halo_schemes(meta_mesh, jax_bundles):
-    with pytest.raises(ValueError, match="ROADMAP A18.4, the opt scheme"):
-        S.build_step("gemma2-9b", "train_4k", meta_mesh, "opt")
+    """Every LM arch's ``train_4k`` bundle under the ``opt`` scheme (ZeRO-3
+    params, the batch at (data, model), MoE dispatch groups n_dp · tp)
+    equals JAX's; the halo scheme is not an LM scheme; on other cells
+    ``opt`` is the baseline, as in JAX."""
+    lm = [a for a, d in ARCHS.items() if d.family == "lm"]
+    for arch_id in lm:
+        _assert_bundle_equal(
+            S.build_step(arch_id, "train_4k", meta_mesh, "opt"),
+            jax_bundles[f"{arch_id}:train_4k:opt"], meta_mesh)
     with pytest.raises(ValueError, match="build_gnn_halo"):
         S.build_step("gemma2-9b", "prefill_32k", meta_mesh, "halo")
     # JAX's opt scheme changes only the train cells

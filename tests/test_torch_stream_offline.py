@@ -20,6 +20,7 @@ from repro_torch.graph import datasets as tds
 from repro_torch.graph import stream as tstream
 
 from test_torch_graph import _same_graph, _same_stream
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 SEEDS = [0, 1, 7]
 

@@ -28,6 +28,7 @@ from repro_torch.graph import stream as tstream
 from repro_torch.runtime import sweep_events
 
 from test_torch_engine import assert_same
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 # the kernel lanes' cases of the same tests are in test_torch_sweep_kernel.py
 ENGINES = ("scan", "windowed")

@@ -26,6 +26,7 @@ from repro_torch.runtime import run_sweep
 
 from test_torch_engine import assert_same
 from test_torch_sweep import _assert_lanes, _pair, _runs
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def test_shared_stream_sharded_and_shim_match_jax():

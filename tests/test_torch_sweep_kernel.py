@@ -35,6 +35,7 @@ from test_torch_sweep import (
     _assert_lanes, _churn, _heterogeneous, _jax_per_lane, _jax_policy_sweep,
     _pair, _per_lane_fixture, _policy_lanes, _runs,
 )
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 @pytest.mark.parametrize("autoscale", [True, False])

@@ -35,6 +35,7 @@ from repro_torch.launch import steps, train
 from repro_torch.models import recsys as RS
 from repro_torch.optim import adamw, linear_warmup_cosine, opt_state_from_jax
 from repro_torch.optim.optimizers import tree_leaves, tree_map
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5      # tests/test_recsys.py's tolerance
 ARCH = "two-tower-retrieval"

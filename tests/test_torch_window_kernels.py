@@ -34,6 +34,7 @@ from repro_torch.kernels.window_rng.ops import window_rng
 
 from test_torch_engine import assert_same, cfg_kw, churn_pair
 from test_torch_windowed import _mid_state
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 
 def _adds_case(k_max, policy, guard, autoscale, seed=5, w=32):

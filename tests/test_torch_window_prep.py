@@ -19,6 +19,7 @@ from repro_torch.kernels.fused_chooser import sweep as fsweep
 from repro_torch.kernels.fused_chooser.ref import (
     prepare_window_chains, prepare_window_ref,
 )
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 _JAX_PREP = jax.jit(jops._prepare_window)
 _STATES = {}

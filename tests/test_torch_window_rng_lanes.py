@@ -36,6 +36,7 @@ from test_torch_engine import assert_same
 from test_torch_sweep import (
     _assert_lanes, _churn, _jax_policy_sweep, _policy_lanes, _runs,
 )
+from test_torch_engine import release_jax_executables  # noqa: F401
 
 _JAX_DRAW = jax.jit(jax.vmap(
     lambda key, i, m: jax.vmap(
